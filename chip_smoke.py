@@ -16,10 +16,30 @@ Phases, each raising on failure (exit code 1):
    content images), the kernels' launch counts of that run, and the same
    translation on the CPU, which the card must match;
 5. translation time per image at batch 1 and 8, TF32 off and on, and a
-   profile of where a translation spends its device time at each batch.
+   profile of where a translation spends its device time at each batch;
+6. each backward kernel against the plain closed-form backward and against
+   autograd of the plain forward, at every norm shape of the training path
+   (the wide decodes at twice the batch), f32 and bf16, ReLU on and off;
+   then kernel, plain backward, one library call's autograd backward and
+   the byte bound timed per shape;
+7. the training path: configs/config_256.yaml at full width with
+   ``semantic_w: 0`` (printed), seeded random weights, images and masks;
+   15 iterations in bench.py's cadence (12 dis steps, 3 fused dis+gen
+   steps, 1 classifier_sr step) at batch 1 and 8 with every loss finite
+   and the wrappers' launch counts asserted; one fused step's gradients on
+   the card (TF32 off) against the CPU at batch 1;
+8. training time at batch 1 and 8, TF32 on: each step kind, ms per
+   iteration over the 5-iteration cycle, images/s as bench.py counts them,
+   peak memory, and a profile of one fused step.
 Earlier lines are JSON objects. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
 checkout of the repo, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --ab TREE [TREE ...]
+
+times translation (phase 5) in each given checkout of the repo, one fresh
+process after another, with that checkout's own code: the same-call
+comparison of two trees (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -208,7 +228,9 @@ def golden_phase(norms, GenBundle, validate, load_reference_checkpoint):
     e = float(np.abs(y - blob["y"]).max())
     emit(phase="golden", max_abs_err=e, tol=1e-3, launches=counts)
     check(e <= 1e-3, f"golden fixture differs on the card by {e}")
-    check(all(counts.values()), f"golden run missed a kernel: {counts}")
+    check(all(counts[n] for n in norms.NAMES) and
+          not any(counts[n + "_bwd"] for n in norms.NAMES),
+          f"golden run missed a kernel: {counts}")
 
 
 # ----------------------------------------------------------------- phase 4
@@ -248,7 +270,8 @@ def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
     wall = time.perf_counter() - t0
     launches = dict(norms.launches)
     want = {"instance_norm": 11 * N_IMAGES, "adain": 8 * N_IMAGES,
-            "whole_layer_norm": 2 * N_IMAGES}
+            "whole_layer_norm": 2 * N_IMAGES, "instance_norm_bwd": 0,
+            "adain_bwd": 0, "whole_layer_norm_bwd": 0}
     emit(phase="translate_card", images=N_IMAGES, seconds=wall,
          launches=launches, expected=want)
     check(launches == want, f"launch counts {launches}, expected {want}")
@@ -310,65 +333,537 @@ def timing_phase(GenBundle, load_reference_checkpoint, conf, ckpt):
     return result
 
 
-def profile(step, b, ms_per_image):
-    """Device time by kernel per image over 5 batch-b steps, TF32 on; the
-    idle share is against the unprofiled time per image."""
+# Kernel-name fragments of each group of device time, tried in this order.
+GROUPS = (
+    ("norm bwd", ("norm_bwd",)),
+    ("norm fwd", ("norm_partials", "norm_finalize", "norm_apply")),
+    ("pad", ("pad",)),
+    ("optimizer", ("foreach", "multi_tensor", "adam")),
+    ("conv", ("conv", "xmma", "gemm", "sm90", "implicit", "cudnn",
+              "winograd", "fft", "wgrad", "dgrad", "fprop", "cutlass")),
+)
+
+
+def device_profile(step, reps):
+    """[(device ms per step, kernel name, launches per step)] of ``reps``
+    runs of ``step`` under torch.profiler, largest first, and the profiled
+    host wall ms per step."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
-    for _ in range(3):
-        step()
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(reps):
             step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = []
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total",
                       getattr(ev, "self_cuda_time_total", 0))
         if dev > 0 and getattr(ev, "device_type", None) is not None \
                 and "CUDA" in str(ev.device_type):
-            rows.append((dev / 1e3 / 5 / b, ev.key, ev.count // 5))
+            rows.append((dev / 1e3 / reps, ev.key, ev.count / reps))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    groups = {"norm kernels": 0.0, "conv": 0.0, "pad": 0.0, "other": 0.0}
+    return rows, wall_ms
+
+
+def grouped(rows, per=1.0):
+    groups = {name: 0.0 for name, _ in GROUPS}
+    groups["other"] = 0.0
     for ms, key, _ in rows:
         k = key.lower()
-        if any(t in k for t in ("norm_partials", "norm_finalize",
-                                "norm_apply")):
-            groups["norm kernels"] += ms
-        elif "pad" in k:
-            groups["pad"] += ms
-        elif any(t in k for t in ("conv", "xmma", "gemm", "sm90", "implicit",
-                                  "cudnn", "winograd", "fft")):
-            groups["conv"] += ms
-        else:
-            groups["other"] += ms
+        name = next((n for n, frags in GROUPS
+                     if any(f in k for f in frags)), "other")
+        groups[name] += ms / per
+    return groups
+
+
+def profile(step, b, ms_per_image):
+    """Device time by kernel per image over 5 batch-b steps, TF32 on; the
+    idle share is against the unprofiled time per image."""
+    for _ in range(3):
+        step()
+    rows, wall_ms = device_profile(step, 5)
+    busy = sum(r[0] for r in rows) / b
     emit(phase="profile", batch=b, tf32=True,
-         profiled_wall_ms_per_image=wall_ms / 5 / b,
+         profiled_wall_ms_per_image=wall_ms / b,
          device_busy_ms_per_image=busy if rows else "not measured",
          device_idle_share=(1 - busy / ms_per_image) if rows
          else "not measured",
-         by_group_ms=groups,
-         top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
+         by_group_ms=grouped(rows, b),
+         top=[{"ms": r[0] / b, "calls_per_step": r[2], "kernel": r[1][:90]}
               for r in rows[:12]])
 
 
+# ----------------------------------------------------------------- phase 6
+
+# Backward calls of each wrapper per fused step at batch B, by (batch
+# multiple, H, W, C): the wide decodes run at 2B (recon | cross), the cycle
+# decodes and the content encoders at B (train/trainer.py).
+BWD_CALLS = {
+    "instance_norm": {(1, 256, 256, 64): 4, (1, 128, 128, 128): 4,
+                      (1, 64, 64, 256): 36},
+    "adain": {(2, 64, 64, 256): 16, (1, 64, 64, 256): 16},
+    "whole_layer_norm": {(2, 128, 128, 128): 2, (2, 256, 256, 64): 2,
+                         (1, 128, 128, 128): 2, (1, 256, 256, 64): 2},
+}
+BWD_REPLACES = {
+    "instance_norm": "munit_tpu/kernels/norms.py:188",
+    "adain": "munit_tpu/kernels/norms.py:152",
+    "whole_layer_norm": "munit_tpu/kernels/norms.py:253",
+}
+BWD_ALSO = "tools/normprobe3.py:102"
+BWD_FLOPS_PER_ELEMENT = 14  # two recomputes of xh, mask, two sums, the apply
+
+
+def gap_inputs(b, h, w, c, dtype, gen):
+    """Inputs whose pre-activations x̂ gamma + beta stay 0.3 |gamma| or
+    more from 0, so a recomputed ReLU mask cannot flip on a last-ulp
+    difference: x = ±(1 + |N(0,1)|) + 0.5, |gamma| in [0.5, 1.5),
+    |beta / gamma| <= 0.2; dy ~ N(0, 1)."""
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    x = torch.sign(x) * (1 + x.abs()) + 0.5
+
+    def affine(*shape):
+        sign = torch.where(torch.rand(shape, generator=gen, device="cuda")
+                           < 0.5, -1.0, 1.0)
+        g = sign * (0.5 + torch.rand(shape, generator=gen, device="cuda"))
+        u = torch.rand(shape, generator=gen, device="cuda") * 0.4 - 0.2
+        return g, g * u
+
+    g2, b2 = affine(b, c)
+    g1, b1 = affine(c)
+    g1, b1 = g1.abs(), b1 * g1.sign()
+    dy = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    return {"x": x.to(dtype), "g2": g2, "b2": b2, "g1": g1, "b1": b1,
+            "dy": dy.to(dtype)}
+
+
+def affine_of(name, a):
+    return {"instance_norm": [], "adain": [a["g2"], a["b2"]],
+            "whole_layer_norm": [a["g1"], a["b1"]]}[name]
+
+
+def kernel_graph(norms, name, a, relu):
+    """(y, inputs) of the kernel's forward with its autograd graph."""
+    x = a["x"].detach().requires_grad_(True)
+    aff = [t.detach().requires_grad_(True) for t in affine_of(name, a)]
+    return getattr(norms, name)(x, *aff, relu), [x, *aff]
+
+
+def plain_graph(norms, name, a, relu):
+    x = a["x"].detach().requires_grad_(True)
+    aff = [t.detach().requires_grad_(True) for t in affine_of(name, a)]
+    return getattr(norms, name + "_plain")(x, *aff, relu), [x, *aff]
+
+
+def plain_backward(norms, name, a, relu):
+    fn = getattr(norms, name + "_backward_plain")
+    out = fn(a["x"], *affine_of(name, a), a["dy"], relu)
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def library_backward(name, a):
+    """Autograd backward of one PyTorch call for the same norm, on NCHW
+    copies (its preferred layout); the port never calls it."""
+    x = a["x"].permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    dy = a["dy"].permute(0, 3, 1, 2).contiguous()
+    b, c, h, w = x.shape
+    if name == "instance_norm":
+        y, inputs = F.instance_norm(x), [x]
+    elif name == "adain":
+        g = a["g2"].reshape(-1).detach().requires_grad_(True)
+        bt = a["b2"].reshape(-1).detach().requires_grad_(True)
+        y = F.batch_norm(x.view(1, b * c, h, w), None, None, g, bt, True,
+                         0.1, 1e-5).view(b, c, h, w)
+        inputs = [x, g, bt]
+    else:
+        g = a["g1"].detach().requires_grad_(True)
+        bt = a["b1"].detach().requires_grad_(True)
+        y, inputs = F.group_norm(x, 1, g, bt, 1e-5), [x, g, bt]
+    return lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True)
+
+
+def bwd_bound(name, a):
+    """Read x and dy once, write dx once; the affine rows and their grads."""
+    x = a["x"]
+    nbytes = 3 * x.numel() * x.element_size()
+    nbytes += 4 * sum(t.numel() * 4 for t in affine_of(name, a))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = BWD_FLOPS_PER_ELEMENT * x.numel() / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def close(got, want, dtype):
+    """f32: rtol 1e-4 and 1e-4 of the largest |want| (summation order);
+    bf16: two bf16 ulps of it. Returns the max abs error."""
+    scale = want.float().abs().max().item()
+    tol = 1e-4 if dtype == torch.float32 else 2 * 2**-8
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= tol * scale + tol * want.float().abs()).all())
+    return err.max().item(), ok
+
+
+def backward_phase(norms):
+    """Each backward kernel against the plain closed form and autograd of
+    the plain forward, at every norm shape of the training path, f32 and
+    bf16, ReLU on and off; timed (f32, ReLU off) against the byte bound,
+    the plain closed form and one library call's autograd backward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    flush = torch.empty(100 * 2**20 // 4, device="cuda")
+    err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in BWD_CALLS}
+    times = {}
+    for name, calls in BWD_CALLS.items():
+        for mult, h, w, c in calls:
+            for b in (mult * bb for bb in BATCHES):
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).split(".")[1]
+                    a = gap_inputs(b, h, w, c, dtype, gen)
+                    shape_err = 0.0
+                    for relu in (False, True):
+                        y, inputs = kernel_graph(norms, name, a, relu)
+                        got = torch.autograd.grad(y, inputs, a["dy"])
+                        yp, ip = plain_graph(norms, name, a, relu)
+                        auto = torch.autograd.grad(yp, ip, a["dy"])
+                        closed = plain_backward(norms, name, a, relu)
+                        torch.cuda.synchronize()
+                        check(y.grad_fn is not None and got[0].dtype == dtype,
+                              f"{name}: no grad_fn or dx dtype differs")
+                        for want, what in ((closed, "closed form"),
+                                           (auto, "autograd of plain")):
+                            for part, g_, w_ in zip(("dx", "dgamma", "dbeta"),
+                                                    got, want):
+                                e, ok = close(g_, w_, dtype)
+                                shape_err = max(shape_err, e)
+                                check(ok, f"{name} bwd {(b, h, w, c)} {dname} "
+                                          f"relu={relu} {part}: kernel "
+                                          f"differs from {what} by {e}")
+                    row = {"kernel": name + "_bwd", "shape": [b, h, w, c],
+                           "dtype": dname, "max_abs_err": shape_err}
+                    if dtype == torch.float32:
+                        y, inputs = kernel_graph(norms, name, a, False)
+                        row["ms"] = time_ms(lambda: torch.autograd.grad(
+                            y, inputs, a["dy"], retain_graph=True), flush)
+                        row["plain_ms"] = time_ms(
+                            lambda: plain_backward(norms, name, a, False),
+                            flush)
+                        row["library_ms"] = time_ms(library_backward(name, a),
+                                                    flush)
+                        row["bound_ms"], row["bound_by"] = bwd_bound(name, a)
+                        times[(name, mult, h, w, c, b)] = row
+                    err[name][dname] = max(err[name][dname], shape_err)
+                    emit(phase="backward_kernel", **row)
+                    del a
+    return err, times
+
+
+# ----------------------------------------------------------------- phase 7
+
+TRAIN_ITERS = 15        # bench.py's cadence: 12 dis, 3 fused, 1 classifier_sr
+
+
+def step_launches(conf):
+    """Forward and backward launches of one step of each kind at wide 1
+    (train/trainer.py): a content encode runs 1 + n_downsample + 2 n_res IN,
+    a decode 2 n_res AdaIN and n_downsample LN. A dis step encodes both
+    domains and decodes one batch per domain; a fused step does that twice
+    (the second encode and decode are the re-encode and the cycle) and runs
+    every norm backward; a classifier_sr step encodes both domains. At
+    config_256: 22 IN, 16 AdaIN, 4 LN; 44, 32, 8 each way; 22 IN."""
+    g = conf["gen"]
+    enc = 1 + g["n_downsample"] + 2 * g["n_res"]
+    dec = {"adain": 2 * g["n_res"], "whole_layer_norm": g["n_downsample"]}
+    dis = {"instance_norm": 2 * enc, **{k: 2 * v for k, v in dec.items()}}
+    fused = {k: 2 * v for k, v in dis.items()}
+    fused.update({k + "_bwd": v for k, v in fused.items()})
+    return {"dis": dis, "fused": fused,
+            "classifier_sr": {"instance_norm": 2 * enc}}
+
+
+# Card (TF32 off) against CPU, relative L2 error per gradient leaf. At full
+# width, ReLU masks flip on last-ulp differences and float32 sums run over
+# ~40 layers; phase 7 also prints each float32 run's error against a
+# float64 CPU run, the yardstick for this tolerance.
+GRAD_TOL = 2e-2
+
+
+def cadence(conf, iters):
+    """Steps of each kind over ``iters`` iterations of bench.py's loop."""
+    ad = conf["adaptation"]
+    fused = sum((it + 1) % conf["ratio_disc_gen"] == 0 for it in range(iters))
+    cls = sum((it + 1) % ad["classif_frequency"] == 0 for it in range(iters))
+    return {"dis": iters - fused, "fused": fused, "classifier_sr": cls}
+
+
+def expected_launches(norms, conf, steps):
+    want = {k: 0 for k in norms.launches}
+    per_step = step_launches(conf)
+    for kind, n in steps.items():
+        for k, per in per_step[kind].items():
+            want[k] += n * per
+    return want
+
+
+def train_inputs(b, seed):
+    """Seeded images in [-1, 1] and masks (30 % ones) on the card."""
+    g = torch.Generator().manual_seed(seed)
+    x_a, x_b = (torch.rand((b, 256, 256, 3), generator=g) * 2 - 1
+                for _ in range(2))
+    m_a, m_b = ((torch.rand((b, 256, 256, 1), generator=g) > 0.7).float()
+                for _ in range(2))
+    return [t.cuda() for t in (x_a, x_b, m_a, m_b)]
+
+
+def new_trainer(MUNITTrainer, conf, device):
+    tr = MUNITTrainer(conf, device)
+    tr.init(torch.Generator().manual_seed(SEED))
+    return tr
+
+
+def training_phase(norms, MUNITTrainer, train_steps, conf, b):
+    """15 iterations at batch b on the card (TF32 on), every loss finite,
+    the wrappers' launches as the cadence predicts."""
+    parity_mode(False)
+    tr = new_trainer(MUNITTrainer, conf, "cuda")
+    batch = train_inputs(b, SEED + b)
+    torch.cuda.reset_peak_memory_stats()
+    norms.reset_launches()
+    t0 = time.perf_counter()
+    metrics = train_steps(tr, *batch, range(TRAIN_ITERS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, copies = dict(norms.launches), dict(norms.dy_copies)
+    steps = cadence(conf, TRAIN_ITERS)
+    want = expected_launches(norms, conf, steps)
+    values = {k: float(v) for m in metrics for k, v in m.items()}
+    finite = all(np.isfinite(float(v)) for m in metrics for v in m.values())
+    emit(phase="train_card", batch=b, iterations=TRAIN_ITERS, steps=steps,
+         seconds_incl_first_calls=wall, launches=launches, expected=want,
+         dy_copies=copies, finite=finite,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+         losses_first={k: float(v) for k, v in metrics[4].items()},
+         losses_last={k: float(v) for k, v in metrics[-1].items()})
+    check(finite, f"batch {b}: a loss is not finite: {values}")
+    check(launches == want, f"batch {b}: launches {launches}, want {want}")
+    return tr, batch, launches
+
+
+def leaf_errors(got, want, zero):
+    """[(relative L2 error, relative max-abs error, name)] per gradient
+    leaf outside ``zero``, largest L2 first."""
+    rows = []
+    for k, w in want.items():
+        if k not in zero:
+            e = got[k].double() - w.double()
+            rows.append(((e.norm() / w.double().norm()).item(),
+                         (e.abs().max() / w.double().abs().max()).item(), k))
+    return sorted(rows, reverse=True)
+
+
+def grads_phase(MUNITTrainer, conf, removed_by_norm):
+    """One fused step's gradients (dis_gen_grads) at batch 1, card with
+    TF32 off against the CPU, leaf by leaf: the relative L2 error within
+    GRAD_TOL; the conv biases that a norm removes (exact gradient 0) below
+    1e-5 of the net's largest gradient. Both float32 runs are also held
+    against a float64 CPU run."""
+    parity_mode(True)
+    batch = train_inputs(1, SEED + 100)
+    card = new_trainer(MUNITTrainer, conf, "cuda")
+    gd, gg = card.dis_gen_grads(*batch)
+    got = {k: v.cpu() for k, v in {**gd, **gg}.items()}
+    del card, gd, gg
+    cpu = new_trainer(MUNITTrainer, conf, "cpu")
+    t0 = time.perf_counter()
+    wd, wg = cpu.dis_gen_grads(*[t.cpu() for t in batch])
+    cpu_s = time.perf_counter() - t0
+    want = {**wd, **wg}
+    for net in (cpu.gen.module, cpu.dis_a, cpu.dis_b, cpu.classifier_sr_a,
+                cpu.classifier_sr_b):
+        net.double()
+    rd, rg = cpu.dis_gen_grads(*[t.cpu().double() for t in batch])
+    ref = {**rd, **rg}
+    zero = removed_by_norm(cpu)
+    net = max(v.abs().max().item() for v in want.values())
+    worst_zero = max(max(got[k].abs().max().item(), want[k].abs().max().item())
+                     for k in zero) / net
+    summary = {}
+    for name, a, b in (("card_vs_cpu", got, want), ("card_vs_f64", got, ref),
+                       ("cpu_vs_f64", want, ref)):
+        rows = leaf_errors(a, b, zero)
+        summary[name] = {
+            "max_rel_l2": rows[0][0], "worst_leaf": rows[0][2],
+            "median_rel_l2": float(np.median([r[0] for r in rows])),
+            "max_rel_maxabs": max(r[1] for r in rows)}
+    emit(phase="grads_card_vs_cpu", batch=1, leaves=len(want),
+         tol_rel_l2=GRAD_TOL, norm_removed_biases=len(zero),
+         their_max_over_net=worst_zero, their_tol=1e-5, cpu_f32_seconds=cpu_s,
+         **summary)
+    worst = summary["card_vs_cpu"]
+    check(worst["max_rel_l2"] <= GRAD_TOL, f"card grads differ from CPU: {worst}")
+    check(worst_zero <= 1e-5, f"norm-removed bias grads: {worst_zero}")
+    parity_mode(False)
+
+
+# ----------------------------------------------------------------- phase 8
+
+
+def host_ms(fn, reps):
+    """Median host ms of fn over reps runs, each ending in a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def train_time_phase(tr, batch, conf, b):
+    """Training time at batch b, TF32 on: each step kind, the 5-iteration
+    cycle (4 dis, 1 fused), images/s as bench.py counts them (batch x
+    iterations / seconds, the classifier_sr step included once per 15),
+    peak memory, and a profile of one fused step."""
+    parity_mode(False)
+    x_a, x_b, m_a, m_b = batch
+    lamb = conf["adaptation"]["dfeat_lambda"]
+    reps = 5 if b == 1 else 3
+    dis_ms, _ = host_ms(lambda: tr.dis_update(x_a, x_b), reps)
+    fused_ms, _ = host_ms(lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), reps)
+    cls_ms, _ = host_ms(lambda: tr.domain_classifier_sr_update(
+        x_a, x_b, False, lamb), reps)
+
+    def cycle():
+        for _ in range(4):
+            tr.dis_update(x_a, x_b)
+        tr.dis_gen_update(x_a, x_b, m_a, m_b)
+    cycle_ms, rounds = host_ms(cycle, reps)
+    per_it = cycle_ms / 5
+    bench_ips = b * TRAIN_ITERS / ((3 * cycle_ms + cls_ms) / 1e3)
+    emit(phase="train_time", batch=b, tf32=True, ms_per_iteration=per_it,
+         cycle_ms=cycle_ms, cycle_rounds_ms=rounds, dis_step_ms=dis_ms,
+         fused_step_ms=fused_ms, classifier_sr_step_ms=cls_ms,
+         images_per_s_cycle=b * 5 / (cycle_ms / 1e3),
+         images_per_s_bench=bench_ips,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+         note="median of host-clock rounds, each ending in a synchronise")
+    rows, wall = device_profile(
+        lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), 3)
+    busy = sum(r[0] for r in rows)
+    emit(phase="train_profile", batch=b, tf32=True, step="fused dis+gen",
+         profiled_wall_ms=wall, unprofiled_ms=fused_ms,
+         device_busy_ms=busy if rows else "not measured",
+         device_idle_share=(1 - busy / fused_ms) if rows else "not measured",
+         by_group_ms=grouped(rows),
+         top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
+              for r in rows[:15]])
+    return {"ms_per_iteration": per_it, "images_per_s": bench_ips,
+            "cls_ms": cls_ms}
+
+
 # --------------------------------------------------------------------- main
+
+
+def removed_by_norm(trainer):
+    """Names of the generator's conv biases that an IN or AdaIN removes."""
+    from munit_tpu_torch.nn.blocks import ConvBlock
+    return {f"{n}.conv.bias" for n, m in trainer.gen.module.named_modules()
+            if isinstance(m, ConvBlock) and m.norm_type in ("in", "adain")}
+
+
+def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches):
+    def total(rows, key):
+        return sum(n * row[key] for n, row in rows)
+
+    def bound_by(rows):
+        return ("bytes" if all(r["bound_by"] == "bytes" for _, r in rows)
+                else "operations")
+
+    kernels = []
+    for name, calls in PATH_CALLS.items():
+        rows = [(n, times[(name, 1, *hwc, "float32")])
+                for hwc, n in calls.items()]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name][0], "also_replaces": REPLACES[name][1],
+            "launches": launches[name],
+            "launches_train": train_launches[name],
+            "max_abs_err": err[name]["float32"],
+            "max_abs_err_bf16": err[name]["bfloat16"],
+            "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
+            "bound_ms": total(rows, "bound_ms"), "bound_by": bound_by(rows),
+            "library_ms": total(rows, "library_ms"),
+            "per": "one translated image: its calls at batch 1, float32; "
+                   "launches: translate run (phase 4), launches_train: "
+                   "15 training iterations at batch 1 (phase 7)",
+        })
+    for name, calls in BWD_CALLS.items():
+        rows = [(n, bwd_times[(name, *key, key[0])])
+                for key, n in calls.items()]
+        kernels.append({
+            "name": name + "_bwd", "route": "cuda", "source": SOURCE,
+            "replaces": BWD_REPLACES[name], "also_replaces": BWD_ALSO,
+            "launches": train_launches[name + "_bwd"],
+            "max_abs_err": bwd_err[name]["float32"],
+            "max_abs_err_bf16": bwd_err[name]["bfloat16"],
+            "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
+            "bound_ms": total(rows, "bound_ms"), "bound_by": bound_by(rows),
+            "library_ms": total(rows, "library_ms"),
+            "per": "one fused dis+gen step's backward calls at batch 1, "
+                   "float32; launches: 15 training iterations at batch 1 "
+                   "(phase 7)",
+        })
+    return kernels
+
+
+AB_CODE = """
+import json, sys, tempfile, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from munit_tpu_torch.config import get_config
+from munit_tpu_torch.io.weights import load_reference_checkpoint
+from munit_tpu_torch.kernels import build
+from munit_tpu_torch.nn.generator import GenBundle
+build.build_all()
+conf = get_config(str(c.CONFIG))
+gen = GenBundle(conf, "cpu")
+gen.init(torch.Generator().manual_seed(c.SEED))
+with tempfile.TemporaryDirectory() as tmp:
+    torch.save({"2": gen.state_dict()}, tmp + "/gen.pt")
+    res = c.timing_phase(GenBundle, load_reference_checkpoint, conf,
+                         tmp + "/gen.pt")
+print(json.dumps({"ms_per_image": {f"batch {b}, tf32 {t}": v
+                                   for (b, t), v in res.items()}}))
+"""
+
+
+def ab(trees) -> int:
+    """Phase 5 of each checkout in ``trees``, in order, each in its own
+    process with its own code."""
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", AB_CODE], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        check(out.returncode == 0, f"{tree}: {out.stderr[-2000:]}")
+        emit(phase="ab_translate", tree=tree,
+             **json.loads(out.stdout.strip().splitlines()[-1]))
+    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ab"]:
+        return ab(sys.argv[2:])
     # a checkout of the repo: the port and its sources must be here
     from munit_tpu_torch.cli import translate
     from munit_tpu_torch.config import get_config, validate
     from munit_tpu_torch.io.weights import load_reference_checkpoint
     from munit_tpu_torch.kernels import build, norms
     from munit_tpu_torch.nn.generator import GenBundle
+    from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
 
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -396,26 +891,27 @@ def main() -> int:
                                                get_config, Path(tmp))
         timing_phase(GenBundle, load_reference_checkpoint, conf, ckpt)
 
-    kernels = []
-    for name, calls in PATH_CALLS.items():
-        rows = [(n, times[(name, 1, *hwc, "float32")])
-                for hwc, n in calls.items()]
+    parity_mode(True)
+    bwd_err, bwd_times = backward_phase(norms)
 
-        def total(key):
-            return sum(n * row[key] for n, row in rows)
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name][0], "also_replaces": REPLACES[name][1],
-            "launches": launches[name], "max_abs_err": err[name]["float32"],
-            "max_abs_err_bf16": err[name]["bfloat16"],
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
-                                        for _, r in rows) else "operations"),
-            "library_ms": total("library_ms"),
-            "per": "one translated image: its calls at batch 1, float32",
-        })
-    print(json.dumps({"kernels": kernels}), flush=True)
+    train_conf = validate(dict(get_config(str(CONFIG)), semantic_w=0))
+    emit(phase="train_cut", config=str(CONFIG.relative_to(ROOT)),
+         semantic_w=get_config(str(CONFIG))["semantic_w"], semantic_w_run=0,
+         note="the semantic loss (frozen ResNet34-8s) is the next slice; "
+              "every other key is config_256's, at full width")
+    train_launches = None
+    for b in BATCHES:
+        tr, batch, counts = training_phase(norms, MUNITTrainer, train_steps,
+                                           train_conf, b)
+        train_launches = train_launches or counts
+        train_time_phase(tr, batch, train_conf, b)
+        del tr, batch
+        torch.cuda.empty_cache()
+    grads_phase(MUNITTrainer, train_conf, removed_by_norm)
+
+    print(json.dumps({"kernels": kernel_table(
+        err, times, bwd_err, bwd_times, launches, train_launches)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """YAML config loading for the PyTorch port.
 
 The port's own copy of the parts of ``munit_tpu/config.py`` that inference
-needs: the YAML load, the defaults of the generator keys, and their checks.
+and the training step need: the YAML load, the defaults of the generator,
+discriminator, optimizer, loss-weight and adaptation keys, and their checks.
 Unknown keys are preserved, as the reference passes sub-dicts wholesale into
 model constructors (reference utils.py:743-758).
 """
@@ -9,18 +10,53 @@ model constructors (reference utils.py:743-758).
 from __future__ import annotations
 
 import copy
+import warnings
 from typing import Any, Dict
 
 import yaml
 
 # Values are configs/config_256.yaml's where that file defines them.
 _DEFAULTS: Dict[str, Any] = {
+    "display_size": 8,
+    "batch_size": 1,
+    "grad_accum": 1,
+    "weight_decay": 0.0001,
+    "beta1": 0.5,
+    "beta2": 0.999,
     "init": "kaiming",
+    "lr": 0.0001,
+    "lr_policy": "step",
+    "step_size": 100000,
+    "gamma": 0.5,
+    "gan_w": 3,
+    "recon_x_w": 12,
+    "recon_s_w": 1,
+    "recon_c_w": 2,
+    "recon_x_cyc_w": 12,
+    "vgg_w": 0,
+    "semantic_w": 0,
+    "recon_mask": 0,
+    "domain_adv_w": 0,
+    "recon_synth_w": 0,
+    "optimizer": "adam",          # utils.py:755-757 default injection
     "gen_state": 0,
     "guided": 0,
+    "ratio_disc_gen": 1,
     "input_dim_a": 3,
     "input_dim_b": 3,
     "new_size": 256,
+    "crop_image_height": 256,
+    "crop_image_width": 256,
+    "adaptation": {
+        "full_adaptation": 0,
+        "output_classifier_lambda": 0,
+        "output_adv_lambda": 0,
+        "output_classif_freq": 1,
+        "adv_lambda": 0,
+        "dfeat_lambda": 0,
+        "classif_frequency": 15,
+        "sem_seg_lambda": 0,
+    },
     "gen": {
         "dim": 64,
         "mlp_dim": 256,
@@ -30,10 +66,21 @@ _DEFAULTS: Dict[str, Any] = {
         "n_res": 4,
         "pad_type": "reflect",
     },
+    "dis": {
+        "dim": 64,
+        "norm": "none",
+        "activ": "lrelu",
+        "n_layer": 4,
+        "gan_type": "lsgan",
+        "num_scales": 3,
+        "pad_type": "reflect",
+    },
 }
 
 _REQUIRED_TYPES = {"gen_state": int, "guided": int, "new_size": int,
-                   "input_dim_a": int}
+                   "input_dim_a": int, "batch_size": int, "lr": (int, float),
+                   "ratio_disc_gen": int, "crop_image_height": int,
+                   "crop_image_width": int}
 
 
 def _merge(defaults: Dict[str, Any], user: Dict[str, Any]) -> Dict[str, Any]:
@@ -56,7 +103,44 @@ def validate(conf: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError(f"gen_state must be 0 or 1, got {conf['gen_state']}")
     if conf["guided"] not in (0, 1):
         raise ValueError(f"guided must be 0 or 1, got {conf['guided']}")
+    if conf["dis"]["gan_type"] not in ("lsgan", "nsgan"):
+        raise ValueError(f"Unsupported GAN type: {conf['dis']['gan_type']}")
+    if conf["lr_policy"] not in ("constant", "step"):
+        raise NotImplementedError(
+            f"learning rate policy [{conf['lr_policy']}] is not implemented")
+    ga = conf["grad_accum"]
+    if not isinstance(ga, int) or ga < 1:
+        raise ValueError(f"grad_accum must be a positive int, got {ga!r}")
+    if conf["batch_size"] % ga:
+        raise ValueError(
+            f"batch_size ({conf['batch_size']}) must be divisible by "
+            f"grad_accum ({ga})")
+    if dis_pyramid_floor(conf) < 1:
+        # a warning here (translation never builds the discriminator); the
+        # trainer raises
+        warnings.warn(pyramid_message(conf), stacklevel=2)
     return conf
+
+
+def dis_pyramid_floor(conf: Dict[str, Any]) -> int:
+    """Output size of the discriminator's smallest scale: the crop after
+    num_scales - 1 AvgPool2d(3, 2, 1) and n_layer Conv2d(4, 2, 1). Below 1
+    its logit map is empty and every GAN loss is the NaN mean of nothing."""
+    s = min(conf["crop_image_height"], conf["crop_image_width"])
+    for _ in range(conf["dis"]["num_scales"] - 1):
+        s = (s - 1) // 2 + 1
+    for _ in range(conf["dis"]["n_layer"]):
+        s = (s - 2) // 2 + 1
+    return s
+
+
+def pyramid_message(conf: Dict[str, Any]) -> str:
+    return (f"dis pyramid collapses to a zero-size logit map: crop "
+            f"{conf['crop_image_height']}x{conf['crop_image_width']} with "
+            f"num_scales={conf['dis']['num_scales']}, "
+            f"n_layer={conf['dis']['n_layer']} leaves the smallest scale "
+            f"with no output pixels (GAN losses would be NaN). Use a larger "
+            f"crop or fewer scales/layers.")
 
 
 def get_config(path: str) -> Dict[str, Any]:

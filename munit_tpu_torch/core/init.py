@@ -3,6 +3,8 @@
 
 - generators: ``kaiming_normal_(a=0, mode='fan_in')`` on conv and linear
   weights, zero bias (``init: kaiming`` in config_256.yaml);
+- discriminators and the domain classifiers: ``normal_(0, 0.02)``
+  ("gaussian"), zero bias (``munit_tpu/core/init.py:35``);
 - the custom LayerNorm gamma: ``uniform_()`` → U[0,1) (networks.py:859).
 
 Weights are in torch layout (OIHW convs, (out, in) linears). Every draw takes
@@ -34,6 +36,12 @@ def kaiming_normal(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 @torch.no_grad()
+def gaussian(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """normal_(0.0, 0.02): the discriminator's and classifiers' weights."""
+    return t.copy_(torch.randn(t.shape, generator=generator) * 0.02)
+
+
+@torch.no_grad()
 def uniform01(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """U[0,1): custom-LayerNorm gamma init (networks.py:859)."""
     return t.copy_(torch.rand(t.shape, generator=generator))
@@ -45,9 +53,10 @@ def zeros(t: torch.Tensor) -> torch.Tensor:
 
 
 def by_name(name: str):
-    """Map config ``init:`` values to the weight initializer. Only the
-    generator's default is ported so far."""
-    table = {"kaiming": kaiming_normal, "default": kaiming_normal}
+    """Map config ``init:`` values to the weight initializer (kaiming and
+    gaussian so far)."""
+    table = {"kaiming": kaiming_normal, "default": kaiming_normal,
+             "gaussian": gaussian}
     if name not in table:
         raise ValueError(f"Unsupported initialization: {name}")
     return table[name]

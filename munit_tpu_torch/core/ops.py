@@ -1,4 +1,4 @@
-"""Plain PyTorch ops of the generator, on NHWC tensors.
+"""Plain PyTorch ops of the networks, on NHWC tensors.
 
 Counterparts of ``munit_tpu/core/ops.py`` in plain math: no space-to-depth,
 lane packing or int8 rewrites. Tensors are NHWC as in the JAX package; a
@@ -92,6 +92,43 @@ def whole_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d(1): mean over H, W → (B, 1, 1, C)."""
     return x.mean(dim=(1, 2), keepdim=True)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous NCHW copy for the pools. CUDA's avg_pool2d backward on a
+    channels-last tensor (the NHWC bytes seen as NCHW) gives wrong input
+    gradients in PyTorch 2.11 with CUDA 12.8 on an H100, which sent wrong
+    gradients through the multi-scale discriminator into the generator.
+    tests/test_torch_kernels_cuda.py holds the pools' gradients on the card
+    against the CPU."""
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def _nhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) on NHWC:
+    the multi-scale discriminator's downsample between scales
+    (networks.py:32-34). Sums in at least float32."""
+    y = F.avg_pool2d(_nchw(upcast_f32(x)), 3, 2, 1, count_include_pad=False)
+    return _nhwc(y).to(x.dtype)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             padding: int = 0) -> torch.Tensor:
+    """Max pool on NHWC (the domain classifier's MaxPool2d)."""
+    return _nhwc(F.max_pool2d(_nchw(x), window, stride, padding))
+
+
+def window_avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """The domain classifier's AvgPool2d(window), the window clamped to the
+    map's extent (``munit_tpu/nn/classifiers.py``, "clamp the window"): at
+    the reference's 64x64 content codes the window is the whole 16x16 map;
+    smaller maps keep a live gradient instead of an empty window."""
+    wh, ww = min(window, x.shape[1]), min(window, x.shape[2])
+    return _nhwc(F.avg_pool2d(_nchw(x), (wh, ww), (wh, ww)))
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

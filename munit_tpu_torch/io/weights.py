@@ -1,9 +1,17 @@
-"""Generator weights into the port's reference-layout ``state_dict``.
+"""Weights into the port's reference-layout ``state_dict``s.
 
 - ``from_jax_params``: the JAX package's dual-generator param pytree (numpy
   or JAX arrays) → ``state_dict``. The port's own copy of the logic of
   ``munit_tpu/io/torch_import.py::export_gen_state_dict``, without the
   AdaIN dummy buffers, which the port's modules do not hold.
+- ``from_jax_dis``: an ``MsImageDis`` param tree → ``cnns.{s}.{i}`` keys
+  (``export_dis_state_dict``'s layout).
+- ``from_jax_classifier``: a ``DomainClassifier`` param tree and its
+  ``batch_stats`` → the reference ``domainClassifier`` keys (the inverse of
+  ``convert_domain_classifier_state_dict``).
+
+Every transform is linear (transposes and renames), so the same functions
+carry a JAX gradient tree into the port's names and layout.
 - ``load_reference_checkpoint``: a reference ``gen_*.pt`` (``{"2": sd}``) or
   an ``.npz`` with ``sd::``-prefixed entries (``tests/fixtures/
   golden_gen.npz``) → ``state_dict``.
@@ -66,6 +74,52 @@ def from_jax_params(tree) -> StateDict:
         for i in range(len(p)):
             sd[f"{name}.model.{i}.fc.weight"] = np.asarray(p[f"fc_{i}"]["kernel"]).T
             sd[f"{name}.model.{i}.fc.bias"] = np.asarray(p[f"fc_{i}"]["bias"])
+    return _tensors(sd)
+
+
+def from_jax_dis(tree) -> StateDict:
+    """MsImageDis params (``cnn_{s}.layer_{i}``, ``cnn_{s}.out_conv``) →
+    ``cnns.{s}.{i}.conv.*`` and the bare logit conv ``cnns.{s}.{n_layer}.*``.
+    Scales and layers are read off the tree."""
+    sd: dict = {}
+    for s in range(len(tree)):
+        cnn = tree[f"cnn_{s}"]
+        n_layer = len(cnn) - 1
+        for i in range(n_layer):
+            _conv(cnn[f"layer_{i}"], f"cnns.{s}.{i}", sd)
+        _conv(cnn["out_conv"], f"cnns.{s}.{n_layer}", sd, bare=True)
+    return _tensors(sd)
+
+
+def from_jax_classifier(params, stats=None) -> StateDict:
+    """DomainClassifier params (and, if given, its ``batch_stats``) → the
+    reference keys: ``BasicBlock{1,2}.{conv1,conv2}.weight``,
+    ``.{bn1,bn2}.*``, ``.downsample.{0.weight,1.*}``, ``fc.*``."""
+    sd: dict = {}
+
+    def hwio(a):
+        return np.transpose(np.asarray(a), (3, 2, 0, 1))
+
+    for j in (1, 2):
+        p = params[f"block{j}"]
+        pre = f"BasicBlock{j}"
+        sd[f"{pre}.conv1.weight"] = hwio(p["conv1"])
+        sd[f"{pre}.conv2.weight"] = hwio(p["conv2"])
+        sd[f"{pre}.downsample.0.weight"] = hwio(p["down_conv"])
+        for name, key in (("bn1", "bn1"), ("bn2", "bn2"),
+                          ("down_bn", "downsample.1")):
+            sd[f"{pre}.{key}.weight"] = np.asarray(p[name]["scale"])
+            sd[f"{pre}.{key}.bias"] = np.asarray(p[name]["bias"])
+            if stats is not None:
+                st = stats[f"block{j}"][name]
+                sd[f"{pre}.{key}.running_mean"] = np.asarray(st["mean"])
+                sd[f"{pre}.{key}.running_var"] = np.asarray(st["var"])
+    sd["fc.weight"] = np.asarray(params["fc_kernel"]).T
+    sd["fc.bias"] = np.asarray(params["fc_bias"])
+    return _tensors(sd)
+
+
+def _tensors(sd: dict) -> StateDict:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
 

@@ -168,13 +168,19 @@ class AdaINGenDual(nn.Module):
 
 class GenBundle:
     """The generator of a config, on one device (``train/trainer.py::
-    GenBundle`` of the JAX package, inference only). gen_state 1 only so far.
+    GenBundle`` of the JAX package). gen_state 1 only so far.
 
     ``encode(x, domain)`` returns (content, style) as the JAX package does;
     ``encode_content`` and ``encode_style`` run one half, as a jitted JAX
-    caller gets when it drops the other."""
+    caller gets when it drops the other. The JAX trainer's ``wide: 1`` calls
+    (its default at 256 px: ``style_encode`` of both domains at once,
+    ``content_encode_pair``, ``decode_domain``) are these methods on
+    concatenated batches.
 
-    def __init__(self, conf: Dict, device="cuda"):
+    Serving builds it frozen (no parameter takes a gradient, eval mode);
+    ``trainable=True`` leaves the parameters to the trainer's gradients."""
+
+    def __init__(self, conf: Dict, device="cuda", trainable: bool = False):
         if conf["gen_state"] != 1:
             raise NotImplementedError(
                 "the PyTorch port has only the dual generator (gen_state: 1)")
@@ -184,7 +190,7 @@ class GenBundle:
         self.module = AdaINGenDual(
             conf["input_dim_a"], g["dim"], g["style_dim"], g["n_downsample"],
             g["n_res"], g["mlp_dim"], g["activ"], g["pad_type"])
-        self.module.requires_grad_(False).eval()
+        self.module.requires_grad_(trainable).train(trainable)
         self.module.to(device=self.device, memory_format=torch.channels_last)
 
     def init(self, generator: torch.Generator) -> None:

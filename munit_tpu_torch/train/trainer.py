@@ -1,0 +1,367 @@
+"""The MUNIT training steps on one device: ``munit_tpu/train/trainer.py``
+for ``gen_state: 1``, ``guided: 1`` and ``grad_accum: 1``.
+
+- ``dis_update``      ≙ ``_dis_step_impl`` (trainer.py:690-732)
+- ``gen_update``      ≙ ``_gen_step_impl`` (:1072-1115)
+- ``dis_gen_update``  ≙ the fused ``_dis_gen_step_impl`` (:814-883): one
+  generator forward; D is updated first against the detached fakes, then
+  the generator's losses are taken against the updated D
+- ``domain_classifier_sr_update`` ≙ ``_classifier_sr_step_impl`` (:1283-1312)
+- ``dis_gen_grads``   ≙ ``dis_gen_grads`` (:1025-1070), the fused step's
+  gradients against the current D, with no update
+
+Every forward makes the JAX trainer's ``wide: 1`` calls (its default at
+256 px): one style encode of both domains, the two content encoders as a
+pair, and one decode per domain over [recon | cross]. Gradients are taken
+with ``torch.autograd.grad`` with respect to named parameter lists, so D
+collects no generator gradient and no stale ``.grad`` is left; the
+optimizers update the parameters in place. With guided styles no random
+style reaches a loss (trainer.py:850-853, 1137-1139), so none is drawn.
+
+Not ported yet, and refused when its weight is on: the semantic loss
+(``semantic_w``, the next slice), VGG (``vgg_w``), DANN (``domain_adv_w``),
+synthetic pairs (``recon_synth_w``), output-level DA
+(``output_adv_lambda``, ``output_classifier_lambda``), the seg head
+(``sem_seg_lambda``), ``grad_accum > 1`` and ``guided: 0`` (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from munit_tpu_torch.config import dis_pyramid_floor, pyramid_message
+from munit_tpu_torch.losses import losses
+from munit_tpu_torch.nn import classifiers, discriminator
+from munit_tpu_torch.nn.generator import GenBundle
+from munit_tpu_torch.optim.extra_adam import (extra_adam_init,
+                                              extra_adam_update)
+from munit_tpu_torch.optim.schedule import from_config as schedule_from_config
+
+Tensors = Dict[str, torch.Tensor]
+
+# (config key or adaptation key, weight name, the slice that brings it)
+_NOT_PORTED = (
+    ("semantic_w", "the semantic loss", "ROADMAP queue 1 item 6"),
+    ("vgg_w", "the VGG loss", "ROADMAP queue 1 item 12"),
+    ("domain_adv_w", "the DANN loss", "ROADMAP queue 1 item 11"),
+    ("recon_synth_w", "the synthetic-pair loss", "ROADMAP queue 1 item 11"),
+    ("adaptation.output_adv_lambda", "output-level DA",
+     "ROADMAP queue 1 item 11"),
+    ("adaptation.output_classifier_lambda", "output-level DA",
+     "ROADMAP queue 1 item 11"),
+    ("adaptation.sem_seg_lambda", "the seg head", "ROADMAP queue 1 item 11"),
+)
+
+
+def _lookup(conf, key):
+    for part in key.split("."):
+        conf = conf[part]
+    return conf
+
+
+def check_ported(conf: Dict) -> None:
+    """Raise NotImplementedError for what this slice of the port lacks."""
+    if conf["guided"] != 1:
+        raise NotImplementedError(
+            "guided: 0 (random styles) is not ported; ROADMAP queue 1 item 9")
+    if conf["grad_accum"] != 1:
+        raise NotImplementedError(
+            "grad_accum > 1 is not ported; ROADMAP queue 1 item 13")
+    for key, what, where in _NOT_PORTED:
+        if float(_lookup(conf, key)) > 0:
+            raise NotImplementedError(
+                f"{key} > 0 ({what}) is not ported; {where}")
+
+
+def _named(module: torch.nn.Module) -> Tensors:
+    return dict(module.named_parameters())
+
+
+class MUNITTrainer:
+    """The config's nets, optimizer states and training steps on one
+    device. Seed the weights with ``init(generator)`` or load them."""
+
+    def __init__(self, conf: Dict, device="cuda"):
+        check_ported(conf)
+        if dis_pyramid_floor(conf) < 1:
+            raise ValueError(pyramid_message(conf))
+        self.conf = conf
+        self.device = torch.device(device)
+        self.gan_type = conf["dis"]["gan_type"]
+        self.use_extra = "extra" in conf["optimizer"]
+        self.recon_mask = conf["recon_mask"] == 1
+        ad = conf["adaptation"]
+        self.use_classifier_sr = ad["dfeat_lambda"] > 0
+        self.lr_schedule = schedule_from_config(conf)
+        self.iterations = 0
+        self.hw = {k: float(conf[k]) for k in
+                   ("gan_w", "recon_x_w", "recon_s_w", "recon_c_w",
+                    "recon_x_cyc_w")}
+        self.hw["adv_lambda"] = float(ad["adv_lambda"])
+
+        self.gen = GenBundle(conf, device, trainable=True)
+        self.dis_a = discriminator.build(conf, device)
+        self.dis_b = discriminator.build(conf, device)
+        g = conf["gen"]
+        content_dim = g["dim"] * 2 ** g["n_downsample"]
+        # the fool term needs the classifiers too (trainer.py:1217-1223)
+        self.classifier_sr_a = self.classifier_sr_b = None
+        if self.use_classifier_sr or self.hw["adv_lambda"] > 0:
+            self.classifier_sr_a, self.classifier_sr_b = (
+                classifiers.DomainClassifier(content_dim).to(
+                    device=device, memory_format=torch.channels_last)
+                for _ in range(2))
+        self.gen_opt = extra_adam_init(self.gen_params())
+        self.dis_opt = extra_adam_init(self.dis_params())
+        self.classif_sr_opt = (extra_adam_init(self.classifier_params())
+                               if self.classifier_sr_a is not None else None)
+
+    # ---------------------------------------------------------- parameters
+
+    def gen_params(self) -> Tensors:
+        return _named(self.gen.module)
+
+    def dis_params(self) -> Tensors:
+        return {**{f"a.{k}": v for k, v in _named(self.dis_a).items()},
+                **{f"b.{k}": v for k, v in _named(self.dis_b).items()}}
+
+    def classifier_params(self) -> Tensors:
+        return {
+            **{f"a.{k}": v for k, v in _named(self.classifier_sr_a).items()},
+            **{f"b.{k}": v for k, v in _named(self.classifier_sr_b).items()}}
+
+    def init(self, generator: torch.Generator) -> None:
+        """Seeded reference init of every net; the draws are made on the
+        CPU from ``generator`` and copied to the device."""
+        nets = [self.gen, self.dis_a, self.dis_b]
+        if self.classifier_sr_a is not None:
+            nets += [self.classifier_sr_a, self.classifier_sr_b]
+        for net in nets:
+            net.init(generator)
+
+    # ------------------------------------------------------------- forwards
+
+    def _cross_decode(self, x_a, x_b):
+        """Codes and cross translations (trainer.py:440-467, wide 1)."""
+        gen, bsz = self.gen, x_a.shape[0]
+        s = gen.encode_style(torch.cat([x_a, x_b]))
+        s_a, s_b = s[:bsz], s[bsz:]
+        c_a, c_b = gen.encode_content(x_a, 1), gen.encode_content(x_b, 2)
+        x_ba = gen.decode(c_b, s_a, 1)
+        x_ab = gen.decode(c_a, s_b, 2)
+        return c_a, s_a, c_b, s_b, x_ba, x_ab
+
+    def _gen_forward(self, x_a, x_b) -> Tensors:
+        """The gen step's generator forward (trainer.py:469-535, wide 1):
+        within-domain recon, cross decode, re-encode, cycle decode."""
+        gen, bsz = self.gen, x_a.shape[0]
+        s = gen.encode_style(torch.cat([x_a, x_b]))
+        s_a, s_b = s[:bsz], s[bsz:]
+        c_a, c_b = gen.encode_content(x_a, 1), gen.encode_content(x_b, 2)
+        # wave 1: [recon | cross] per domain, guided styles
+        out1 = gen.decode(torch.cat([c_a, c_b]), torch.cat([s_a, s_a]), 1)
+        out2 = gen.decode(torch.cat([c_b, c_a]), torch.cat([s_b, s_b]), 2)
+        x_a_recon, x_ba = out1[:bsz], out1[bsz:]
+        x_b_recon, x_ab = out2[:bsz], out2[bsz:]
+        # wave 2: re-encode the fakes
+        s_r = gen.encode_style(torch.cat([x_ba, x_ab]))
+        c_b_recon = gen.encode_content(x_ba, 1)
+        c_a_recon = gen.encode_content(x_ab, 2)
+        fw = dict(c_a=c_a, c_b=c_b, s_a_p=s_a, s_b_p=s_b,
+                  x_a_recon=x_a_recon, x_b_recon=x_b_recon, x_ba=x_ba,
+                  x_ab=x_ab, c_a_recon=c_a_recon, c_b_recon=c_b_recon,
+                  s_a_recon=s_r[:bsz], s_b_recon=s_r[bsz:])
+        if self.hw["recon_x_cyc_w"] > 0:
+            fw["x_aba"] = gen.decode(c_a_recon, s_a, 1)
+            fw["x_bab"] = gen.decode(c_b_recon, s_b, 2)
+        return fw
+
+    def _dis_apply_fr(self, dis, x_fake, x_real):
+        """One D pass over [fake | real] → (outs_fake, outs_real)."""
+        bsz = x_fake.shape[0]
+        outs = dis(torch.cat([x_fake, x_real]))
+        return [o[:bsz] for o in outs], [o[bsz:] for o in outs]
+
+    def _dis_loss(self, x_ba, x_ab, x_a, x_b):
+        """calc_dis_loss of both discriminators (trainer.py:784-812)."""
+        fa, ra = self._dis_apply_fr(self.dis_a, x_ba, x_a)
+        fb, rb = self._dis_apply_fr(self.dis_b, x_ab, x_b)
+        la = losses.dis_gan_loss(fa, ra, self.gan_type)
+        lb = losses.dis_gan_loss(fb, rb, self.gan_type)
+        total = self.hw["gan_w"] * (la + lb)
+        return total, {"loss_dis_a": la, "loss_dis_b": lb,
+                       "loss_dis_total": total}
+
+    def _gen_loss(self, fw, x_a, x_b, mask_a, mask_b):
+        """The gen step's loss over a generator forward (trainer.py:
+        1117-1254), against the current weights of D and the classifiers;
+        the classifiers' batch statistics are discarded."""
+        hw, l1 = self.hw, losses.recon_l1
+        m = {"loss_gen_recon_x_a": l1(fw["x_a_recon"], x_a),
+             "loss_gen_recon_x_b": l1(fw["x_b_recon"], x_b),
+             "loss_gen_recon_s_a": l1(fw["s_a_recon"], fw["s_a_p"]),
+             "loss_gen_recon_s_b": l1(fw["s_b_recon"], fw["s_b_p"]),
+             "loss_gen_recon_c_a": l1(fw["c_a_recon"], fw["c_a"]),
+             "loss_gen_recon_c_b": l1(fw["c_b_recon"], fw["c_b"])}
+        zero = torch.zeros((), device=x_a.device)
+        if "x_aba" in fw:
+            if self.recon_mask:
+                m["loss_gen_cycrecon_x_a"] = losses.recon_l1_masked(
+                    fw["x_aba"], x_a, mask_a)
+                m["loss_gen_cycrecon_x_b"] = losses.recon_l1_masked(
+                    fw["x_bab"], x_b, mask_b)
+            else:
+                m["loss_gen_cycrecon_x_a"] = l1(fw["x_aba"], x_a)
+                m["loss_gen_cycrecon_x_b"] = l1(fw["x_bab"], x_b)
+        else:
+            m["loss_gen_cycrecon_x_a"] = m["loss_gen_cycrecon_x_b"] = zero
+        m["loss_gen_adv_a"] = losses.gen_gan_loss(self.dis_a(fw["x_ba"]),
+                                                  self.gan_type)
+        m["loss_gen_adv_b"] = losses.gen_gan_loss(self.dis_b(fw["x_ab"]),
+                                                  self.gan_type)
+        if hw["adv_lambda"] > 0:
+            m["loss_classifier_adv_sr"] = losses.classifier_sr_loss(
+                self.classifier_sr_a(fw["c_a"]),
+                self.classifier_sr_b(fw["c_b"]), domain_synth=False,
+                fool=True)
+        else:
+            m["loss_classifier_adv_sr"] = zero
+        total = (hw["gan_w"] * (m["loss_gen_adv_a"] + m["loss_gen_adv_b"])
+                 + hw["recon_x_w"] * (m["loss_gen_recon_x_a"]
+                                      + m["loss_gen_recon_x_b"])
+                 + hw["recon_s_w"] * (m["loss_gen_recon_s_a"]
+                                      + m["loss_gen_recon_s_b"])
+                 + hw["recon_c_w"] * (m["loss_gen_recon_c_a"]
+                                      + m["loss_gen_recon_c_b"])
+                 + hw["recon_x_cyc_w"] * (m["loss_gen_cycrecon_x_a"]
+                                          + m["loss_gen_cycrecon_x_b"])
+                 + hw["adv_lambda"] * m["loss_classifier_adv_sr"])
+        m["loss_gen_total"] = total
+        return total, m
+
+    def _masks(self, x_a, mask_a, mask_b):
+        z = None
+        if mask_a is None or mask_b is None:
+            z = torch.zeros_like(x_a[..., :1])
+        return (mask_a if mask_a is not None else z,
+                mask_b if mask_b is not None else z)
+
+    @staticmethod
+    def _grads(loss, params: Tensors) -> Tensors:
+        names = list(params)
+        gs = torch.autograd.grad(loss, [params[k] for k in names])
+        return dict(zip(names, gs))
+
+    # ---------------------------------------------------------- optimizer
+
+    def _phase(self) -> bool:
+        """ExtraAdam parity: extrapolate on even iterations (trainer.py:229)."""
+        return bool(self.use_extra and self.iterations % 2 == 0)
+
+    def _lr(self) -> float:
+        return float(self.lr_schedule(self.iterations))
+
+    def _update(self, grads, opt, params, lr):
+        c = self.conf
+        return extra_adam_update(grads, opt, params, lr, self._phase(),
+                                 b1=c["beta1"], b2=c["beta2"], eps=1e-8,
+                                 weight_decay=c["weight_decay"])
+
+    # --------------------------------------------------------------- steps
+
+    def dis_update(self, x_a, x_b) -> Tensors:
+        """One discriminator step against detached fakes."""
+        lr = self._lr()
+        with torch.no_grad():
+            *_, x_ba, x_ab = self._cross_decode(x_a, x_b)
+        params = self.dis_params()
+        total, m = self._dis_loss(x_ba, x_ab, x_a, x_b)
+        self.dis_opt = self._update(self._grads(total, params), self.dis_opt,
+                                    params, lr)
+        return _detached(m, lr=lr)
+
+    def gen_update(self, x_a, x_b, mask_a=None, mask_b=None) -> Tensors:
+        """One generator step against the current discriminators."""
+        lr = self._lr()
+        mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+        params = self.gen_params()
+        total, m = self._gen_loss(self._gen_forward(x_a, x_b), x_a, x_b,
+                                  mask_a, mask_b)
+        self.gen_opt = self._update(self._grads(total, params), self.gen_opt,
+                                    params, lr)
+        return _detached(m)
+
+    def dis_gen_update(self, x_a, x_b, mask_a=None, mask_b=None) -> Tensors:
+        """The fused dis + gen step: one generator forward; D steps first on
+        its detached cross decodes, then the generator's losses are taken
+        against the updated D."""
+        lr = self._lr()
+        mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+        fw = self._gen_forward(x_a, x_b)
+        dis_params = self.dis_params()
+        total_d, m_dis = self._dis_loss(fw["x_ba"].detach(),
+                                        fw["x_ab"].detach(), x_a, x_b)
+        self.dis_opt = self._update(self._grads(total_d, dis_params),
+                                    self.dis_opt, dis_params, lr)
+        gen_params = self.gen_params()
+        total_g, m_gen = self._gen_loss(fw, x_a, x_b, mask_a, mask_b)
+        self.gen_opt = self._update(self._grads(total_g, gen_params),
+                                    self.gen_opt, gen_params, lr)
+        return _detached({**m_dis, **m_gen}, lr=lr)
+
+    def dis_gen_grads(self, x_a, x_b, mask_a=None,
+                      mask_b=None) -> Tuple[Tensors, Tensors]:
+        """(dis grads, gen grads) of one fused step, both against the
+        current D, with no update (trainer.py:1025-1070)."""
+        mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+        fw = self._gen_forward(x_a, x_b)
+        total_d, _ = self._dis_loss(fw["x_ba"].detach(), fw["x_ab"].detach(),
+                                    x_a, x_b)
+        grads_d = self._grads(total_d, self.dis_params())
+        total_g, _ = self._gen_loss(fw, x_a, x_b, mask_a, mask_b)
+        return grads_d, self._grads(total_g, self.gen_params())
+
+    def domain_classifier_sr_update(self, x_a, x_b, domain_synth: bool,
+                                    lamb: float) -> Tensors:
+        """One step of the sim/real classifiers on detached content codes;
+        each keeps its own batch-statistics update."""
+        lr = self._lr()
+        with torch.no_grad():
+            c_a = self.gen.encode_content(x_a, 1)
+            c_b = self.gen.encode_content(x_b, 2)
+        params = self.classifier_params()
+        loss = lamb * losses.classifier_sr_loss(
+            self.classifier_sr_a(c_a, update_stats=True),
+            self.classifier_sr_b(c_b, update_stats=True),
+            domain_synth=domain_synth, fool=False)
+        self.classif_sr_opt = self._update(self._grads(loss, params),
+                                           self.classif_sr_opt, params, lr)
+        return _detached({"loss_classifier_sr": loss})
+
+
+def _detached(m: Dict[str, torch.Tensor], **extra) -> Dict:
+    out = {k: v.detach() for k, v in m.items()}
+    out.update(extra)
+    return out
+
+
+def train_steps(trainer: MUNITTrainer, x_a, x_b, mask_a, mask_b,
+                iterations: List[int]) -> List[Dict]:
+    """``bench.py``'s cadence over the given iterations: a dis step every
+    iteration, fused with the gen step on every ``ratio_disc_gen``-th, and
+    the sim/real classifier step on every ``classif_frequency``-th."""
+    conf, ad = trainer.conf, trainer.conf["adaptation"]
+    out = []
+    for it in iterations:
+        trainer.iterations = it
+        if (it + 1) % conf["ratio_disc_gen"] == 0:
+            m = trainer.dis_gen_update(x_a, x_b, mask_a, mask_b)
+        else:
+            m = trainer.dis_update(x_a, x_b)
+        if trainer.use_classifier_sr and (it + 1) % ad["classif_frequency"] == 0:
+            m = dict(m, **trainer.domain_classifier_sr_update(
+                x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
+        out.append(m)
+    return out

@@ -139,7 +139,8 @@ def test_cpu_wrappers_launch_nothing(data):
     norms.reset_launches()
     for name in NORMS:
         _port(name, *data, True)
-    assert norms.launches == {k: 0 for k in NORMS}
+    assert set(norms.launches) == {k + s for k in NORMS for s in ("", "_bwd")}
+    assert not any(norms.launches.values())
 
 
 @pytest.mark.parametrize("name", NORMS)

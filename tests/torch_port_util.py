@@ -8,11 +8,83 @@ run the same numbers: torch and jax.random give different draws per seed.
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
 
+from munit_tpu_torch.io.weights import (from_jax_classifier, from_jax_dis,
+                                        from_jax_params)
 from munit_tpu_torch.nn.generator import AdaINGenDual
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small CPU tensors run fastest on one torch thread, and far slower on
+    many beside JAX's own thread pool in the same process (a 32 px train
+    step: 1 s on one thread, 26 s on eight). Import this fixture into a test
+    module to run that module's torch ops on one thread."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 SMALL_GEN = dict(dim=16, mlp_dim=32, style_dim=8, activ="relu",
                  n_downsample=2, n_res=2, pad_type="reflect")
+# tests/torch_mirror.py::small_dis_params
+SMALL_DIS = dict(dim=16, norm="none", activ="lrelu", n_layer=3,
+                 gan_type="lsgan", num_scales=2, pad_type="reflect")
+CROP = 32
+
+
+def small_train_spec(**over) -> dict:
+    """A config_256-shaped training spec at small width and 32 px: masked
+    cycle loss, the sim/real classifier fool term at adv_lambda 6 and its
+    own step (dfeat_lambda 1), no semantic loss. Both packages validate
+    it."""
+    spec = {
+        "gen_state": 1, "guided": 1, "recon_mask": 1, "semantic_w": 0,
+        "batch_size": 2, "display_size": 2, "optimizer": "adam",
+        "crop_image_height": CROP, "crop_image_width": CROP,
+        "new_size": CROP, "gen": dict(SMALL_GEN), "dis": dict(SMALL_DIS),
+        "ratio_disc_gen": 2,
+        "adaptation": {"adv_lambda": 6, "dfeat_lambda": 1,
+                       "classif_frequency": 2},
+    }
+    spec.update(over)
+    return spec
+
+
+def train_batch(seed: int = 0, b: int = 2):
+    """(x_a, x_b, mask_a, mask_b) as float32 numpy, NHWC."""
+    rng = np.random.RandomState(seed)
+    x_a, x_b = (rng.uniform(-1, 1, (b, CROP, CROP, 3)).astype(np.float32)
+                for _ in range(2))
+    m_a, m_b = ((rng.rand(b, CROP, CROP, 1) > 0.7).astype(np.float32)
+                for _ in range(2))
+    return x_a, x_b, m_a, m_b
+
+
+def load_jax_state(trainer, state) -> None:
+    """Copy a JAX ``MUNITTrainer.state``'s nets into a port trainer."""
+    trainer.gen.load_state_dict(from_jax_params(state["gen"]))
+    trainer.dis_a.load_state_dict(from_jax_dis(state["dis_a"]))
+    trainer.dis_b.load_state_dict(from_jax_dis(state["dis_b"]))
+    for d in ("a", "b"):
+        getattr(trainer, f"classifier_sr_{d}").load_state_dict(
+            from_jax_classifier(state[f"classifier_sr_{d}"],
+                                state[f"classifier_sr_{d}_stats"]))
+
+
+def jax_net_params(state) -> dict:
+    """The JAX state's trainable nets in the port trainer's names:
+    {"gen": ..., "dis": ..., "classifier": ...} of numpy arrays."""
+    out = {"gen": from_jax_params(state["gen"]),
+           "dis": {f"{d}.{k}": v for d in ("a", "b")
+                   for k, v in from_jax_dis(state[f"dis_{d}"]).items()},
+           "classifier": {f"{d}.{k}": v for d in ("a", "b")
+                          for k, v in from_jax_classifier(
+                              state[f"classifier_sr_{d}"],
+                              state[f"classifier_sr_{d}_stats"]).items()}}
+    return {n: {k: v.numpy() for k, v in d.items()} for n, d in out.items()}
 
 
 def port_module(gen: dict, input_dim: int = 3) -> AdaINGenDual:
