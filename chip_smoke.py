@@ -22,15 +22,28 @@ Phases, each raising on failure (exit code 1):
    (the wide decodes at twice the batch), f32 and bf16, ReLU on and off;
    then kernel, plain backward, one library call's autograd backward and
    the byte bound timed per shape;
-7. the training path: configs/config_256.yaml at full width with
-   ``semantic_w: 0`` (printed), seeded random weights, images and masks;
-   15 iterations in bench.py's cadence (12 dis steps, 3 fused dis+gen
-   steps, 1 classifier_sr step) at batch 1 and 8 with every loss finite
-   and the wrappers' launch counts asserted; one fused step's gradients on
-   the card (TF32 off) against the CPU at batch 1;
-8. training time at batch 1 and 8, TF32 on: each step kind, ms per
-   iteration over the 5-iteration cycle, images/s as bench.py counts them,
-   peak memory, and a profile of one fused step.
+7. the frozen ResNet34-8s segmenter (seeded random weights: the Cityscapes
+   checkpoint is not in the repo) at (2, 256, 256, 3) on the card (TF32
+   off) against the CPU, and the agreement of their pseudo-labels;
+8. the training path: configs/config_256.yaml as it is (semantic_w 3),
+   full width, seeded random weights, images and masks; 15 iterations in
+   bench.py's cadence (12 dis steps, 3 fused dis+gen steps, 1
+   classifier_sr step) at batch 1 and 8 with every loss finite,
+   loss_sem_seg above 0, and the wrappers' launch counts asserted (the
+   segmenter runs no norm kernel); then training time at batch 1 and 8,
+   TF32 on: each step kind, ms per iteration over the 5-iteration cycle,
+   images/s as bench.py counts them, peak memory, a profile of one fused
+   step, and the segmenter's share (its targets pass and its loss forward
+   and backward, timed and profiled apart: no weight-gradient kernel);
+9. one fused step's gradients on the card (TF32 off) against the CPU at
+   batch 1, with the semantic term, and the pseudo-label flips between the
+   two;
+10. the moments kernels (sample_sums, sample_affine) against their plain
+   versions at every whole-LN probe shape, f32 and bf16, ReLU on and off,
+   timed against the byte bound, the plain version and one library call;
+11. the whole-LN probes P1, P2 and P3 (munit_tpu_torch.tools.normprobe) at
+   their full shapes with a short chain, each variant's time and error,
+   and the moments kernels' launches in each probe.
 Earlier lines are JSON objects. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
 checkout of the repo, it exits non-zero and prints no result.
@@ -77,6 +90,7 @@ REPLACES = {
     "whole_layer_norm": ("munit_tpu/kernels/norms.py:212", None),
 }
 SOURCE = "munit_tpu_torch/kernels/csrc/norms.cu"
+MOMENTS_SOURCE = "munit_tpu_torch/kernels/csrc/moments.cu"
 N_IMAGES = 4
 ROUNDS = 5                  # timed loops per translate timing, median kept
 SPIN_CYCLES = 2_000_000     # about 1 ms at the H100's clocks
@@ -560,6 +574,38 @@ def backward_phase(norms):
 
 # ----------------------------------------------------------------- phase 7
 
+SEG_SHAPE = (2, 256, 256, 3)
+# Card (TF32 off) against the CPU: the logits of seeded random weights grow
+# through 16 residual blocks to hundreds, so the 1e-3 is taken of the
+# largest |logit| where that exceeds 1 (float32 sums over 36 convs in
+# another order).
+SEG_TOL = 1e-3
+
+
+def segmenter_phase(ResNet34_8s, seg_preprocess):
+    """The frozen ResNet34-8s at SEG_SHAPE on the card against the CPU."""
+    parity_mode(True)
+    net = ResNet34_8s().frozen_on("cpu")
+    net.init(torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 7)
+    x = torch.rand(SEG_SHAPE, generator=g) * 2 - 1
+    with torch.no_grad():
+        want = net(seg_preprocess(x))
+        got = net.frozen_on("cuda")(seg_preprocess(x.cuda())).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).double().mean())
+    tol = SEG_TOL * max(1.0, scale)
+    emit(phase="segmenter_card_vs_cpu", shape=list(SEG_SHAPE), tf32=False,
+         max_abs_err=err, logit_scale=scale, tol=tol,
+         pseudo_label_agreement=agree, finite=bool(torch.isfinite(got).all()))
+    check(tuple(got.shape) == SEG_SHAPE[:3] + (19,) and
+          bool(torch.isfinite(got).all()), "segmenter logits malformed")
+    check(err <= tol, f"segmenter logits differ from the CPU by {err}")
+
+
+# ----------------------------------------------------------------- phase 8
+
 TRAIN_ITERS = 15        # bench.py's cadence: 12 dis, 3 fused, 1 classifier_sr
 
 
@@ -583,7 +629,7 @@ def step_launches(conf):
 
 # Card (TF32 off) against CPU, relative L2 error per gradient leaf. At full
 # width, ReLU masks flip on last-ulp differences and float32 sums run over
-# ~40 layers; phase 7 also prints each float32 run's error against a
+# ~40 layers; phase 9 also prints each float32 run's error against a
 # float64 CPU run, the yardstick for this tolerance.
 GRAD_TOL = 2e-2
 
@@ -623,7 +669,8 @@ def new_trainer(MUNITTrainer, conf, device):
 
 def training_phase(norms, MUNITTrainer, train_steps, conf, b):
     """15 iterations at batch b on the card (TF32 on), every loss finite,
-    the wrappers' launches as the cadence predicts."""
+    the semantic loss above 0 in every gen step, the wrappers' launches as
+    the cadence predicts: the segmenter adds none."""
     parity_mode(False)
     tr = new_trainer(MUNITTrainer, conf, "cuda")
     batch = train_inputs(b, SEED + b)
@@ -638,13 +685,17 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b):
     want = expected_launches(norms, conf, steps)
     values = {k: float(v) for m in metrics for k, v in m.items()}
     finite = all(np.isfinite(float(v)) for m in metrics for v in m.values())
+    sem = [float(m["loss_sem_seg"]) for m in metrics if "loss_sem_seg" in m]
     emit(phase="train_card", batch=b, iterations=TRAIN_ITERS, steps=steps,
+         semantic_w=conf["semantic_w"],
          seconds_incl_first_calls=wall, launches=launches, expected=want,
-         dy_copies=copies, finite=finite,
+         dy_copies=copies, finite=finite, loss_sem_seg=sem,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
          losses_first={k: float(v) for k, v in metrics[4].items()},
          losses_last={k: float(v) for k, v in metrics[-1].items()})
     check(finite, f"batch {b}: a loss is not finite: {values}")
+    check(len(sem) == steps["fused"] and all(v > 0 for v in sem),
+          f"batch {b}: loss_sem_seg {sem} in {steps['fused']} gen steps")
     check(launches == want, f"batch {b}: launches {launches}, want {want}")
     return tr, batch, launches
 
@@ -662,24 +713,30 @@ def leaf_errors(got, want, zero):
 
 
 def grads_phase(MUNITTrainer, conf, removed_by_norm):
-    """One fused step's gradients (dis_gen_grads) at batch 1, card with
-    TF32 off against the CPU, leaf by leaf: the relative L2 error within
-    GRAD_TOL; the conv biases that a norm removes (exact gradient 0) below
-    1e-5 of the net's largest gradient. Both float32 runs are also held
-    against a float64 CPU run."""
+    """One fused step's gradients (dis_gen_grads) at batch 1 with the
+    semantic term, card with TF32 off against the CPU, leaf by leaf: the
+    relative L2 error within GRAD_TOL; the conv biases that a norm removes
+    (exact gradient 0) below 1e-5 of the net's largest gradient. Both
+    float32 runs are also held against a float64 CPU run. The pseudo-labels
+    of the two runs are compared too: a flip moves one pixel's CE term."""
     parity_mode(True)
     batch = train_inputs(1, SEED + 100)
     card = new_trainer(MUNITTrainer, conf, "cuda")
+    with torch.no_grad():
+        t_card = [t.cpu() for t in card._semantic_targets(*batch[:2])]
     gd, gg = card.dis_gen_grads(*batch)
     got = {k: v.cpu() for k, v in {**gd, **gg}.items()}
     del card, gd, gg
     cpu = new_trainer(MUNITTrainer, conf, "cpu")
+    with torch.no_grad():
+        t_cpu = cpu._semantic_targets(*[t.cpu() for t in batch[:2]])
+    flips = sum(int((a != b).sum()) for a, b in zip(t_card, t_cpu))
     t0 = time.perf_counter()
     wd, wg = cpu.dis_gen_grads(*[t.cpu() for t in batch])
     cpu_s = time.perf_counter() - t0
     want = {**wd, **wg}
     for net in (cpu.gen.module, cpu.dis_a, cpu.dis_b, cpu.classifier_sr_a,
-                cpu.classifier_sr_b):
+                cpu.classifier_sr_b, cpu.segmenter):
         net.double()
     rd, rg = cpu.dis_gen_grads(*[t.cpu().double() for t in batch])
     ref = {**rd, **rg}
@@ -696,6 +753,8 @@ def grads_phase(MUNITTrainer, conf, removed_by_norm):
             "median_rel_l2": float(np.median([r[0] for r in rows])),
             "max_rel_maxabs": max(r[1] for r in rows)}
     emit(phase="grads_card_vs_cpu", batch=1, leaves=len(want),
+         semantic_w=conf["semantic_w"], pseudo_label_flips=flips,
+         pseudo_labels=sum(t.numel() for t in t_cpu),
          tol_rel_l2=GRAD_TOL, norm_removed_biases=len(zero),
          their_max_over_net=worst_zero, their_tol=1e-5, cpu_f32_seconds=cpu_s,
          **summary)
@@ -703,9 +762,6 @@ def grads_phase(MUNITTrainer, conf, removed_by_norm):
     check(worst["max_rel_l2"] <= GRAD_TOL, f"card grads differ from CPU: {worst}")
     check(worst_zero <= 1e-5, f"norm-removed bias grads: {worst_zero}")
     parity_mode(False)
-
-
-# ----------------------------------------------------------------- phase 8
 
 
 def host_ms(fn, reps):
@@ -759,8 +815,230 @@ def train_time_phase(tr, batch, conf, b):
          by_group_ms=grouped(rows),
          top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
               for r in rows[:15]])
+    seg = segmenter_split(tr, batch, b, reps, fused_ms, busy)
     return {"ms_per_iteration": per_it, "images_per_s": bench_ips,
-            "cls_ms": cls_ms}
+            "cls_ms": cls_ms, "segmenter": seg}
+
+
+def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms):
+    """The segmenter's part of a fused step at batch b, timed and profiled
+    apart: its targets pass over [x_a | x_b] (no gradient) and its loss
+    pass over two translations with the backward to them. The frozen net
+    must launch no weight-gradient kernel."""
+    x_a, x_b, m_a, m_b = batch
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    fakes = [torch.rand(x_a.shape, generator=g, device="cuda") * 2 - 1
+             for _ in range(2)]
+    targets = tr._semantic_targets(x_a, x_b)
+
+    def loss_grad():
+        x_ab, x_ba = (f.detach().requires_grad_(True) for f in fakes)
+        loss = tr._semantic_loss_pair(x_ab, x_ba, targets, m_a, m_b)
+        return torch.autograd.grad(loss, [x_ab, x_ba])
+
+    targets_ms, _ = host_ms(lambda: tr._semantic_targets(x_a, x_b), reps)
+    loss_ms, _ = host_ms(loss_grad, reps)
+    rows, _ = device_profile(
+        lambda: (tr._semantic_targets(x_a, x_b), loss_grad()), 2)
+    busy = sum(r[0] for r in rows)
+    wgrad = [r[1][:90] for r in rows if "wgrad" in r[1].lower()]
+    dgrad = [r[1][:90] for r in rows if "dgrad" in r[1].lower()]
+    out = {"targets_ms": targets_ms, "loss_fwd_bwd_ms": loss_ms,
+           "share_of_fused_step": (targets_ms + loss_ms) / fused_ms,
+           "device_busy_ms": busy,
+           "device_share_of_fused_step": busy / fused_busy_ms
+           if fused_busy_ms else "not measured"}
+    emit(phase="train_segmenter", batch=b, tf32=True, **out,
+         wgrad_kernels=wgrad, dgrad_kernels=len(dgrad),
+         by_group_ms=grouped(rows),
+         top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
+              for r in rows[:8]],
+         note="targets: one no-grad pass over 2B images; loss: one pass "
+              "over 2B translations and its backward to them")
+    check(not wgrad, f"the frozen segmenter launched wgrad kernels: {wgrad}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+
+# (H, W, C) of every whole-LN probe shape, the batches the probes use
+PROBE_SHAPES = ((16, 256, 256, 64), (16, 128, 128, 128), (8, 256, 256, 64))
+SUMS_FLOPS_PER_ELEMENT = 2      # an add and a multiply-add
+AFFINE_FLOPS_PER_ELEMENT = 5    # subtract, two multiplies, add, ReLU
+
+
+def moments_bound(nbytes, elements, flops_per_element):
+    """The larger of the bytes moved (each input read once, each output
+    written once) at HBM rate and the f32 operations at the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops_per_element * elements / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sums_close(got, want, a, b):
+    """Each sum within 1e-5 of the sum of the magnitudes it adds (float32
+    sums of up to 4 M values in another order). Returns the max abs error,
+    the max error relative to that sum of magnitudes, and the verdict."""
+    af = a.float().flatten(1)
+    bf = af if b is None else b.float().flatten(1)
+    scale = torch.stack([af.abs().sum(1), (af * bf).abs().sum(1)], 1)
+    err = (got - want).abs()
+    return (float(err.max()), float((err / scale).max()),
+            bool((err <= 1e-5 * scale).all()))
+
+
+def moments_phase(moments):
+    """sample_sums (moments and the a·b form) and sample_affine against
+    their plain versions at every probe shape, f32 and bf16, ReLU on and
+    off; each timed (ReLU off) against the byte bound, the plain version
+    and one library call: torch.var_mean for the sums, the broadcast torch
+    expression for the apply."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    flush = torch.empty(100 * 2**20 // 4, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times, err = {}, {}
+    for shape in PROBE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            b, c = shape[0], shape[3]
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2
+                 + 0.5).to(dtype)
+            y = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            # both kernels take 16-byte vectors here: the sums have no row
+            # of channels to respect, the apply's C is a multiple of them
+            vecs = [moments.plan(b, x[0].numel(), x.element_size(),
+                                 x.data_ptr() | y.data_ptr(), sms, ch)[0]
+                    for ch in (None, c)]
+            check(all(v * x.element_size() == 16 for v in vecs),
+                  f"moments plan {shape} {dname}: vectors {vecs}")
+            e_sums = rel_sums = 0.0
+            for other in (None, y):
+                got = moments.sample_sums(x, other)
+                want = moments.sample_sums_plain(x, other)
+                e, rel, ok = sums_close(got, want, x, other)
+                e_sums, rel_sums = max(e_sums, e), max(rel_sums, rel)
+                check(ok and got.shape == (b, 2), f"sample_sums {shape} "
+                      f"{dname} b={other is not None}: differs by {e}")
+            mean = torch.randn(b, generator=gen, device="cuda") * 0.5
+            inv = torch.rand(b, generator=gen, device="cuda") + 0.5
+            gamma = torch.rand(c, generator=gen, device="cuda")
+            beta = torch.randn(c, generator=gen, device="cuda") * 0.1
+            e_aff = 0.0
+            for relu in (False, True):
+                got = moments.sample_affine(x, mean, inv, gamma, beta, relu)
+                want = moments.sample_affine_plain(x, mean, inv, gamma, beta,
+                                                   relu)
+                e_aff = max(e_aff, float((got.float() - want.float())
+                                         .abs().max()))
+                # f32: FMA contraction; bf16: one bf16 ulp
+                rtol, atol = ((1e-5, 1e-5) if dtype == torch.float32
+                              else (2**-7, 3e-2))
+                check(got.dtype == dtype and torch.allclose(
+                    got.float(), want.float(), rtol=rtol, atol=atol),
+                    f"sample_affine {shape} {dname} relu={relu}: {e_aff}")
+            torch.cuda.synchronize()
+            xf_lib = lambda: torch.var_mean(x.float(), (1, 2, 3))  # noqa: E731
+            lib_aff = lambda: ((x.float() - mean[:, None, None, None])  # noqa: E731
+                               * inv[:, None, None, None] * gamma
+                               + beta).to(dtype)
+            x_bytes = x.numel() * x.element_size()
+            for name, fn, plain, lib, bnd, e in (
+                    ("sample_sums", lambda: moments.sample_sums(x),
+                     lambda: moments.sample_sums_plain(x), xf_lib,
+                     moments_bound(x_bytes + 8 * b, x.numel(),
+                                   SUMS_FLOPS_PER_ELEMENT), e_sums),
+                    ("sample_affine",
+                     lambda: moments.sample_affine(x, mean, inv, gamma, beta),
+                     lambda: moments.sample_affine_plain(x, mean, inv, gamma,
+                                                         beta),
+                     lib_aff,
+                     moments_bound(2 * x_bytes + 8 * b + 8 * c, x.numel(),
+                                   AFFINE_FLOPS_PER_ELEMENT), e_aff)):
+                row = {"kernel": name, "shape": list(shape), "dtype": dname,
+                       "vec": vecs[name == "sample_affine"],
+                       "ms": time_ms(fn, flush), "plain_ms": time_ms(plain, flush),
+                       "library_ms": time_ms(lib, flush),
+                       "bound_ms": bnd[0], "bound_by": bnd[1],
+                       "max_abs_err": e}
+                if name == "sample_sums":
+                    row["max_rel_err"] = rel_sums
+                times[(name, shape, dname)] = row
+                err[(name, dname)] = max(err.get((name, dname), 0.0), e)
+                emit(phase="moments_kernel", **row)
+            del x, y
+    return err, times
+
+
+# ---------------------------------------------------------------- phase 11
+
+PROBE_K, PROBE_REPS = 3, 2
+# Each variant's error against the plain v1: P1 (bf16 outputs) two bf16
+# ulps of the output's scale; P2 (f32) 1e-4 of it; P3 1e-4 of the largest
+# plain input gradient of the LN + ReLU (f32, one upstream gradient).
+PROBE_TOL = {"P1": 2 * 2**-8, "P2": 1e-4, "P3": 1e-4}
+
+
+def probe_phase(moments, norms, normprobe):
+    """The three probes on the card, each variant's time and error, and the
+    moments kernels' launches in each probe (the counts set to 0 just
+    before it)."""
+    dev = torch.device("cuda")
+    launched = {}
+    rows = []
+    for probe, fn, shapes in (
+            ("P1", normprobe.probe_p1, normprobe.P1_SHAPES),
+            ("P2", normprobe.probe_p2, normprobe.P2_SHAPES),
+            ("P3", normprobe.probe_p3, normprobe.P3_SHAPE)):
+        moments.reset_launches()
+        norms.reset_launches()
+        got = fn(dev, shapes, PROBE_K, PROBE_REPS)
+        torch.cuda.synchronize()
+        launched[probe] = {**moments.launches,
+                           **{k: v for k, v in norms.launches.items() if v}}
+        for r in got:
+            emit(phase="probe", **r)
+        rows += got
+        emit(phase="probe_launches", probe=probe, launches=launched[probe])
+    for r in rows:
+        err = r.get("max_err_vs_plain")
+        check(np.isfinite(r["ms"]) and r["ms"] > 0, f"probe row {r}")
+        if err is not None:
+            scale = r.get("plain_scale", 1.0)
+            check(err <= PROBE_TOL[r["probe"]] * scale,
+                  f"probe {r['probe']} {r['variant']} {r['shape']}: "
+                  f"error {err}")
+    check(launched["P1"]["sample_sums"] and launched["P1"]["sample_affine"]
+          and launched["P2"]["sample_sums"] and launched["P3"]["sample_sums"],
+          f"a probe missed a moments kernel: {launched}")
+    ln_device_times(moments, norms)
+    return rows, launched
+
+
+def ln_device_times(moments, norms):
+    """P1's question in device time alone (the K-chains above include the
+    host's launches): per whole-LN probe shape and type, the identity+scale
+    floor, v0 (the three Welford kernels of norms.cu) and v3 (sample_sums,
+    the coefficients in torch, sample_affine), each after an L2 flush,
+    against the one-read-one-write bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    flush = torch.empty(100 * 2**20 // 4, device="cuda")
+    for shape in PROBE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            c = shape[3]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.rand(c, generator=gen, device="cuda")
+            b = torch.randn(c, generator=gen, device="cuda") * 0.01
+            emit(phase="probe_device", shape=list(shape),
+                 dtype=str(dtype).split(".")[1],
+                 floor_ms=time_ms(lambda: x * 1.0009, flush),
+                 v0_ms=time_ms(lambda: norms.whole_layer_norm(x, g, b), flush),
+                 v3_ms=time_ms(lambda: moments.whole_layer_norm(x, g, b),
+                               flush),
+                 bound_ms=2 * x.numel() * x.element_size()
+                 / HBM_BYTES_PER_S * 1e3,
+                 note="device ms, L2 flushed; bound: read x once, write y "
+                      "once")
+            del x
 
 
 # --------------------------------------------------------------------- main
@@ -773,7 +1051,18 @@ def removed_by_norm(trainer):
             if isinstance(m, ConvBlock) and m.norm_type in ("in", "adain")}
 
 
-def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches):
+# The whole-LN probes' Pallas kernels: (row, wrapper, probe, dtype of the
+# timed call, the TPU kernel it replaces)
+PROBE_KERNELS = (
+    ("P1a", "sample_sums", "P1", "bfloat16", "tools/normprobe.py:97"),
+    ("P1b", "sample_affine", "P1", "bfloat16", "tools/normprobe.py:128"),
+    ("P2", "sample_sums", "P2", "float32", "tools/normprobe2.py:114"),
+    ("P3a", "sample_sums", "P3", "float32", "tools/normprobe3.py:65"),
+)
+
+
+def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
+                 mom_err, mom_times, probe_launches):
     def total(rows, key):
         return sum(n * row[key] for n, row in rows)
 
@@ -797,7 +1086,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches):
             "library_ms": total(rows, "library_ms"),
             "per": "one translated image: its calls at batch 1, float32; "
                    "launches: translate run (phase 4), launches_train: "
-                   "15 training iterations at batch 1 (phase 7)",
+                   "15 training iterations at batch 1 (phase 8)",
         })
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
@@ -813,7 +1102,20 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches):
             "library_ms": total(rows, "library_ms"),
             "per": "one fused dis+gen step's backward calls at batch 1, "
                    "float32; launches: 15 training iterations at batch 1 "
-                   "(phase 7)",
+                   "(phase 8)",
+        })
+    for row, name, probe, dname, replaces in PROBE_KERNELS:
+        t = mom_times[(name, PROBE_SHAPES[0], dname)]
+        kernels.append({
+            "name": f"{row} {name}", "route": "cuda", "source": MOMENTS_SOURCE,
+            "replaces": replaces, "launches": probe_launches[probe][name],
+            "max_abs_err": mom_err[(name, dname)],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "per": f"one call at {list(PROBE_SHAPES[0])} {dname}; launches: "
+                   f"probe {probe} (phase 11); max_abs_err over every probe "
+                   "shape (phase 10)",
         })
     return kernels
 
@@ -861,8 +1163,10 @@ def main() -> int:
     from munit_tpu_torch.cli import translate
     from munit_tpu_torch.config import get_config, validate
     from munit_tpu_torch.io.weights import load_reference_checkpoint
-    from munit_tpu_torch.kernels import build, norms
+    from munit_tpu_torch.kernels import build, moments, norms
     from munit_tpu_torch.nn.generator import GenBundle
+    from munit_tpu_torch.nn.resnet import ResNet34_8s, seg_preprocess
+    from munit_tpu_torch.tools import normprobe
     from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
 
     smi = subprocess.run(["nvidia-smi", "-i", "0",
@@ -894,11 +1198,10 @@ def main() -> int:
     parity_mode(True)
     bwd_err, bwd_times = backward_phase(norms)
 
-    train_conf = validate(dict(get_config(str(CONFIG)), semantic_w=0))
-    emit(phase="train_cut", config=str(CONFIG.relative_to(ROOT)),
-         semantic_w=get_config(str(CONFIG))["semantic_w"], semantic_w_run=0,
-         note="the semantic loss (frozen ResNet34-8s) is the next slice; "
-              "every other key is config_256's, at full width")
+    segmenter_phase(ResNet34_8s, seg_preprocess)
+
+    train_conf = get_config(str(CONFIG))
+    check(train_conf["semantic_w"] > 0, "config_256 trains with semantic_w")
     train_launches = None
     for b in BATCHES:
         tr, batch, counts = training_phase(norms, MUNITTrainer, train_steps,
@@ -909,9 +1212,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     grads_phase(MUNITTrainer, train_conf, removed_by_norm)
 
+    parity_mode(True)
+    mom_err, mom_times = moments_phase(moments)
+    _, probe_launches = probe_phase(moments, norms, normprobe)
+
     print(json.dumps({"kernels": kernel_table(
-        err, times, bwd_err, bwd_times, launches, train_launches)}),
-        flush=True)
+        err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
+        mom_times, probe_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

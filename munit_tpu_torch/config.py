@@ -42,6 +42,7 @@ _DEFAULTS: Dict[str, Any] = {
     "gen_state": 0,
     "guided": 0,
     "ratio_disc_gen": 1,
+    "semantic_ckpt_path": None,   # the frozen segmenter's .pth
     "input_dim_a": 3,
     "input_dim_b": 3,
     "new_size": 256,

@@ -37,9 +37,13 @@ def pad2d(x: torch.Tensor, padding: int, mode: str) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
-           bias: torch.Tensor | None = None, stride: int = 1) -> torch.Tensor:
-    """VALID conv over an already-padded NHWC input; weight is OIHW."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride)
+           bias: torch.Tensor | None = None, stride: int = 1,
+           dilation: int = 1, padding: int = 0) -> torch.Tensor:
+    """Conv of an NHWC input; weight is OIHW. VALID over an already-padded
+    input by default; ``padding`` zero-pads inside the conv, the same as
+    ``conv2d(pad2d(x, padding, "zero"), ...)`` without the padded copy."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride, padding,
+                 dilation)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -89,6 +93,17 @@ def whole_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (y * upcast_f32(gamma) + upcast_f32(beta)).to(x.dtype)
 
 
+def batch_norm_inference(x: torch.Tensor, mean: torch.Tensor,
+                         var: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Inference-mode batch norm with frozen running statistics over the
+    last (channel) axis, f32 math, output in x's type (the segmenter's
+    frozen BN)."""
+    inv = torch.rsqrt(upcast_f32(var) + eps) * upcast_f32(gamma)
+    y = (upcast_f32(x) - upcast_f32(mean)) * inv + upcast_f32(beta)
+    return y.to(x.dtype)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d(1): mean over H, W → (B, 1, 1, C)."""
     return x.mean(dim=(1, 2), keepdim=True)
@@ -118,7 +133,8 @@ def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 def max_pool(x: torch.Tensor, window: int, stride: int,
              padding: int = 0) -> torch.Tensor:
-    """Max pool on NHWC (the domain classifier's MaxPool2d)."""
+    """Max pool on NHWC (the domain classifier's MaxPool2d, the segmenter's
+    stem); the padding counts as -inf, as reduce_window's does."""
     return _nhwc(F.max_pool2d(_nchw(x), window, stride, padding))
 
 
@@ -129,6 +145,35 @@ def window_avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     smaller maps keep a live gradient instead of an empty window."""
     wh, ww = min(window, x.shape[1]), min(window, x.shape[2])
     return _nhwc(F.avg_pool2d(_nchw(x), (wh, ww), (wh, ww)))
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple) -> torch.Tensor:
+    """Bilinear upsample of an NHWC tensor to ``size`` (H, W) with
+    half-pixel centres and source coordinates clamped at the edges (torch's
+    ``align_corners=False``): the JAX package's ``resize_bilinear`` default,
+    ``jax.image.resize(..., "linear")``, when no axis shrinks. That call
+    antialiases a downscale, which nothing in the port needs, so a
+    downscale raises. Runs on a contiguous NCHW copy, as the pools do (see
+    ``_nchw``)."""
+    h, w = x.shape[1], x.shape[2]
+    if size[0] < h or size[1] < w:
+        raise ValueError(f"resize_bilinear upsamples only: {(h, w)} -> "
+                         f"{tuple(size)}")
+    y = F.interpolate(_nchw(x), size=tuple(size), mode="bilinear",
+                      align_corners=False)
+    return _nhwc(y)
+
+
+def resize_nearest(x: torch.Tensor, size: tuple) -> torch.Tensor:
+    """Nearest resize of an NHWC tensor: source index floor(i * in / out)
+    in float32, clamped (``munit_tpu/core/ops.py::resize_nearest``)."""
+    b, h, w, c = x.shape
+
+    def index(n_out, n_in):
+        i = torch.arange(n_out, dtype=torch.float32, device=x.device)
+        return torch.floor(i * (n_in / n_out)).long().clamp(0, n_in - 1)
+
+    return x[:, index(size[0], h)][:, :, index(size[1], w)]
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

@@ -10,11 +10,17 @@
   ``batch_stats`` → the reference ``domainClassifier`` keys (the inverse of
   ``convert_domain_classifier_state_dict``).
 
+- ``from_jax_resnet34_8s``: the frozen segmenter's ``{params,
+  batch_stats}`` → the reference ``resnet34_8s.*`` keys (the inverse of
+  ``convert_resnet34_8s_state_dict``).
+
 Every transform is linear (transposes and renames), so the same functions
 carry a JAX gradient tree into the port's names and layout.
 - ``load_reference_checkpoint``: a reference ``gen_*.pt`` (``{"2": sd}``) or
   an ``.npz`` with ``sd::``-prefixed entries (``tests/fixtures/
   golden_gen.npz``) → ``state_dict``.
+- ``load_segmenter_checkpoint``: the reference segmenter ``.pth`` (a bare
+  ``resnet34_8s.*`` state dict) or an ``sd::`` ``.npz`` → ``state_dict``.
 
 Transforms: conv kernels HWIO → OIHW, dense kernels (in, out) → (out, in),
 ``ln_gamma``/``ln_beta`` → ``norm.gamma``/``norm.beta``.
@@ -26,6 +32,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from munit_tpu_torch.nn.resnet import LAYERS_8S
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -119,6 +127,42 @@ def from_jax_classifier(params, stats=None) -> StateDict:
     return _tensors(sd)
 
 
+def from_jax_resnet34_8s(variables) -> StateDict:
+    """ResNet34_8s ``{params, batch_stats}`` → ``resnet34_8s.*`` keys:
+    conv kernels HWIO → OIHW, ``_FrozenBN`` scale/bias/mean/var →
+    weight/bias/running_mean/running_var, scopes ``layer{i}_{j}`` →
+    ``layer{i}.{j}``, ``down_conv``/``down_bn`` → ``downsample.{0,1}``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    p = "resnet34_8s."
+    sd: dict = {}
+
+    def oihw(a):
+        return np.transpose(np.asarray(a), (3, 2, 0, 1))
+
+    def bn(key, prm, st):
+        sd[f"{key}.weight"] = np.asarray(prm["scale"])
+        sd[f"{key}.bias"] = np.asarray(prm["bias"])
+        sd[f"{key}.running_mean"] = np.asarray(st["mean"])
+        sd[f"{key}.running_var"] = np.asarray(st["var"])
+
+    sd[p + "conv1.weight"] = oihw(params["conv1"])
+    bn(p + "bn1", params["bn1"], stats["bn1"])
+    for li, (_, blocks, _, _) in enumerate(LAYERS_8S):
+        for bi in range(blocks):
+            scope, key = f"layer{li + 1}_{bi}", f"{p}layer{li + 1}.{bi}"
+            blk, bst = params[scope], stats[scope]
+            sd[f"{key}.conv1.weight"] = oihw(blk["conv1"])
+            sd[f"{key}.conv2.weight"] = oihw(blk["conv2"])
+            bn(f"{key}.bn1", blk["bn1"], bst["bn1"])
+            bn(f"{key}.bn2", blk["bn2"], bst["bn2"])
+            if "down_conv" in blk:
+                sd[f"{key}.downsample.0.weight"] = oihw(blk["down_conv"])
+                bn(f"{key}.downsample.1", blk["down_bn"], bst["down_bn"])
+    sd[p + "fc.weight"] = oihw(params["fc_kernel"])
+    sd[p + "fc.bias"] = np.asarray(params["fc_bias"])
+    return _tensors(sd)
+
+
 def _tensors(sd: dict) -> StateDict:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
@@ -145,3 +189,23 @@ def load_reference_checkpoint(path: str) -> StateDict:
                              "{'2': state_dict} (gen_state: 1)")
         sd = blob["2"]
     return drop_adain_buffers(sd)
+
+
+def load_segmenter_checkpoint(path: str) -> StateDict:
+    """The reference's Cityscapes ResNet34-8s ``.pth`` (a state dict of
+    ``resnet34_8s.*`` keys, ``semantic_ckpt_path`` in the config) or an
+    ``.npz`` of ``sd::`` entries → the port's segmenter state_dict (CPU
+    tensors). BatchNorm2d's ``num_batches_tracked`` counters are dropped:
+    the frozen net never updates its statistics."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as blob:
+            sd = {k[4:]: torch.from_numpy(blob[k]) for k in blob.files
+                  if k.startswith("sd::")}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: v for k, v in sd.items()
+          if not k.endswith("num_batches_tracked")}
+    if not sd or not all(k.startswith("resnet34_8s.") for k in sd):
+        raise ValueError(f"{path}: expected a state dict of resnet34_8s.* "
+                         "keys (the reference's Resnet34_8s)")
+    return sd

@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/kernels/<name>-<hash>/lib<name>.so`` at the root of the
-checkout (``build/`` is git-ignored). The hash covers the source and the
-compiler flags, so an edited source is rebuilt at its next use and an
-unchanged one is built once. Nothing is built at import: the first call that
-launches a kernel builds its library, and ``build_all`` builds every source
-at once, one nvcc process each, started together.
+checkout (``build/`` is git-ignored). The hash covers the source, the shared
+headers ``csrc/*.cuh`` and the compiler flags, so an edited source is
+rebuilt at its next use and an unchanged one is built once. Nothing is built
+at import: the first call that launches a kernel builds its library, and
+``build_all`` builds every source at once, one nvcc process each, started
+together.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("norms",)
+SOURCES = ("norms", "moments")
 # sm_90a: Hopper, with its architecture-specific instructions enabled.
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,6 +36,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}" / f"lib{name}.so"
 

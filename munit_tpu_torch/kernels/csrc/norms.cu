@@ -65,33 +65,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T v);
-template <>
-__device__ __forceinline__ float to_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
-
-// VEC consecutive channels of one row, moved as one (up to 16-byte) access.
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
+using munit::from_float;
+using munit::Pack;
+using munit::to_float;
 
 // Chan's merge of partial (nb, mb, m2b) into (n, mean, m2).
 __device__ __forceinline__ void merge(float& n, float& mean, float& m2,

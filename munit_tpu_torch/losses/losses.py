@@ -1,6 +1,6 @@
 """The training losses, on NHWC tensors: counterparts of
 ``munit_tpu/losses/losses.py`` (reference trainer.py:279-305, 638-667,
-networks.py:79-115). Losses compute in at least float32.
+706-771, networks.py:79-115). Losses compute in at least float32.
 """
 
 from __future__ import annotations
@@ -69,3 +69,30 @@ def classifier_sr_loss(out_a: torch.Tensor, out_b: torch.Tensor,
     0.5 for the generator's fool term, else 0 (synthetic) or 1 (real)."""
     t = 0.5 if fool else (0.0 if domain_synth else 1.0)
     return (out_a - t).square().mean() + (out_b - t).square().mean()
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over every pixel (B·H·W). logits (..., C)
+    with the classes last (NHWC), labels (...) integer."""
+    c = logits.shape[-1]
+    return F.cross_entropy(upcast_f32(logits).reshape(-1, c),
+                           labels.reshape(-1).long())
+
+
+def semantic_seg_loss_masked(logits: torch.Tensor, target: torch.Tensor,
+                             mask: torch.Tensor,
+                             num_classes: int) -> torch.Tensor:
+    """The reference's mask-as-extra-logit-channel construction
+    (trainer.py:744-767): masked pixels are relabelled ``num_classes``,
+    their logits zeroed, and the mask itself appended as one more logit
+    channel, so a masked pixel's gradient to the logits is ~0.
+
+    logits (B, H, W, C); target (B, H, W) integer; mask (B, H, W) in
+    {0, 1}."""
+    m = upcast_f32(mask)
+    m_long = mask.long()
+    relabelled = (1 - m_long) * target.long() + m_long * num_classes
+    masked = upcast_f32(logits) * (1.0 - m)[..., None]
+    return cross_entropy_loss(torch.cat([masked, m[..., None]], dim=-1),
+                              relabelled)

@@ -12,17 +12,23 @@ for ``gen_state: 1``, ``guided: 1`` and ``grad_accum: 1``.
 
 Every forward makes the JAX trainer's ``wide: 1`` calls (its default at
 256 px): one style encode of both domains, the two content encoders as a
-pair, and one decode per domain over [recon | cross]. Gradients are taken
-with ``torch.autograd.grad`` with respect to named parameter lists, so D
-collects no generator gradient and no stale ``.grad`` is left; the
-optimizers update the parameters in place. With guided styles no random
-style reaches a loss (trainer.py:850-853, 1137-1139), so none is drawn.
+pair, and one decode per domain over [recon | cross]. With ``semantic_w >
+0`` the frozen ResNet34-8s segments [x_a | x_b] once per gen step, outside
+the differentiated part, for its pseudo-label targets (trainer.py:736-752,
+841-843), and [x_ab | x_ba] once inside it for the semantic loss
+(:771-782, 1199-1202); its gradient reaches the translations only.
+Gradients are taken with ``torch.autograd.grad`` with respect to named
+parameter lists, so D collects no generator gradient and no stale ``.grad``
+is left; the optimizers update the parameters in place. With guided
+styles no random style reaches a loss (trainer.py:850-853, 1137-1139), so
+none is drawn.
 
-Not ported yet, and refused when its weight is on: the semantic loss
-(``semantic_w``, the next slice), VGG (``vgg_w``), DANN (``domain_adv_w``),
-synthetic pairs (``recon_synth_w``), output-level DA
-(``output_adv_lambda``, ``output_classifier_lambda``), the seg head
-(``sem_seg_lambda``), ``grad_accum > 1`` and ``guided: 0`` (ROADMAP.md).
+Not ported yet, and refused when its weight is on: VGG (``vgg_w``), DANN
+(``domain_adv_w``), synthetic pairs (``recon_synth_w``) and with them the
+ground-truth semantic targets (``has_sem_gt``, ``merge_class_matrix``),
+output-level DA (``output_adv_lambda``, ``output_classifier_lambda``), the
+seg head (``sem_seg_lambda``), ``grad_accum > 1`` and ``guided: 0``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,9 +38,11 @@ from typing import Dict, List, Tuple
 import torch
 
 from munit_tpu_torch.config import dis_pyramid_floor, pyramid_message
+from munit_tpu_torch.core import ops
 from munit_tpu_torch.losses import losses
 from munit_tpu_torch.nn import classifiers, discriminator
 from munit_tpu_torch.nn.generator import GenBundle
+from munit_tpu_torch.nn.resnet import NUM_CLASSES, ResNet34_8s, seg_preprocess
 from munit_tpu_torch.optim.extra_adam import (extra_adam_init,
                                               extra_adam_update)
 from munit_tpu_torch.optim.schedule import from_config as schedule_from_config
@@ -43,7 +51,6 @@ Tensors = Dict[str, torch.Tensor]
 
 # (config key or adaptation key, weight name, the slice that brings it)
 _NOT_PORTED = (
-    ("semantic_w", "the semantic loss", "ROADMAP queue 1 item 6"),
     ("vgg_w", "the VGG loss", "ROADMAP queue 1 item 12"),
     ("domain_adv_w", "the DANN loss", "ROADMAP queue 1 item 11"),
     ("recon_synth_w", "the synthetic-pair loss", "ROADMAP queue 1 item 11"),
@@ -93,12 +100,15 @@ class MUNITTrainer:
         self.use_extra = "extra" in conf["optimizer"]
         self.recon_mask = conf["recon_mask"] == 1
         ad = conf["adaptation"]
+        self.semantic_w = float(conf["semantic_w"]) > 0
+        self.full_adaptation = ad["full_adaptation"] == 1
+        self.crop = conf["crop_image_height"]
         self.use_classifier_sr = ad["dfeat_lambda"] > 0
         self.lr_schedule = schedule_from_config(conf)
         self.iterations = 0
         self.hw = {k: float(conf[k]) for k in
                    ("gan_w", "recon_x_w", "recon_s_w", "recon_c_w",
-                    "recon_x_cyc_w")}
+                    "recon_x_cyc_w", "semantic_w")}
         self.hw["adv_lambda"] = float(ad["adv_lambda"])
 
         self.gen = GenBundle(conf, device, trainable=True)
@@ -113,6 +123,9 @@ class MUNITTrainer:
                 classifiers.DomainClassifier(content_dim).to(
                     device=device, memory_format=torch.channels_last)
                 for _ in range(2))
+        # frozen: seeded by init() or loaded by load_segmenter()
+        self.segmenter = (ResNet34_8s(NUM_CLASSES).frozen_on(device)
+                          if self.semantic_w else None)
         self.gen_opt = extra_adam_init(self.gen_params())
         self.dis_opt = extra_adam_init(self.dis_params())
         self.classif_sr_opt = (extra_adam_init(self.classifier_params())
@@ -138,8 +151,17 @@ class MUNITTrainer:
         nets = [self.gen, self.dis_a, self.dis_b]
         if self.classifier_sr_a is not None:
             nets += [self.classifier_sr_a, self.classifier_sr_b]
+        if self.segmenter is not None:
+            nets.append(self.segmenter)
         for net in nets:
             net.init(generator)
+
+    def load_segmenter(self, state_dict: Tensors) -> None:
+        """The frozen segmenter's weights, reference ``resnet34_8s.*``
+        keys (``io/weights.py::load_segmenter_checkpoint``)."""
+        if self.segmenter is None:
+            raise ValueError("no segmenter: semantic_w is 0")
+        self.segmenter.load_state_dict(state_dict)
 
     # ------------------------------------------------------------- forwards
 
@@ -178,6 +200,40 @@ class MUNITTrainer:
             fw["x_bab"] = gen.decode(c_b_recon, s_b, 2)
         return fw
 
+    # ------------------------------------------------------------- semantic
+
+    def _segment(self, img):
+        """Frozen segmenter logits (B, H, W, 19) of a [-1, 1] image."""
+        return self.segmenter(seg_preprocess(img))
+
+    def _semantic_targets(self, x_a, x_b):
+        """Pseudo-labels of the real images (trainer.py:736-752, wide 1):
+        one pass over [x_a | x_b], outside any gradient."""
+        if not self.semantic_w:
+            return None
+        with torch.no_grad():
+            t = self._segment(torch.cat([x_a, x_b])).argmax(dim=-1)
+        bsz = x_a.shape[0]
+        return t[:bsz], t[bsz:]
+
+    def _sem_loss_from_logits(self, logits, target, mask):
+        """Masked CE over the 19 classes, the mask resized to the crop;
+        plain CE with ``full_adaptation: 1`` (trainer.py:754-763)."""
+        if self.full_adaptation:
+            return losses.cross_entropy_loss(logits, target)
+        m = ops.resize_nearest(mask, (self.crop, self.crop))[..., 0]
+        return losses.semantic_seg_loss_masked(logits, target, m, NUM_CLASSES)
+
+    def _semantic_loss_pair(self, x_ab, x_ba, targets, mask_a, mask_b):
+        """Both translations through one segmenter pass, held against the
+        targets of their sources: x_ab against (t_a, mask_a), x_ba against
+        (t_b, mask_b) (trainer.py:771-782, 1199-1202)."""
+        bsz = x_ab.shape[0]
+        logits = self._segment(torch.cat([x_ab, x_ba]))
+        t_a, t_b = targets
+        return (self._sem_loss_from_logits(logits[:bsz], t_a, mask_a)
+                + self._sem_loss_from_logits(logits[bsz:], t_b, mask_b))
+
     def _dis_apply_fr(self, dis, x_fake, x_real):
         """One D pass over [fake | real] → (outs_fake, outs_real)."""
         bsz = x_fake.shape[0]
@@ -194,10 +250,11 @@ class MUNITTrainer:
         return total, {"loss_dis_a": la, "loss_dis_b": lb,
                        "loss_dis_total": total}
 
-    def _gen_loss(self, fw, x_a, x_b, mask_a, mask_b):
+    def _gen_loss(self, fw, x_a, x_b, mask_a, mask_b, sem_targets):
         """The gen step's loss over a generator forward (trainer.py:
         1117-1254), against the current weights of D and the classifiers;
-        the classifiers' batch statistics are discarded."""
+        the classifiers' batch statistics are discarded. ``sem_targets``:
+        the pseudo-labels (t_a, t_b), or None when semantic_w is 0."""
         hw, l1 = self.hw, losses.recon_l1
         m = {"loss_gen_recon_x_a": l1(fw["x_a_recon"], x_a),
              "loss_gen_recon_x_b": l1(fw["x_b_recon"], x_b),
@@ -228,6 +285,11 @@ class MUNITTrainer:
                 fool=True)
         else:
             m["loss_classifier_adv_sr"] = zero
+        if self.semantic_w:
+            m["loss_sem_seg"] = self._semantic_loss_pair(
+                fw["x_ab"], fw["x_ba"], sem_targets, mask_a, mask_b)
+        else:
+            m["loss_sem_seg"] = zero
         total = (hw["gan_w"] * (m["loss_gen_adv_a"] + m["loss_gen_adv_b"])
                  + hw["recon_x_w"] * (m["loss_gen_recon_x_a"]
                                       + m["loss_gen_recon_x_b"])
@@ -237,9 +299,18 @@ class MUNITTrainer:
                                       + m["loss_gen_recon_c_b"])
                  + hw["recon_x_cyc_w"] * (m["loss_gen_cycrecon_x_a"]
                                           + m["loss_gen_cycrecon_x_b"])
+                 + hw["semantic_w"] * m["loss_sem_seg"]
                  + hw["adv_lambda"] * m["loss_classifier_adv_sr"])
         m["loss_gen_total"] = total
         return total, m
+
+    @staticmethod
+    def _no_sem_gt(sem_gt_a, sem_gt_b):
+        if sem_gt_a is not None or sem_gt_b is not None:
+            raise NotImplementedError(
+                "ground-truth semantic targets (has_sem_gt, "
+                "merge_class_matrix: the synthetic-pair step) are not "
+                "ported; ROADMAP queue 1 item 11")
 
     def _masks(self, x_a, mask_a, mask_b):
         z = None
@@ -282,23 +353,29 @@ class MUNITTrainer:
                                     params, lr)
         return _detached(m, lr=lr)
 
-    def gen_update(self, x_a, x_b, mask_a=None, mask_b=None) -> Tensors:
+    def gen_update(self, x_a, x_b, mask_a=None, mask_b=None, sem_gt_a=None,
+                   sem_gt_b=None) -> Tensors:
         """One generator step against the current discriminators."""
+        self._no_sem_gt(sem_gt_a, sem_gt_b)
         lr = self._lr()
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+        targets = self._semantic_targets(x_a, x_b)
         params = self.gen_params()
         total, m = self._gen_loss(self._gen_forward(x_a, x_b), x_a, x_b,
-                                  mask_a, mask_b)
+                                  mask_a, mask_b, targets)
         self.gen_opt = self._update(self._grads(total, params), self.gen_opt,
                                     params, lr)
         return _detached(m)
 
-    def dis_gen_update(self, x_a, x_b, mask_a=None, mask_b=None) -> Tensors:
+    def dis_gen_update(self, x_a, x_b, mask_a=None, mask_b=None,
+                       sem_gt_a=None, sem_gt_b=None) -> Tensors:
         """The fused dis + gen step: one generator forward; D steps first on
         its detached cross decodes, then the generator's losses are taken
         against the updated D."""
+        self._no_sem_gt(sem_gt_a, sem_gt_b)
         lr = self._lr()
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+        targets = self._semantic_targets(x_a, x_b)
         fw = self._gen_forward(x_a, x_b)
         dis_params = self.dis_params()
         total_d, m_dis = self._dis_loss(fw["x_ba"].detach(),
@@ -306,7 +383,8 @@ class MUNITTrainer:
         self.dis_opt = self._update(self._grads(total_d, dis_params),
                                     self.dis_opt, dis_params, lr)
         gen_params = self.gen_params()
-        total_g, m_gen = self._gen_loss(fw, x_a, x_b, mask_a, mask_b)
+        total_g, m_gen = self._gen_loss(fw, x_a, x_b, mask_a, mask_b,
+                                        targets)
         self.gen_opt = self._update(self._grads(total_g, gen_params),
                                     self.gen_opt, gen_params, lr)
         return _detached({**m_dis, **m_gen}, lr=lr)
@@ -316,11 +394,12 @@ class MUNITTrainer:
         """(dis grads, gen grads) of one fused step, both against the
         current D, with no update (trainer.py:1025-1070)."""
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+        targets = self._semantic_targets(x_a, x_b)
         fw = self._gen_forward(x_a, x_b)
         total_d, _ = self._dis_loss(fw["x_ba"].detach(), fw["x_ab"].detach(),
                                     x_a, x_b)
         grads_d = self._grads(total_d, self.dis_params())
-        total_g, _ = self._gen_loss(fw, x_a, x_b, mask_a, mask_b)
+        total_g, _ = self._gen_loss(fw, x_a, x_b, mask_a, mask_b, targets)
         return grads_d, self._grads(total_g, self.gen_params())
 
     def domain_classifier_sr_update(self, x_a, x_b, domain_synth: bool,

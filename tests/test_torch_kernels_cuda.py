@@ -174,3 +174,112 @@ def test_pool_gradients_on_card_match_the_cpu():
             dy = torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape) % 7
             grads.append(torch.autograd.grad(y, xx, dy.to(dev))[0].cpu())
         torch.testing.assert_close(grads[1], grads[0], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (3, 12, 20, 24),
+                                   (1, 7, 5, 3)])
+def test_moments_kernels_against_plain_on_card(shape, dtype):
+    """sample_sums (alone and with b) and sample_affine (ReLU on and off)
+    against their plain versions; the odd shapes take the narrow vectors.
+    Sums within 1e-5 of the summed magnitudes (float32 order); the apply
+    f32 within 1e-5, bf16 within one bf16 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from munit_tpu_torch.kernels import moments
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    b, _, _, c = shape
+    x = (torch.randn(shape, generator=gen) * 2 + 0.5).to("cuda", dt)
+    y = torch.randn(shape, generator=gen).to("cuda", dt)
+    moments.reset_launches()
+    for other in (None, y):
+        got = moments.sample_sums(x, other)
+        want = moments.sample_sums_plain(x, other)
+        bf = x.float() if other is None else other.float()
+        scale = torch.stack([x.float().abs().flatten(1).sum(1),
+                             (x.float() * bf).abs().flatten(1).sum(1)], 1)
+        assert ((got - want).abs() <= 1e-5 * scale).all()
+    mean = torch.randn(b, generator=gen).cuda()
+    inv = (torch.rand(b, generator=gen) + 0.5).cuda()
+    gamma, beta = torch.rand(c, generator=gen).cuda(), torch.randn(c, generator=gen).cuda()
+    rtol, atol = (1e-5, 1e-5) if dt == torch.float32 else (2**-7, 3e-2)
+    for relu in (False, True):
+        got = moments.sample_affine(x, mean, inv, gamma, beta, relu)
+        want = moments.sample_affine_plain(x, mean, inv, gamma, beta, relu)
+        assert got.dtype == dt
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+    assert moments.launches == {"sample_sums": 2, "sample_affine": 2}
+    with pytest.raises(ValueError, match="contiguous"):
+        moments.sample_sums(x.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_segmenter_resize_and_pool_gradients_on_card_match_the_cpu():
+    """The segmenter's bilinear upsample and stem max pool take the same
+    input gradient on the card as on the CPU (both run on contiguous NCHW
+    copies; CUDA's channels-last pool backward was wrong before)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from munit_tpu_torch.core import ops
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 9, 7, 19), generator=gen, dtype=torch.float64)
+    for fn in (lambda t: ops.resize_bilinear(t, (72, 56)),
+               lambda t: ops.max_pool(t, 3, 2, 1)):
+        grads = []
+        for dev in ("cpu", "cuda"):
+            xx = x.to(dev).requires_grad_(True)
+            y = fn(xx)
+            dy = torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape) % 5
+            grads.append(torch.autograd.grad(y, xx, dy.to(dev))[0].cpu())
+        torch.testing.assert_close(grads[1], grads[0], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_semantic_gradient_reaches_the_generator_on_card():
+    """The semantic loss alone, through the frozen segmenter on the card:
+    its gradient reaches the decoders and content encoders, none reaches
+    the segmenter, and it matches the CPU's within 2e-2 relative L2 per
+    leaf (TF32 off; chip_smoke.py's GRAD_TOL). Both take the CPU's
+    pseudo-labels: a label that flips between the two decides a pixel's
+    whole CE term."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from munit_tpu_torch.config import validate
+    from munit_tpu_torch.nn.blocks import ConvBlock
+    from munit_tpu_torch.train.trainer import MUNITTrainer
+    from torch_port_util import small_train_spec, train_batch
+    torch.backends.cudnn.allow_tf32 = False
+    conf = validate(small_train_spec(semantic_w=3))
+    grads, targets = [], None
+    for dev in ("cpu", "cuda"):
+        tr = MUNITTrainer(conf, dev)
+        tr.init(torch.Generator().manual_seed(0))
+        x_a, x_b, m_a, m_b = (torch.from_numpy(t).to(dev)
+                              for t in train_batch(0))
+        if targets is None:
+            targets = tr._semantic_targets(x_a, x_b)
+        fw = tr._gen_forward(x_a, x_b)
+        loss = tr._semantic_loss_pair(fw["x_ab"], fw["x_ba"],
+                                      [t.to(dev) for t in targets], m_a, m_b)
+        params = tr.gen_params()
+        g = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+        grads.append({k: v for k, v in zip(params, g) if v is not None})
+        assert not any(p.requires_grad for p in tr.segmenter.parameters())
+    cpu, card = grads
+    assert set(card) == set(cpu)
+    assert any(k.startswith("dec1") for k in card)
+    assert any(k.startswith("enc2_content") for k in card)
+    # conv biases an instance norm or AdaIN removes: exact gradient 0
+    zero = {f"{n}.conv.bias" for n, m in tr.gen.module.named_modules()
+            if isinstance(m, ConvBlock) and m.norm_type in ("in", "adain")}
+    scale = max(w.abs().max().item() for w in cpu.values())
+    for k, w in cpu.items():
+        if k in zero:
+            assert card[k].abs().max().item() <= 1e-5 * scale, k
+            continue
+        e = (card[k].cpu().double() - w.double()).norm() / w.double().norm()
+        assert e <= 2e-2, (k, float(e))

@@ -109,8 +109,9 @@ def test_fused_step_matches_unfused_pair(jax_grads):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("guided", 0), ("grad_accum", 2), ("semantic_w", 3), ("vgg_w", 1),
-    ("domain_adv_w", 1), ("recon_synth_w", 1)])
+    ("guided", 0), ("grad_accum", 2),
+    ("adaptation", {"adv_lambda": 6, "dfeat_lambda": 1, "sem_seg_lambda": 1}),
+    ("vgg_w", 1), ("domain_adv_w", 1), ("recon_synth_w", 1)])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="not ported"):
         MUNITTrainer(validate(small_train_spec(**{key: value})), "cpu")

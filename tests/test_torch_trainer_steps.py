@@ -24,29 +24,12 @@ from munit_tpu.config import validate as jvalidate
 from munit_tpu.train import MUNITTrainer as JTrainer
 from munit_tpu_torch.config import validate
 from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
-from tests.torch_port_util import (jax_net_params, load_jax_state,  # noqa: F401
-                                   one_torch_thread, small_train_spec,
-                                   train_batch)
+from tests.torch_port_util import (jax_net_params, jax_steps,  # noqa: F401
+                                   load_jax_state, one_torch_thread,
+                                   small_train_spec, train_batch)
 
 ITERS = 3
 LR = 1e-4
-
-
-def _jax_steps(jtr, x_a, x_b, m_a, m_b):
-    """bench.py's one_iter for ITERS iterations; metrics as floats."""
-    conf, ad = jtr.conf, jtr.conf["adaptation"]
-    out = []
-    for it in range(ITERS):
-        jtr.iterations = it
-        if (it + 1) % conf["ratio_disc_gen"] == 0:
-            m = jtr.dis_gen_update(x_a, x_b, m_a, m_b)
-        else:
-            m = jtr.dis_update(x_a, x_b)
-        if (it + 1) % ad["classif_frequency"] == 0:
-            m = dict(m, **jtr.domain_classifier_sr_update(
-                x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
-        out.append({k: float(v) for k, v in m.items()})
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +40,7 @@ def trajectories():
     tr = MUNITTrainer(validate(spec), "cpu")
     load_jax_state(tr, jtr.state)
     batch = train_batch(2)
-    want = _jax_steps(jtr, *map(jnp.asarray, batch))
+    want = jax_steps(jtr, map(jnp.asarray, batch), ITERS)
     got = train_steps(tr, *map(torch.from_numpy, batch), range(ITERS))
     return want, [{k: float(v) for k, v in m.items()} for m in got], \
         jax_net_params(jtr.state), tr

@@ -87,6 +87,25 @@ def jax_net_params(state) -> dict:
     return {n: {k: v.numpy() for k, v in d.items()} for n, d in out.items()}
 
 
+def jax_steps(jtr, batch, iters: int) -> list:
+    """bench.py's one_iter on a JAX ``MUNITTrainer`` for ``iters``
+    iterations over (x_a, x_b, mask_a, mask_b); metrics as floats."""
+    x_a, x_b, m_a, m_b = batch
+    conf, ad = jtr.conf, jtr.conf["adaptation"]
+    out = []
+    for it in range(iters):
+        jtr.iterations = it
+        if (it + 1) % conf["ratio_disc_gen"] == 0:
+            m = jtr.dis_gen_update(x_a, x_b, m_a, m_b)
+        else:
+            m = jtr.dis_update(x_a, x_b)
+        if (it + 1) % ad["classif_frequency"] == 0:
+            m = dict(m, **jtr.domain_classifier_sr_update(
+                x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
 def port_module(gen: dict, input_dim: int = 3) -> AdaINGenDual:
     return AdaINGenDual(input_dim, gen["dim"], gen["style_dim"],
                         gen["n_downsample"], gen["n_res"], gen["mlp_dim"],
@@ -106,6 +125,31 @@ def ref_layout_weights(gen: dict, seed: int = 0) -> dict:
             fan_in = int(np.prod(shape[1:]))
             a = rng.randn(*shape) * np.sqrt(2.0 / fan_in)
         else:  # conv / linear biases, LayerNorm betas
+            a = rng.randn(*shape) * 0.1
+        out[k] = a.astype(np.float32)
+    return out
+
+
+def seg_ref_weights(seed: int = 0) -> dict:
+    """Every parameter and buffer of the frozen ResNet34-8s in the
+    reference ``resnet34_8s.*`` layout, as float32 numpy arrays: convs
+    N(0, 1/fan_in), the logit conv N(0, 0.01) (the JAX init's), BN scales
+    U[0.5, 1.5), shifts and running means N(0, 0.1), running variances
+    U[0.5, 1.5) (tests/test_resnet_seg.py's statistics). The logits stay
+    of order 1-10, so near-ties between classes are rare."""
+    from munit_tpu_torch.nn.resnet import ResNet34_8s
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, v in sorted(ResNet34_8s().state_dict().items()):
+        shape = tuple(v.shape)
+        if k.endswith("fc.weight"):
+            a = rng.randn(*shape) * 0.01
+        elif len(shape) == 4:
+            a = rng.randn(*shape) * np.sqrt(1.0 / np.prod(shape[1:]))
+        elif k.endswith(("running_var", "bn1.weight", "bn2.weight",
+                         "downsample.1.weight")):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:                   # BN shifts and running means, the fc bias
             a = rng.randn(*shape) * 0.1
         out[k] = a.astype(np.float32)
     return out
