@@ -6,9 +6,17 @@ Phases, each raising on failure (exit code 1):
 1. the card's name and power limit (nvidia-smi), and the build of every
    CUDA source of the port, one nvcc each, started together;
 2. each norm kernel against its plain PyTorch version on the card, at every
-   norm shape of the config_256 path, batch 1 and 8, f32 and bf16, ReLU on
-   and off; then kernel, plain version, one library call and the
-   device-memory bound timed per shape;
+   norm shape of the config_256 path, batch 1 and 8 (and 2 and 16 where
+   the cluster design runs: the wide decodes' 2B), f32 and bf16, ReLU on
+   and off; each path shape's launch plan (cluster or split design; the
+   cluster's group, K, rows, shared memory and the clusters the card holds
+   at once); then kernel, plain version, one library call and the
+   device-memory bound timed per shape (and the cluster design under
+   other tile budgets than the plan's), and where the cluster design runs,
+   the split design timed in the same run, a copy of x as the practical
+   floor, and two runs held bitwise equal; then a profile that finds one
+   device kernel per AdaIN call, forward and backward, and the host µs per
+   wrapper call of both designs;
 3. the golden fixture (tests/fixtures/golden_gen.npz) reproduced on the
    card through the kernels;
 4. the main path: the translate CLI on the card at the full width of
@@ -21,7 +29,8 @@ Phases, each raising on failure (exit code 1):
    autograd of the plain forward, at every norm shape of the training path
    (the wide decodes at twice the batch), f32 and bf16, ReLU on and off;
    then kernel, plain backward, one library call's autograd backward and
-   the byte bound timed per shape;
+   the byte bound timed per shape, the split design beside the cluster
+   design where it runs, two runs bitwise equal;
 7. the frozen ResNet34-8s segmenter (seeded random weights: the Cityscapes
    checkpoint is not in the repo) at (2, 256, 256, 3) on the card (TF32
    off) against the CPU, and the agreement of their pseudo-labels;
@@ -33,8 +42,10 @@ Phases, each raising on failure (exit code 1):
    segmenter runs no norm kernel); then training time at batch 1 and 8,
    TF32 on: each step kind, ms per iteration over the 5-iteration cycle,
    images/s as bench.py counts them, peak memory, a profile of one fused
-   step, and the segmenter's share (its targets pass and its loss forward
-   and backward, timed and profiled apart: no weight-gradient kernel);
+   step (which asserts one cluster kernel per AdaIN and (64, 64, 256) IN
+   call each way), and the segmenter's share (its targets pass and its
+   loss forward and backward, timed and profiled apart: no weight-gradient
+   kernel);
 9. one fused step's gradients on the card (TF32 off) against the CPU at
    batch 1, with the semantic term, and the pseudo-label flips between the
    two;
@@ -114,11 +125,21 @@ def parity_mode(on: bool):
 # ----------------------------------------------------------------- phase 2
 
 
+def strided_affine(g, b):
+    """(gamma, beta) as column slices of one wider (B, 4C) tensor, as the
+    generator slices them from the style MLP's output."""
+    c = g.shape[1]
+    wide = torch.empty((g.shape[0], 4 * c), device=g.device)
+    wide[:, c:2 * c], wide[:, :c] = g, b
+    return wide[:, c:2 * c], wide[:, :c]
+
+
 def make_inputs(b, h, w, c, dtype, gen):
     x = (torch.randn((b, h, w, c), generator=gen, device="cuda") * 2 + 0.5)
-    return {"x": x.to(dtype),
-            "g2": torch.randn((b, c), generator=gen, device="cuda") + 1,
-            "b2": torch.randn((b, c), generator=gen, device="cuda"),
+    g2 = torch.randn((b, c), generator=gen, device="cuda") + 1
+    b2 = torch.randn((b, c), generator=gen, device="cuda")
+    g2, b2 = strided_affine(g2, b2)
+    return {"x": x.to(dtype), "g2": g2, "b2": b2,
             "g1": torch.rand((c,), generator=gen, device="cuda"),
             "b1": torch.randn((c,), generator=gen, device="cuda") * 0.1}
 
@@ -179,49 +200,231 @@ def bound(name, a):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# Where the cluster design runs on the path: IN and AdaIN at (64, 64, 256),
+# also at 2B (the wide decodes, and the phase-6 backward shapes).
+CLUSTER_SHAPE = (64, 64, 256)
+CLUSTER_NAMES = ("instance_norm", "adain")
+CLUSTER_BATCHES = (1, 2, 8, 16)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def dtype_name(dtype):
+    return str(dtype).split(".")[1]
+
+
+def cluster_plan_of(norms, x, tiles):
+    b, h, w, c = x.shape
+    return norms.cluster_plan(b, h * w, c, x.element_size(), x.data_ptr(),
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count, tiles)
+
+
+def plan_phase(norms):
+    """Each path shape's launch plan, forward (one tile) and backward (x
+    and dy): the cluster design's group, K, rows, shared memory and the
+    clusters of it the card holds at once, or the split design. Every
+    (64, 64, 256) shape must take the cluster design."""
+    for tiles, way in ((1, "forward"), (2, "backward")):
+        for dtype in DTYPES:
+            for b in CLUSTER_BATCHES:
+                for h, w, c in SHAPES:
+                    x = torch.empty((b, h, w, c), dtype=dtype, device="cuda")
+                    cp = cluster_plan_of(norms, x, tiles)
+                    row = {"direction": way, "shape": [b, h, w, c],
+                           "dtype": dtype_name(dtype),
+                           "design": "split" if cp is None else "cluster"}
+                    if cp is not None:
+                        row.update(cp._asdict())
+                        row["active_clusters"] = norms.cluster_occupancy(
+                            x, tiles == 2)
+                        row["blocks"] = b * -(-c // cp.cg) * cp.k
+                    emit(phase="plan", **row)
+                    check((cp is not None) == ((h, w, c) == CLUSTER_SHAPE),
+                          f"plan {row}: the cluster design must run at "
+                          f"{CLUSTER_SHAPE} and only there")
+                    del x
+
+
+SWEEP_BUDGETS = (32 * 1024, 64 * 1024, 128 * 1024)
+
+
+def budget_sweep(norms):
+    """The cluster design's time at the decoders' shape, f32, batch 1 and 8,
+    forward and backward, under other tile budgets than the plan's (so
+    other K), with the clusters the card holds at once: the reading the
+    plan's budget follows. The plan's own budget is restored after."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    flush = torch.empty(100 * 2**20 // 4, device="cuda")
+    keep = norms._CLUSTER_BUDGET
+    try:
+        for b in BATCHES:
+            a = make_inputs(b, *CLUSTER_SHAPE, torch.float32, gen)
+            a["dy"] = torch.randn(a["x"].shape, generator=gen, device="cuda")
+            for budget in SWEEP_BUDGETS:
+                norms._CLUSTER_BUDGET = budget
+                row = {"shape": [b, *CLUSTER_SHAPE], "budget": budget,
+                       "plan_budget": keep}
+                for tiles, way in ((1, "forward"), (2, "backward")):
+                    cp = cluster_plan_of(norms, a["x"], tiles)
+                    if cp is None:
+                        continue
+                    fn = (direct_backward(norms, "adain", a, False)
+                          if tiles == 2
+                          else lambda: call(norms, "adain", a, False))
+                    row[way] = {"k": cp.k, "smem": cp.smem,
+                                "active_clusters": norms.cluster_occupancy(
+                                    a["x"], tiles == 2),
+                                "ms": time_ms(fn, flush)}
+                emit(phase="budget_sweep", **row)
+            del a
+    finally:
+        norms._CLUSTER_BUDGET = keep
+
+
+def split_call(norms, name, a, relu):
+    """The same norm forced through the split design (three kernels)."""
+    aff = {"instance_norm": (None, None), "adain": (a["g2"], a["b2"]),
+           "whole_layer_norm": (a["g1"], a["b1"])}[name]
+    return norms._launch(name, a["x"], *aff, relu,
+                         name == "whole_layer_norm", split=True)[0]
+
+
+def phase2_cases():
+    for b in BATCHES:
+        for hwc in SHAPES:
+            yield b, hwc, tuple(PATH_CALLS)
+    for b in CLUSTER_BATCHES:
+        if b not in BATCHES:
+            yield b, CLUSTER_SHAPE, CLUSTER_NAMES
+
+
 def kernel_phase(norms):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
     err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in PATH_CALLS}
     times = {}
-    for b in BATCHES:
-        for (h, w, c) in SHAPES:
-            for dtype in (torch.float32, torch.bfloat16):
-                a = make_inputs(b, h, w, c, dtype, gen)
-                dname = str(dtype).split(".")[1]
-                for name in PATH_CALLS:
-                    shape_err = 0.0
-                    for relu in (False, True):
-                        got = call(norms, name, a, relu)
-                        want = call(norms, name, a, relu, plain=True)
-                        torch.cuda.synchronize()
-                        check(got.dtype == dtype and got.shape == want.shape,
-                              f"{name}: dtype or shape differs")
-                        e = (got.float() - want.float()).abs().max().item()
+    for b, (h, w, c), names in phase2_cases():
+        for dtype in DTYPES:
+            a = make_inputs(b, h, w, c, dtype, gen)
+            dname = dtype_name(dtype)
+            cluster = cluster_plan_of(norms, a["x"], 1) is not None
+            for name in names:
+                cluster_here = cluster and name in CLUSTER_NAMES
+                shape_err = 0.0
+                for relu in (False, True):
+                    got = call(norms, name, a, relu)
+                    want = call(norms, name, a, relu, plain=True)
+                    outs = [(got, "kernel")]
+                    if cluster_here:
+                        outs.append((split_call(norms, name, a, relu),
+                                     "split design"))
+                        again = call(norms, name, a, relu)
+                    torch.cuda.synchronize()
+                    check(got.dtype == dtype and got.shape == want.shape,
+                          f"{name}: dtype or shape differs")
+                    check(not cluster_here or torch.equal(got, again),
+                          f"{name} {(b, h, w, c)} {dname}: two runs differ")
+                    for out, what in outs:
+                        e = (out.float() - want.float()).abs().max().item()
                         shape_err = max(shape_err, e)
                         # f32: summation order; bf16: one bf16 ulp
                         rtol, atol = ((1e-4, 1e-4) if dtype == torch.float32
                                       else (2**-7, 3e-2))
-                        check(torch.allclose(got.float(), want.float(),
+                        check(torch.allclose(out.float(), want.float(),
                                              rtol=rtol, atol=atol),
                               f"{name} {(b, h, w, c)} {dname} relu={relu}: "
-                              f"kernel differs from plain by {e}")
-                    row = {"kernel": name, "shape": [b, h, w, c],
-                           "dtype": dname,
-                           "ms": time_ms(lambda: call(norms, name, a, False),
-                                         flush)}
-                    if dtype == torch.float32:
-                        row["plain_ms"] = time_ms(
-                            lambda: call(norms, name, a, False, plain=True),
-                            flush)
-                        row["library_ms"] = time_ms(library(name, a), flush)
-                    row["bound_ms"], row["bound_by"] = bound(name, a)
-                    row["max_abs_err"] = shape_err
-                    err[name][dname] = max(err[name][dname], shape_err)
-                    times[(name, b, h, w, c, dname)] = row
-                    emit(phase="kernel", **row)
-                del a
+                              f"{what} differs from plain by {e}")
+                row = {"kernel": name, "shape": [b, h, w, c], "dtype": dname,
+                       "design": "cluster" if cluster_here else "split",
+                       "ms": time_ms(lambda: call(norms, name, a, False),
+                                     flush)}
+                if cluster_here:
+                    row["split_ms"] = time_ms(
+                        lambda: split_call(norms, name, a, False), flush)
+                    y = torch.empty_like(a["x"])
+                    row["copy_ms"] = time_ms(lambda: y.copy_(a["x"]), flush)
+                if dtype == torch.float32:
+                    row["plain_ms"] = time_ms(
+                        lambda: call(norms, name, a, False, plain=True),
+                        flush)
+                    row["library_ms"] = time_ms(library(name, a), flush)
+                row["bound_ms"], row["bound_by"] = bound(name, a)
+                row["max_abs_err"] = shape_err
+                err[name][dname] = max(err[name][dname], shape_err)
+                times[(name, b, h, w, c, dname)] = row
+                emit(phase="kernel", **row)
+            del a
     return err, times
+
+
+PROFILE_CALLS = 8
+HOST_CALLS = 1000
+
+
+def one_kernel_phase(norms):
+    """One device kernel per AdaIN call: PROFILE_CALLS forward calls (no
+    grad) and as many backward calls (autograd.grad through the wrapper's
+    Function, gamma and beta strided slices as the generator passes them)
+    at the wide decode's (2, 64, 64, 256), f32 and bf16, profiled; each
+    call's window must hold exactly one device kernel, the cluster kernel.
+    Then the host µs per call (a mean over HOST_CALLS calls, no
+    synchronise) of each design's launcher, and of the public wrapper."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for dtype in DTYPES:
+        a = make_inputs(2, *CLUSTER_SHAPE, dtype, gen)
+        dy = torch.randn(a["x"].shape, generator=gen,
+                         device="cuda").to(dtype)
+        y, inputs = kernel_graph(norms, "adain", a, True)
+
+        def fwd():
+            with torch.no_grad():
+                norms.adain(a["x"], a["g2"], a["b2"], True)
+
+        def bwd():
+            torch.autograd.grad(y, inputs, dy, retain_graph=True)
+
+        for way, step, kernel in (("forward", fwd, "norm_cluster_fwd"),
+                                  ("backward", bwd, "norm_cluster_bwd")):
+            step()
+            rows, _ = device_profile(step, PROFILE_CALLS)
+            per_call = [{"kernel": r[1][:90], "per_call": r[2]} for r in rows]
+            emit(phase="one_kernel", kernel="adain", direction=way,
+                 shape=[2, *CLUSTER_SHAPE], dtype=dtype_name(dtype),
+                 device_kernels=per_call)
+            check(len(rows) == 1 and kernel in rows[0][1]
+                  and rows[0][2] == 1,
+                  f"adain {way} {dtype_name(dtype)}: device kernels per "
+                  f"call {per_call}, want one {kernel}")
+        del a, dy, y, inputs
+    a = make_inputs(1, *CLUSTER_SHAPE, torch.float32, gen)
+    dy = torch.randn(a["x"].shape, generator=gen, device="cuda")
+    x, g, bt = a["x"], a["g2"], a["b2"]
+    stats = norms._launch("adain", x, g, bt, True, False)[1]
+    row = {}
+    for split in (False, True):
+        design = "split" if split else "cluster"
+        row[f"{design}_forward_us"] = host_us(
+            lambda: norms._launch("adain", x, g, bt, True, False, split=split))
+        row[f"{design}_backward_us"] = host_us(
+            lambda: norms._launch_backward("adain", x, stats, g, bt, dy, True,
+                                           False, split=split))
+    with torch.no_grad():
+        row["wrapper_forward_us"] = host_us(
+            lambda: norms.adain(x, g, bt, True))
+    emit(phase="host_per_call", kernel="adain", shape=[1, *CLUSTER_SHAPE],
+         dtype="float32", calls=HOST_CALLS, **row,
+         note="host µs per call, mean over the calls, no synchronise")
+
+
+def host_us(fn):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
+    torch.cuda.synchronize()
+    return us
 
 
 # ----------------------------------------------------------------- phase 3
@@ -349,8 +552,9 @@ def timing_phase(GenBundle, load_reference_checkpoint, conf, ckpt):
 
 # Kernel-name fragments of each group of device time, tried in this order.
 GROUPS = (
-    ("norm bwd", ("norm_bwd",)),
-    ("norm fwd", ("norm_partials", "norm_finalize", "norm_apply")),
+    ("norm bwd", ("norm_bwd", "norm_cluster_bwd")),
+    ("norm fwd", ("norm_partials", "norm_finalize", "norm_apply",
+                  "norm_cluster_fwd")),
     ("pad", ("pad",)),
     ("optimizer", ("foreach", "multi_tensor", "adam")),
     ("conv", ("conv", "xmma", "gemm", "sm90", "implicit", "cudnn",
@@ -446,7 +650,7 @@ def gap_inputs(b, h, w, c, dtype, gen):
         u = torch.rand(shape, generator=gen, device="cuda") * 0.4 - 0.2
         return g, g * u
 
-    g2, b2 = affine(b, c)
+    g2, b2 = strided_affine(*affine(b, c))
     g1, b1 = affine(c)
     g1, b1 = g1.abs(), b1 * g1.sign()
     dy = torch.randn((b, h, w, c), generator=gen, device="cuda")
@@ -519,11 +723,24 @@ def close(got, want, dtype):
     return err.max().item(), ok
 
 
+def direct_backward(norms, name, a, relu, split=False):
+    """The backward launcher alone, on the forward kernels' stats: the
+    device work of one backward call through the Function."""
+    aff = affine_of(name, a) or [None, None]
+    whole = name == "whole_layer_norm"
+    stats = norms._launch(name, a["x"], *aff, relu, whole)[1]
+    return lambda: norms._launch_backward(name, a["x"], stats, *aff, a["dy"],
+                                          relu, whole, split=split)
+
+
 def backward_phase(norms):
     """Each backward kernel against the plain closed form and autograd of
     the plain forward, at every norm shape of the training path, f32 and
-    bf16, ReLU on and off; timed (f32, ReLU off) against the byte bound,
-    the plain closed form and one library call's autograd backward."""
+    bf16, ReLU on and off; where the cluster design runs, the split design
+    held against the same references and two cluster runs held bitwise
+    equal. Timed (ReLU off; the launcher alone, as the Function calls it)
+    against the byte bound, the plain closed form and one library call's
+    autograd backward (f32), and the split design in the same run."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
     err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in BWD_CALLS}
@@ -534,31 +751,52 @@ def backward_phase(norms):
                 for dtype in (torch.float32, torch.bfloat16):
                     dname = str(dtype).split(".")[1]
                     a = gap_inputs(b, h, w, c, dtype, gen)
+                    cluster = (name in CLUSTER_NAMES and cluster_plan_of(
+                        norms, a["x"], 2) is not None)
                     shape_err = 0.0
                     for relu in (False, True):
                         y, inputs = kernel_graph(norms, name, a, relu)
-                        got = torch.autograd.grad(y, inputs, a["dy"])
+                        got = [("kernel", torch.autograd.grad(y, inputs,
+                                                              a["dy"]))]
+                        if cluster:
+                            split = direct_backward(norms, name, a, relu,
+                                                    split=True)()
+                            got.append(("split design", split))
+                            once = direct_backward(norms, name, a, relu)
+                            first, second = once(), once()
                         yp, ip = plain_graph(norms, name, a, relu)
                         auto = torch.autograd.grad(yp, ip, a["dy"])
                         closed = plain_backward(norms, name, a, relu)
                         torch.cuda.synchronize()
-                        check(y.grad_fn is not None and got[0].dtype == dtype,
+                        check(y.grad_fn is not None
+                              and got[0][1][0].dtype == dtype,
                               f"{name}: no grad_fn or dx dtype differs")
-                        for want, what in ((closed, "closed form"),
-                                           (auto, "autograd of plain")):
-                            for part, g_, w_ in zip(("dx", "dgamma", "dbeta"),
-                                                    got, want):
-                                e, ok = close(g_, w_, dtype)
-                                shape_err = max(shape_err, e)
-                                check(ok, f"{name} bwd {(b, h, w, c)} {dname} "
-                                          f"relu={relu} {part}: kernel "
-                                          f"differs from {what} by {e}")
+                        check(not cluster or all(
+                            torch.equal(p, q) for p, q in zip(first, second)
+                            if p is not None),
+                            f"{name} bwd {(b, h, w, c)} {dname}: two runs "
+                            "differ")
+                        for who, grads in got:
+                            for want, what in ((closed, "closed form"),
+                                               (auto, "autograd of plain")):
+                                for part, g_, w_ in zip(
+                                        ("dx", "dgamma", "dbeta"), grads,
+                                        want):
+                                    e, ok = close(g_, w_, dtype)
+                                    shape_err = max(shape_err, e)
+                                    check(ok, f"{name} bwd {(b, h, w, c)} "
+                                              f"{dname} relu={relu} {part}: "
+                                              f"{who} differs from {what} "
+                                              f"by {e}")
                     row = {"kernel": name + "_bwd", "shape": [b, h, w, c],
-                           "dtype": dname, "max_abs_err": shape_err}
+                           "dtype": dname, "max_abs_err": shape_err,
+                           "design": "cluster" if cluster else "split",
+                           "ms": time_ms(direct_backward(norms, name, a,
+                                                         False), flush)}
+                    if cluster:
+                        row["split_ms"] = time_ms(direct_backward(
+                            norms, name, a, False, split=True), flush)
                     if dtype == torch.float32:
-                        y, inputs = kernel_graph(norms, name, a, False)
-                        row["ms"] = time_ms(lambda: torch.autograd.grad(
-                            y, inputs, a["dy"], retain_graph=True), flush)
                         row["plain_ms"] = time_ms(
                             lambda: plain_backward(norms, name, a, False),
                             flush)
@@ -807,6 +1045,7 @@ def train_time_phase(tr, batch, conf, b):
          note="median of host-clock rounds, each ending in a synchronise")
     rows, wall = device_profile(
         lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), 3)
+    check_norm_kernels(rows, conf, b)
     busy = sum(r[0] for r in rows)
     emit(phase="train_profile", batch=b, tf32=True, step="fused dis+gen",
          profiled_wall_ms=wall, unprofiled_ms=fused_ms,
@@ -818,6 +1057,33 @@ def train_time_phase(tr, batch, conf, b):
     seg = segmenter_split(tr, batch, b, reps, fused_ms, busy)
     return {"ms_per_iteration": per_it, "images_per_s": bench_ips,
             "cls_ms": cls_ms, "segmenter": seg}
+
+
+# The kernel each design launches first, forward and backward: one per call.
+FIRST_KERNELS = {"cluster": ("norm_cluster_fwd", "norm_cluster_bwd"),
+                 "split": ("norm_partials", "norm_bwd_partials")}
+
+
+def check_norm_kernels(rows, conf, b):
+    """In a fused step's profile: one cluster kernel per AdaIN call and per
+    IN call at the smallest resolution, each way, and the split design's
+    first kernel once per other IN and LN call (step_launches' counts)."""
+    g = conf["gen"]
+    fused = step_launches(conf)["fused"]
+    enc = 1 + g["n_downsample"] + 2 * g["n_res"]
+    small_in = fused["instance_norm"] // enc * (1 + 2 * g["n_res"])
+    want = {"cluster": fused["adain"] + small_in,
+            "split": fused["instance_norm"] - small_in
+            + fused["whole_layer_norm"]}
+    got = {}
+    for design, kernels in FIRST_KERNELS.items():
+        for kernel in kernels:
+            got[kernel] = sum(r[2] for r in rows if kernel in r[1])
+            check(got[kernel] == want[design],
+                  f"batch {b} fused step: {got[kernel]} {kernel} launches, "
+                  f"want {want[design]}")
+    emit(phase="train_norm_kernels", batch=b, per_fused_step=got,
+         expected=want)
 
 
 def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms):
@@ -1070,6 +1336,13 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
         return ("bytes" if all(r["bound_by"] == "bytes" for _, r in rows)
                 else "operations")
 
+    def split_total(rows):
+        """The same calls' time with the split design where the cluster
+        design ran (measured in the same run)."""
+        if not any("split_ms" in r for _, r in rows):
+            return None
+        return sum(n * r.get("split_ms", r["ms"]) for n, r in rows)
+
     kernels = []
     for name, calls in PATH_CALLS.items():
         rows = [(n, times[(name, 1, *hwc, "float32")])
@@ -1081,10 +1354,13 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
             "launches_train": train_launches[name],
             "max_abs_err": err[name]["float32"],
             "max_abs_err_bf16": err[name]["bfloat16"],
-            "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
+            "ms": total(rows, "ms"), "split_ms": split_total(rows),
+            "plain_ms": total(rows, "plain_ms"),
             "bound_ms": total(rows, "bound_ms"), "bound_by": bound_by(rows),
             "library_ms": total(rows, "library_ms"),
             "per": "one translated image: its calls at batch 1, float32; "
+                   "split_ms: the split design's time for the calls where "
+                   "the cluster design runs; "
                    "launches: translate run (phase 4), launches_train: "
                    "15 training iterations at batch 1 (phase 8)",
         })
@@ -1097,7 +1373,8 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
             "launches": train_launches[name + "_bwd"],
             "max_abs_err": bwd_err[name]["float32"],
             "max_abs_err_bf16": bwd_err[name]["bfloat16"],
-            "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
+            "ms": total(rows, "ms"), "split_ms": split_total(rows),
+            "plain_ms": total(rows, "plain_ms"),
             "bound_ms": total(rows, "bound_ms"), "bound_by": bound_by(rows),
             "library_ms": total(rows, "library_ms"),
             "per": "one fused dis+gen step's backward calls at batch 1, "
@@ -1188,7 +1465,10 @@ def main() -> int:
          device=torch.cuda.get_device_name(0))
 
     parity_mode(True)
+    plan_phase(norms)
+    budget_sweep(norms)
     err, times = kernel_phase(norms)
+    one_kernel_phase(norms)
     golden_phase(norms, GenBundle, validate, load_reference_checkpoint)
     with tempfile.TemporaryDirectory() as tmp:
         conf, launches, ckpt = main_path_phase(norms, translate, GenBundle,

@@ -5,9 +5,43 @@
 //   - norms.py  _in_fwd_kernel   (instance norm, and AdaIN when affine)
 //   - tiled.py  _stats_kernel + _norm_kernel (the large-slab form of it)
 //   - norms.py  _ln_fwd_kernel   (the fork's whole-tensor LayerNorm)
-// On the TPU each grid step held one sample's whole (H, W, C) slab in VMEM,
-// one sample after another. Here the slab is cut into row splits so that
-// B x S blocks fill the card's 132 SMs even at batch 1:
+// and the backward rules below. Two designs serve them; kernels/norms.py
+// picks one from the shape alone, before the launch (cluster_plan).
+//
+// The cluster design (norm_cluster_fwd, norm_cluster_bwd): one launch per
+// call. It replaces _in_fwd_kernel (norms.py:86) and the _adain_bwd /
+// _in_bwd rules (norms.py:152, :188) for IN and AdaIN. On the TPU one grid
+// step held a sample's whole (H, W, C) slab in VMEM and took a two-pass
+// mean and variance, the affine and the ReLU from that copy: one read, one
+// write. Here one thread block cluster takes one (sample, channel group)
+// slab, the group one 128-byte line of channels (32 f32 or 64 bf16). Its K
+// blocks (K <= 16) split the H*W rows; each copies its rows x group tile
+// into shared memory once (cp.async, 16 bytes a thread, neighbouring
+// threads on neighbouring addresses) and keeps it there, as VMEM did. The
+// per-channel sums go over the block in a fixed tree, then over the
+// cluster through distributed shared memory in rank order 0..K-1, so every
+// block gets the same totals and reruns match bit for bit:
+//   forward:  sum x -> mean; sum (x - mean)^2 -> var (the two-pass form of
+//             _in_fwd_kernel, free from the on-chip copy); then each block
+//             writes y = (x - mean) * rsqrt(var + eps) * gamma + beta (+ReLU)
+//             from its tile, and rank 0 the stats (mean, r, std);
+//   backward: x and dy on chip, x^ and the ReLU mask recomputed from the
+//             stats, A = sum dy', B = sum dy' x^ over the cluster, then
+//             dx = r gamma (dy' - A / HW - x^ B / HW) from the tiles; rank 0
+//             writes dbeta = A, dgamma = B.
+// Bound: device-memory bytes (a few flops an element, far below the ~20
+// flops per byte at which f32 compute would limit). The cluster design
+// moves the bound's traffic: one read of x (and dy) and one write.
+// The plan gives a block at most 64 kB of tiles (one tile forward, two
+// backward). A slab that does not fit 16 blocks stays with the split
+// design below: the whole-tensor LayerNorm, which reduces over a whole
+// sample (8 MB at (128, 128, 128) f32), and IN at 128^2 and 256^2 (2 MB and
+// 8 MB per (sample, group)). On the config_256 path the cluster design
+// runs every AdaIN and the IN at (64, 64, 256).
+//
+// The split design (three kernels each way), for the other shapes. On the
+// TPU the grid went one sample after another; here the slab is cut into
+// row splits so that B x S blocks fill the card's 132 SMs even at batch 1:
 //   1. norm_partials: each block reads its rows of the NHWC slab once with
 //      16-byte loads and keeps per-channel Welford partials (count, mean,
 //      M2) in f32. Welford gives the accuracy of the two-pass form of
@@ -23,15 +57,12 @@
 //        LayerNorm: scale = 1 / (sqrt(M2 / (n - 1)) + eps)
 //   3. norm_apply: y = (x - mean) * scale + shift, then the optional ReLU;
 //      one read and one write, math in f32, output in the input's type.
-//
-// Bound: device-memory bytes. A norm does a few operations per element, far
-// below the H100's ~20 flops per byte at which f32 compute would limit it.
-// The least traffic is one read of x and one write of y; this simple design
-// reads x twice (partials, then apply), so it moves 1.5x the bound's bytes
-// unless the slab still sits in the 50 MB L2 when apply runs. Partials and
-// coefficients are a few hundred kB at most. The finalize kernels also hand
-// back each (sample, channel)'s mean, 1/scale factor r and the LayerNorm's
-// std (stats, B x 3 x C) for the backward below.
+// It reads x twice (partials, then apply), so it moves 1.5x the bound's
+// bytes unless the slab still sits in the 50 MB L2 when apply runs.
+// Partials and coefficients are a few hundred kB at most. The finalize
+// kernels also hand back each (sample, channel)'s mean, 1/scale factor r
+// and the LayerNorm's std (stats, B x 3 x C) for the backward below; the
+// cluster forward writes the same stats.
 //
 // Backward (the gradients of all three norms), replacing
 //   - tools/normprobe3.py _dot_kernel (:102): the per-sample sums of g and
@@ -50,7 +81,8 @@
 //              dx = gamma_c dy' / d - S1 / (n d) - xh S2 / ((n - 1) std),
 //              d = std + eps, n = H W C (normprobe3.py:147-148 with
 //              y - mean = xh * d).
-// Both are dx = k1 * dy' + k2 + k3 * xh with per-(sample, channel) k1..k3:
+// Both are dx = k1 * dy' + k2 + k3 * xh with per-(sample, channel) k1..k3.
+// The split design's four kernels:
 //   1. norm_bwd_partials: split-HW partial sums of A and B per channel, the
 //      forward's split of rows and threads, so batch 1 fills the SMs;
 //   2. norm_bwd_merge: sums the splits in a fixed order (no atomics: reruns
@@ -58,16 +90,19 @@
 //   3. norm_bwd_finalize_sample (LayerNorm only, one block): S1, S2 per
 //      sample, k1..k3, and dgamma, dbeta summed over the batch in order;
 //   4. norm_bwd_apply: dx from x, dy and k1..k3, in x's type.
-// Bound: device-memory bytes. The least traffic is one read of x and dy
-// and one write of dx (3 N itemsize); this design reads x and dy twice
-// (partials, then apply), 5 N itemsize unless L2 still holds them.
+// The least traffic is one read of x and dy and one write of dx (3 N
+// itemsize); this design reads x and dy twice (partials, then apply), 5 N
+// itemsize unless L2 still holds them.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 
@@ -508,6 +543,306 @@ norm_bwd_apply(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// ------------------------------------------------------ cluster design
+
+constexpr int kLineBytes = 128;  // a group's row segment: 32 f32, 64 bf16
+// Dynamic shared memory a cluster kernel may take; the plan stays below.
+constexpr int kMaxDynamicSmem = 200 * 1024;
+constexpr int kMaxCluster = 16;  // above 8 only with the non-portable flag
+constexpr int kMaxDevices = 64;
+
+// Copies BYTES (4, 8 or 16) from global into shared memory without
+// staging them in registers, so every load of the tile is in flight at once.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES) : "memory");
+  }
+}
+
+// The two halves of cluster.sync(): a block arrives once it has read the
+// others' shared memory, and waits only before it exits, so that its own
+// shared memory outlives every read of it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One block's share of its cluster's (sample b, channel group) slab: rows
+// [r0, r0 + n) of the sample and channels [ch0, ch0 + kCg). Thread t holds
+// VEC channels from ch of rows t / kLanes, + kRowStep, ...; the tile keeps
+// the rows x kCg share row-major in shared memory. Grid (groups x K, B),
+// clusters of K blocks along x.
+template <typename T, int VEC>
+struct Share {
+  static constexpr int kCg = kLineBytes / sizeof(T);
+  static constexpr int kLanes = kCg / VEC;            // threads along a row
+  static constexpr int kRowStep = kThreads / kLanes;  // rows per block pass
+  // threads per row group after the warp shuffles, and the groups
+  static constexpr int kSpan = kLanes < 32 ? 32 : kLanes;
+  static constexpr int kGroups = kThreads / kSpan;
+
+  int b, ch0, lane, row, ch, r0, n, hw, c;  // n: 0 where !active
+  bool active;  // C % VEC == 0, so a thread's vector is whole or outside
+
+  __device__ __forceinline__ Share(int hw_, int c_, int rows)
+      : hw(hw_), c(c_) {
+    cg::cluster_group cluster = cg::this_cluster();
+    b = blockIdx.y;
+    ch0 = (blockIdx.x / cluster.num_blocks()) * kCg;
+    lane = threadIdx.x % kLanes;
+    row = threadIdx.x / kLanes;
+    ch = ch0 + lane * VEC;
+    active = ch < c;
+    r0 = min(static_cast<int>(cluster.block_rank()) * rows, hw);
+    n = active ? min(rows, hw - r0) : 0;  // rows this thread's vector sees
+  }
+
+  // Offset of this thread's vector in row r of the share, in the tensor.
+  __device__ __forceinline__ size_t at(int r) const {
+    return (static_cast<size_t>(b) * hw + r0 + r) * c + ch;
+  }
+  __device__ __forceinline__ T* slot(T* tile, int r) const {
+    return tile + r * kCg + lane * VEC;
+  }
+
+  // Starts the copy of the share of src into tile; landed() waits for it.
+  __device__ __forceinline__ void fetch(const T* __restrict__ src,
+                                        T* tile) const {
+    if (active) {
+      for (int r = row; r < n; r += kRowStep) {
+        if constexpr (VEC * sizeof(T) >= 4) {
+          cp_async<static_cast<int>(VEC * sizeof(T))>(slot(tile, r),
+                                                      src + at(r));
+        } else {
+          *slot(tile, r) = src[at(r)];
+        }
+      }
+    }
+  }
+  static __device__ __forceinline__ void landed() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+};
+
+// Per-channel sums over the block of each thread's NV x VEC partials v, in
+// a fixed order (warp shuffles, then the row groups in order): out[i * kCg
+// + j] holds value i of channel ch0 + j. scratch: NV x kGroups x kCg.
+template <typename S, int NV, int VEC>
+__device__ __forceinline__ void block_channel_sums(float (&v)[NV][VEC],
+                                                   float* scratch,
+                                                   float* out) {
+  if constexpr (S::kLanes < 32) {
+#pragma unroll
+    for (int off = S::kLanes; off < 32; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int u = 0; u < VEC; ++u)
+          v[i][u] += __shfl_xor_sync(0xffffffffu, v[i][u], off);
+  }
+  const int g = threadIdx.x / S::kSpan;
+  const int t = threadIdx.x % S::kSpan;
+  if (t < S::kLanes) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int u = 0; u < VEC; ++u)
+        scratch[(i * S::kGroups + g) * S::kCg + t * VEC + u] = v[i][u];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < NV * S::kCg; j += kThreads) {
+    const int i = j / S::kCg, k = j % S::kCg;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < S::kGroups; ++q)
+      s += scratch[(i * S::kGroups + q) * S::kCg + k];
+    out[j] = s;
+  }
+}
+
+// After a cluster barrier: tot[j] = sum over the cluster's blocks, in rank
+// order, of their part[j], j < len, read through distributed shared
+// memory; then a block barrier.
+__device__ __forceinline__ void cluster_totals(float* part, float* tot,
+                                               int len) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  for (int j = threadIdx.x; j < len; j += kThreads) {
+    float got[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < blocks) got[q] = *cluster.map_shared_rank(part + j, q);
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < blocks) s += got[q];
+    tot[j] = s;
+  }
+  __syncthreads();
+}
+
+// One IN or AdaIN (+ReLU) forward in one launch: grid (groups x K, B),
+// clusters of K blocks, rows x kCg tile of x in dynamic shared memory.
+// gamma/beta: null or f32 rows with stride gs / bs between samples.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+norm_cluster_fwd(const T* __restrict__ x, T* __restrict__ y,
+                 float* __restrict__ stats, const float* __restrict__ gamma,
+                 long long gs, const float* __restrict__ beta, long long bs,
+                 int hw, int c, int rows, int relu, float eps) {
+  using S = Share<T, VEC>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const S s(hw, c, rows);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  __shared__ float scratch[S::kGroups * S::kCg];
+  __shared__ float part[2][S::kCg];  // this block's sums; the cluster reads
+  __shared__ float sum1[S::kCg], sum2[S::kCg];  // the cluster's totals
+  s.fetch(x, tile);
+  S::landed();
+
+  float v[1][VEC] = {};
+  for (int r = s.row; r < s.n; r += S::kRowStep) {
+    const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(s.slot(tile, r));
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) v[0][u] += to_float(p.v[u]);
+  }
+  block_channel_sums<S>(v, scratch, part[0]);
+  cluster.sync();
+  cluster_totals(part[0], sum1, S::kCg);
+  const float count = static_cast<float>(hw);
+  float mu[VEC];
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) {
+    mu[u] = sum1[s.lane * VEC + u] / count;
+    v[0][u] = 0.f;
+  }
+  for (int r = s.row; r < s.n; r += S::kRowStep) {
+    const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(s.slot(tile, r));
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      const float d = to_float(p.v[u]) - mu[u];
+      v[0][u] += d * d;
+    }
+  }
+  block_channel_sums<S>(v, scratch, part[1]);
+  cluster.sync();
+  cluster_totals(part[1], sum2, S::kCg);
+  cluster_arrive();  // done with the other blocks' shared memory
+
+  float a[VEC], d[VEC];
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) {
+    const float scale = rsqrtf(sum2[s.lane * VEC + u] / count + eps);
+    a[u] = (gamma && s.active) ? scale * gamma[s.b * gs + s.ch + u] : scale;
+    d[u] = (beta && s.active) ? beta[s.b * bs + s.ch + u] : 0.f;
+  }
+  for (int r = s.row; r < s.n; r += S::kRowStep) {
+    const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(s.slot(tile, r));
+    Pack<T, VEC> q;
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      float t = (to_float(p.v[u]) - mu[u]) * a[u] + d[u];
+      if (relu && t < 0.f) t = 0.f;
+      q.v[u] = from_float<T>(t);
+    }
+    *reinterpret_cast<Pack<T, VEC>*>(y + s.at(r)) = q;
+  }
+  if (cluster.block_rank() == 0) {
+    for (int j = threadIdx.x; j < S::kCg && s.ch0 + j < c; j += kThreads) {
+      const float var = sum2[j] / count;
+      float* st = stats + static_cast<size_t>(s.b) * 3 * c + s.ch0 + j;
+      st[0] = sum1[j] / count;
+      st[c] = rsqrtf(var + eps);
+      st[2 * c] = sqrtf(var);
+    }
+  }
+  cluster_wait();
+}
+
+// The gradient of one IN or AdaIN (+ReLU) in one launch, the forward's grid
+// and clusters: x and dy tiles in dynamic shared memory, A and B over the
+// cluster, dx from the tiles. red: null (IN) or f32 (B, 2, C), dbeta = A
+// and dgamma = B, written by rank 0.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+norm_cluster_bwd(const T* __restrict__ x, const T* __restrict__ dy,
+                 T* __restrict__ dx, const float* __restrict__ stats,
+                 const float* __restrict__ gamma, long long gs,
+                 const float* __restrict__ beta, long long bs,
+                 float* __restrict__ red, int hw, int c, int rows, int relu) {
+  using S = Share<T, VEC>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const S s(hw, c, rows);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tx = reinterpret_cast<T*>(smem);
+  T* tdy = tx + static_cast<size_t>(rows) * S::kCg;
+  __shared__ float scratch[2 * S::kGroups * S::kCg];
+  __shared__ float part[2 * S::kCg];  // A, B of this block; the cluster reads
+  __shared__ float tot[2 * S::kCg];
+  s.fetch(x, tx);
+  s.fetch(dy, tdy);
+  S::landed();
+
+  const ChannelParams<VEC> cp(stats, gamma, gs, beta, bs, s.b, c,
+                              s.active ? s.ch : 0);
+  float v[2][VEC] = {};
+  for (int r = s.row; r < s.n; r += S::kRowStep) {
+    const Pack<T, VEC> px = *reinterpret_cast<const Pack<T, VEC>*>(s.slot(tx, r));
+    const Pack<T, VEC> pd = *reinterpret_cast<const Pack<T, VEC>*>(s.slot(tdy, r));
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      const float xh = (to_float(px.v[u]) - cp.mu[u]) * cp.r[u];
+      float g = to_float(pd.v[u]);
+      if (relu && !(xh * cp.ga[u] + cp.be[u] > 0.f)) g = 0.f;
+      v[0][u] += g;
+      v[1][u] += g * xh;
+    }
+  }
+  block_channel_sums<S>(v, scratch, part);
+  cluster.sync();
+  cluster_totals(part, tot, 2 * S::kCg);
+  cluster_arrive();  // done with the other blocks' shared memory
+
+  float k1[VEC], k2[VEC], k3[VEC];
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) {
+    k1[u] = cp.r[u] * cp.ga[u];
+    k2[u] = -k1[u] * tot[s.lane * VEC + u] / hw;
+    k3[u] = -k1[u] * tot[S::kCg + s.lane * VEC + u] / hw;
+  }
+  for (int r = s.row; r < s.n; r += S::kRowStep) {
+    const Pack<T, VEC> px = *reinterpret_cast<const Pack<T, VEC>*>(s.slot(tx, r));
+    const Pack<T, VEC> pd = *reinterpret_cast<const Pack<T, VEC>*>(s.slot(tdy, r));
+    Pack<T, VEC> q;
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      const float xh = (to_float(px.v[u]) - cp.mu[u]) * cp.r[u];
+      float g = to_float(pd.v[u]);
+      if (relu && !(xh * cp.ga[u] + cp.be[u] > 0.f)) g = 0.f;
+      q.v[u] = from_float<T>(k1[u] * g + k2[u] + k3[u] * xh);
+    }
+    *reinterpret_cast<Pack<T, VEC>*>(dx + s.at(r)) = q;
+  }
+  if (red && cluster.block_rank() == 0) {
+    for (int j = threadIdx.x; j < S::kCg && s.ch0 + j < c; j += kThreads) {
+      float* rd = red + static_cast<size_t>(s.b) * 2 * c + s.ch0 + j;
+      rd[0] = tot[j];
+      rd[c] = tot[S::kCg + j];
+    }
+  }
+  cluster_wait();
+}
+
 // ------------------------------------------------------------- dispatch
 
 struct Args {
@@ -525,6 +860,8 @@ struct Args {
   const float* beta;
   long long bs;
   int b, hw, c, splits, rows, whole, relu;
+  int cluster, smem;  // cluster design: blocks per cluster, dynamic smem
+  int* active;        // occupancy query: clusters resident at once
   float eps;
   cudaStream_t stream;
 };
@@ -582,6 +919,95 @@ struct Backward {
         x, dy, static_cast<T*>(a.y), a.stats, a.gamma, a.gs, a.beta, a.bs,
         a.coef, a.hw, a.c, a.rows, a.relu);
     return cudaGetLastError();
+  }
+};
+
+// Lets a cluster kernel take kMaxDynamicSmem of dynamic shared memory and
+// clusters of up to 16 blocks, once per kernel and device (the kernel is a
+// template argument, so that each kernel has its own flags).
+template <auto kernel>
+cudaError_t allow_cluster() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kMaxDevices && done[dev])) return e;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxDynamicSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return e;
+}
+
+// Grid (groups x K, B) of 256 threads in clusters of K blocks along x.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+
+  ClusterLaunch(const Args& a, int cg_channels) {
+    const int groups = (a.c + cg_channels - 1) / cg_channels;
+    cfg.gridDim = dim3(groups * a.cluster, a.b);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = a.smem;
+    cfg.stream = a.stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = a.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename T, auto kernel, typename... A>
+cudaError_t launch_cluster(const Args& a, A... args) {
+  if (a.cluster < 1 || a.cluster > kMaxCluster || a.smem > kMaxDynamicSmem)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_cluster<kernel>();
+  if (e != cudaSuccess) return e;
+  const ClusterLaunch l(a, Share<T, 1>::kCg);
+  e = cudaLaunchKernelEx(&l.cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+struct ClusterForward {
+  template <typename T, int VEC>
+  static cudaError_t run(const Args& a) {
+    return launch_cluster<T, norm_cluster_fwd<T, VEC>>(
+        a, static_cast<const T*>(a.x), static_cast<T*>(a.y), a.stats, a.gamma,
+        a.gs, a.beta, a.bs, a.hw, a.c, a.rows, a.relu, a.eps);
+  }
+};
+
+struct ClusterBackward {
+  template <typename T, int VEC>
+  static cudaError_t run(const Args& a) {
+    return launch_cluster<T, norm_cluster_bwd<T, VEC>>(
+        a, static_cast<const T*>(a.x),
+        static_cast<const T*>(a.dy), static_cast<T*>(a.y),
+        static_cast<const float*>(a.stats), a.gamma, a.gs, a.beta, a.bs,
+        a.red, a.hw, a.c, a.rows, a.relu);
+  }
+};
+
+// How many clusters of the forward (whole = 0) or backward (whole = 1)
+// kernel fit on the card at once: cudaOccupancyMaxActiveClusters.
+struct ClusterOccupancy {
+  template <typename T, auto kernel>
+  static cudaError_t query(const Args& a) {
+    cudaError_t e = allow_cluster<kernel>();
+    if (e != cudaSuccess) return e;
+    const ClusterLaunch l(a, Share<T, 1>::kCg);
+    return cudaOccupancyMaxActiveClusters(
+        a.active, reinterpret_cast<const void*>(kernel), &l.cfg);
+  }
+  template <typename T, int VEC>
+  static cudaError_t run(const Args& a) {
+    return a.whole ? query<T, norm_cluster_bwd<T, VEC>>(a)
+                   : query<T, norm_cluster_fwd<T, VEC>>(a);
   }
 };
 
@@ -667,6 +1093,71 @@ extern "C" int munit_norm_backward(const void* x, const void* dy, void* dx,
   a.whole = whole; a.relu = relu;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<Backward>(a, is_bf16, vec);
+}
+
+// One IN or AdaIN (whole = 0 only) in the cluster design: one launch,
+// grid (ceil(C / group) x cluster, B), rows per block, smem bytes of
+// dynamic shared memory per block (rows x group x itemsize). Writes y and
+// stats as munit_norm_forward does. Returns the launch's error.
+extern "C" int munit_norm_cluster_forward(const void* x, void* y, void* stats,
+                                          const void* gamma, long long gs,
+                                          const void* beta, long long bs,
+                                          int b, int hw, int c, int cluster,
+                                          int rows, int smem, int is_bf16,
+                                          int vec, int relu, float eps,
+                                          void* stream) {
+  Args a{};
+  a.x = x;
+  a.y = y;
+  a.stats = static_cast<float*>(stats);
+  a.gamma = static_cast<const float*>(gamma);
+  a.gs = gs;
+  a.beta = static_cast<const float*>(beta);
+  a.bs = bs;
+  a.b = b; a.hw = hw; a.c = c; a.cluster = cluster; a.rows = rows;
+  a.smem = smem; a.relu = relu; a.eps = eps;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch<ClusterForward>(a, is_bf16, vec);
+}
+
+// Its gradient in one launch (smem: two tiles, x and dy): dx, and with red
+// (f32 (B, 2, C), null for IN) A = dbeta and B = dgamma per (sample,
+// channel), as munit_norm_backward writes them.
+extern "C" int munit_norm_cluster_backward(const void* x, const void* dy,
+                                           void* dx, const void* stats,
+                                           const void* gamma, long long gs,
+                                           const void* beta, long long bs,
+                                           void* red, int b, int hw, int c,
+                                           int cluster, int rows, int smem,
+                                           int is_bf16, int vec, int relu,
+                                           void* stream) {
+  Args a{};
+  a.x = x;
+  a.dy = dy;
+  a.y = dx;
+  a.stats = static_cast<float*>(const_cast<void*>(stats));
+  a.gamma = static_cast<const float*>(gamma);
+  a.gs = gs;
+  a.beta = static_cast<const float*>(beta);
+  a.bs = bs;
+  a.red = static_cast<float*>(red);
+  a.b = b; a.hw = hw; a.c = c; a.cluster = cluster; a.rows = rows;
+  a.smem = smem; a.relu = relu;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch<ClusterBackward>(a, is_bf16, vec);
+}
+
+// Into *active: how many clusters of the cluster forward (backward = 0) or
+// backward (1) at this launch shape the card holds at once.
+extern "C" int munit_norm_cluster_occupancy(int backward, int b, int c,
+                                            int cluster, int smem,
+                                            int is_bf16, int vec,
+                                            int* active) {
+  Args a{};
+  a.whole = backward;
+  a.b = b; a.c = c; a.cluster = cluster; a.smem = smem;
+  a.active = active;
+  return dispatch<ClusterOccupancy>(a, is_bf16, vec);
 }
 
 extern "C" const char* munit_error_string(int e) {

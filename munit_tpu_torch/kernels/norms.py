@@ -16,12 +16,18 @@ forward and backward, or raises: there is no fallback. Each forward launch adds 
 | whole_layer_norm   | norms.py _ln_fwd_kernel; backward _ln_bwd and tools/normprobe3.py _dot_kernel |
 
 The kernels are bound by device-memory bytes; ``csrc/norms.cu`` says how.
+Instance norm and AdaIN take the cluster design (one launch each way) where
+``cluster_plan`` finds that a (sample, channel group) slab fits on chip, and
+the split design (three kernels each way, the LayerNorm's backward four)
+elsewhere; the whole-tensor LayerNorm always takes the split design. The choice is made
+from the shape, before the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +39,11 @@ from munit_tpu_torch.kernels import build
 _THREADS = 256       # threads per block, as kThreads in csrc/norms.cu
 _MIN_ROWS = 8        # least rows each thread of a split reduces
 _BLOCKS_PER_SM = 4
+_LINE_BYTES = 128    # a cluster's channel group: one 128-byte row segment
+_CLUSTER_MAX = 16    # blocks per cluster (above 8: non-portable, allowed)
+# Tile bytes one block of the cluster design holds in shared memory: x
+# forward, x and dy backward (kMaxDynamicSmem in csrc/norms.cu is the cap).
+_CLUSTER_BUDGET = 64 * 1024
 
 NAMES = ("instance_norm", "adain", "whole_layer_norm")
 # Launches of each wrapper's kernels since the last reset_launches().
@@ -146,19 +157,25 @@ def _plain_backward(name, x, gamma, beta, dy, relu):
 # ------------------------------------------------------------------- launch
 
 
-def plan(b: int, hw: int, c: int, itemsize: int, ptr: int, sms: int):
-    """Vector width and row split of one launch: (vec, splits, rows).
+def _vec(c: int, itemsize: int, ptr: int) -> int:
+    """Channels per 16-byte (or narrower) access: C and the base address
+    (``ptr``: the OR of every tensor's address) must be multiples of it."""
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec or ptr % (vec * itemsize)):
+        vec //= 2
+    return vec
 
-    vec channels move per 16-byte (or narrower) access, so C and the base
-    address (``ptr``: the OR of every tensor's address) must be multiples of
-    it. Each of a block's 256 threads takes vec channels of every
+
+def plan(b: int, hw: int, c: int, itemsize: int, ptr: int, sms: int):
+    """Vector width and row split of one split-design launch: (vec, splits,
+    rows).
+
+    Each of a block's 256 threads takes vec channels (``_vec``) of every
     (256 / (C / vec))-th row. The split aims at ``_BLOCKS_PER_SM`` blocks
     per SM over the batch, with at least ``_MIN_ROWS`` rows per thread;
     every split has at least one row.
     """
-    vec = 16 // itemsize
-    while vec > 1 and (c % vec or ptr % (vec * itemsize)):
-        vec //= 2
+    vec = _vec(c, itemsize, ptr)
     groups = c // vec
     if groups > _THREADS:
         raise ValueError(f"C={c} is too wide for one block ({_THREADS} "
@@ -168,6 +185,43 @@ def plan(b: int, hw: int, c: int, itemsize: int, ptr: int, sms: int):
     splits = max(1, min(want, hw // (lanes * _MIN_ROWS)))
     rows = -(-hw // splits)
     return vec, -(-hw // rows), rows
+
+
+class ClusterPlan(NamedTuple):
+    """One cluster-design launch: grid (ceil(C / cg) x k, B)."""
+    vec: int    # channels per access
+    cg: int     # channels per cluster: one 128-byte row segment
+    k: int      # blocks per cluster; they split the H*W rows
+    rows: int   # rows per block (the last block may hold fewer)
+    smem: int   # dynamic shared memory per block: the tiles, bytes
+
+
+def cluster_plan(b: int, hw: int, c: int, itemsize: int, ptr: int, sms: int,
+                 tiles: int = 1, whole: bool = False) -> Optional[ClusterPlan]:
+    """The cluster design's launch for a per-(sample, channel) norm, or
+    None: for the whole-tensor LayerNorm (``whole``), which reduces over a
+    whole sample, and where a (sample, channel group) slab, split over
+    ``_CLUSTER_MAX`` blocks, does not fit ``_CLUSTER_BUDGET`` bytes of tiles
+    per block (``tiles``: 1 forward, x; 2 backward, x and dy).
+
+    A cluster takes cg channels (a 128-byte line: 32 f32, 64 bf16) of one
+    sample; the last group of a C that cg does not divide is partial. Its k
+    blocks split the H*W rows, at least as many as the budget needs, and
+    aim at one block per SM over B x groups x k. Every block holds rows or,
+    the last, fewer.
+    """
+    if whole:
+        return None
+    cg = _LINE_BYTES // itemsize
+    max_rows = _CLUSTER_BUDGET // (tiles * _LINE_BYTES)
+    k_fit = -(-hw // max_rows)
+    if k_fit > _CLUSTER_MAX:
+        return None
+    groups = -(-c // cg)
+    k = min(_CLUSTER_MAX, hw, max(k_fit, -(-sms // (b * groups))))
+    rows = -(-hw // k)
+    return ClusterPlan(_vec(c, itemsize, ptr), cg, -(-hw // rows), rows,
+                       tiles * rows * _LINE_BYTES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,6 +234,16 @@ def _lib() -> ctypes.CDLL:
     lib.munit_norm_backward.argtypes = [p, p, p, p, p, ll, p, ll, p, p, p, p,
                                         p, i, i, i, i, i, i, i, i, i, p]
     lib.munit_norm_backward.restype = i
+    lib.munit_norm_cluster_forward.argtypes = [p, p, p, p, ll, p, ll, i, i, i,
+                                               i, i, i, i, i, i,
+                                               ctypes.c_float, p]
+    lib.munit_norm_cluster_forward.restype = i
+    lib.munit_norm_cluster_backward.argtypes = [p, p, p, p, p, ll, p, ll, p,
+                                                i, i, i, i, i, i, i, i, i, p]
+    lib.munit_norm_cluster_backward.restype = i
+    lib.munit_norm_cluster_occupancy.argtypes = [i, i, i, i, i, i, i,
+                                                 ctypes.POINTER(i)]
+    lib.munit_norm_cluster_occupancy.restype = i
     lib.munit_error_string.argtypes = [i]
     lib.munit_error_string.restype = ctypes.c_char_p
     return lib
@@ -236,37 +300,51 @@ def _raise_on(name, lib, err):
                            f"{lib.munit_error_string(err).decode()}")
 
 
-def _launch(name, x, gamma, beta, relu, whole):
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(name, x, gamma, beta, relu, whole, split=False):
     """Forward kernels: (y, stats), stats (B, 3, C) f32 per (sample, channel)
-    mean, r and std for the backward."""
+    mean, r and std for the backward. ``split`` forces the split design
+    where the cluster design would run: only for comparing the two."""
     _check_x(name, x)
     b, h, w, c = x.shape
     lib = _lib()
     g, gs = _affine_arg(gamma, x)
     bt, bs = _affine_arg(beta, x)
     y = torch.empty_like(x)
-    vec, splits, rows = plan(b, h * w, c, x.element_size(),
-                             x.data_ptr() | y.data_ptr(),
-                             _sm_count(x.device.index))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((b, splits, 2, 1 if whole else c), **f32)
-    coef = torch.empty((b, 3, c), **f32)
-    stats = torch.empty((b, 3, c), **f32)
+    stats = torch.empty((b, 3, c), dtype=torch.float32, device=x.device)
+    ptr = x.data_ptr() | y.data_ptr()
+    sms = _sm_count(x.device.index)
+    bf16 = int(x.dtype == torch.bfloat16)
+    cp = None if split else cluster_plan(b, h * w, c, x.element_size(), ptr,
+                                         sms, whole=whole)
     with torch.cuda.device(x.device):
-        err = lib.munit_norm_forward(
-            x.data_ptr(), y.data_ptr(), part.data_ptr(), coef.data_ptr(),
-            stats.data_ptr(), _ptr(g), gs, _ptr(bt), bs,
-            b, h * w, c, splits, rows, int(x.dtype == torch.bfloat16), vec,
-            int(whole), int(relu), ops.EPS,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if cp is not None:
+            err = lib.munit_norm_cluster_forward(
+                x.data_ptr(), y.data_ptr(), stats.data_ptr(), _ptr(g), gs,
+                _ptr(bt), bs, b, h * w, c, cp.k, cp.rows, cp.smem, bf16,
+                cp.vec, int(relu), ops.EPS, _stream(x))
+        else:
+            vec, splits, rows = plan(b, h * w, c, x.element_size(), ptr, sms)
+            f32 = dict(dtype=torch.float32, device=x.device)
+            part = torch.empty((b, splits, 2, 1 if whole else c), **f32)
+            coef = torch.empty((b, 3, c), **f32)
+            err = lib.munit_norm_forward(
+                x.data_ptr(), y.data_ptr(), part.data_ptr(), coef.data_ptr(),
+                stats.data_ptr(), _ptr(g), gs, _ptr(bt), bs,
+                b, h * w, c, splits, rows, bf16, vec, int(whole), int(relu),
+                ops.EPS, _stream(x))
     _raise_on(name, lib, err)
     launches[name] += 1
     return y, stats
 
 
-def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole):
+def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole,
+                     split=False):
     """Backward kernels: (dx, dgamma, dbeta); the affine grads are None for
-    the instance norm."""
+    the instance norm. ``split`` as in ``_launch``."""
     _check_x(name, x)
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} on {dy.device} does "
@@ -281,23 +359,34 @@ def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole):
     g, gs = _affine_arg(gamma, x)
     bt, bs = _affine_arg(beta, x)
     dx = torch.empty_like(x)
-    vec, splits, rows = plan(b, h * w, c, x.element_size(),
-                             x.data_ptr() | dy.data_ptr() | dx.data_ptr(),
-                             _sm_count(x.device.index))
+    ptr = x.data_ptr() | dy.data_ptr() | dx.data_ptr()
+    sms = _sm_count(x.device.index)
+    bf16 = int(x.dtype == torch.bfloat16)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty((b, splits, 2, c), **f32)
-    red = torch.empty((b, 2, c), **f32)
-    bcoef = torch.empty((b, 3, c), **f32)
-    dgamma = torch.empty((c,), **f32) if whole else None
-    dbeta = torch.empty((c,), **f32) if whole else None
+    cp = None if split else cluster_plan(b, h * w, c, x.element_size(), ptr,
+                                         sms, tiles=2, whole=whole)
+    red = (torch.empty((b, 2, c), **f32) if gamma is not None or cp is None
+           else None)
+    dgamma = dbeta = None
     with torch.cuda.device(x.device):
-        err = lib.munit_norm_backward(
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats.data_ptr(),
-            _ptr(g), gs, _ptr(bt), bs, part.data_ptr(), red.data_ptr(),
-            bcoef.data_ptr(), _ptr(dgamma), _ptr(dbeta),
-            b, h * w, c, splits, rows, int(x.dtype == torch.bfloat16), vec,
-            int(whole), int(relu),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if cp is not None:
+            err = lib.munit_norm_cluster_backward(
+                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats.data_ptr(),
+                _ptr(g), gs, _ptr(bt), bs, _ptr(red), b, h * w, c, cp.k,
+                cp.rows, cp.smem, bf16, cp.vec, int(relu), _stream(x))
+        else:
+            vec, splits, rows = plan(b, h * w, c, x.element_size(), ptr, sms)
+            part = torch.empty((b, splits, 2, c), **f32)
+            bcoef = torch.empty((b, 3, c), **f32)
+            if whole:
+                dgamma = torch.empty((c,), **f32)
+                dbeta = torch.empty((c,), **f32)
+            err = lib.munit_norm_backward(
+                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats.data_ptr(),
+                _ptr(g), gs, _ptr(bt), bs, part.data_ptr(), red.data_ptr(),
+                bcoef.data_ptr(), _ptr(dgamma), _ptr(dbeta),
+                b, h * w, c, splits, rows, bf16, vec, int(whole), int(relu),
+                _stream(x))
     _raise_on(name, lib, err)
     launches[name + "_bwd"] += 1
     if gamma is None:
@@ -305,6 +394,25 @@ def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole):
     if not whole:
         dgamma, dbeta = red[:, 1], red[:, 0]
     return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+def cluster_occupancy(x, backward: bool) -> Optional[int]:
+    """Clusters of the cluster design's kernel at x's launch shape that the
+    card holds at once (cudaOccupancyMaxActiveClusters); None where the
+    plan sends x to the split design."""
+    b, h, w, c = x.shape
+    cp = cluster_plan(b, h * w, c, x.element_size(), x.data_ptr(),
+                      _sm_count(x.device.index), tiles=2 if backward else 1)
+    if cp is None:
+        return None
+    lib = _lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        err = lib.munit_norm_cluster_occupancy(
+            int(backward), b, c, cp.k, cp.smem,
+            int(x.dtype == torch.bfloat16), cp.vec, ctypes.byref(out))
+    _raise_on("cluster_occupancy", lib, err)
+    return out.value
 
 
 def _forward(name, x, gamma, beta, relu):

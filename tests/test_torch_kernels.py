@@ -197,3 +197,65 @@ def test_plan_narrows_vectors_to_alignment():
     assert norms.plan(1, 64, 24, 2, 0, 132)[0] == 8     # bf16, C = 24
     with pytest.raises(ValueError):
         norms.plan(1, 64, 4096, 4, 0, 132)
+
+
+# ----------------------------------------------------------- cluster_plan
+# Pure Python: which design each path call takes, and the cluster
+# design's cut of the slab. The kernels themselves are held against the
+# plain versions on the card (tests/test_torch_kernels_cuda.py).
+SMS = 132
+
+
+def _assert_cluster_plan(cp, b, hw, c, itemsize, tiles):
+    """Every row and channel covered exactly once, the tiles within the
+    budget, at most 16 blocks a cluster, no block empty."""
+    assert cp.cg * itemsize == 128 and cp.vec * itemsize <= 16
+    assert c % cp.vec == 0 and cp.cg % cp.vec == 0
+    groups = -(-c // cp.cg)
+    assert (groups - 1) * cp.cg < c <= groups * cp.cg
+    assert 1 <= cp.k <= 16
+    assert (cp.k - 1) * cp.rows < hw <= cp.k * cp.rows
+    assert cp.smem == tiles * cp.rows * cp.cg * itemsize
+    assert cp.smem <= norms._CLUSTER_BUDGET
+    # at least one block per SM, unless the rows are as few as 16 blocks
+    # (or one row a block) allow
+    assert b * groups * cp.k >= SMS or cp.rows == -(-hw // min(16, hw))
+
+
+@pytest.mark.parametrize("tiles", [1, 2])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("b", [1, 2, 8, 16])
+def test_cluster_plan_at_the_decoders_shape(b, itemsize, tiles):
+    """IN and AdaIN at (B, 64, 64, 256), every batch the path runs (2B for
+    the wide decodes), take the cluster design with 16-byte loads."""
+    cp = norms.cluster_plan(b, 64 * 64, 256, itemsize, 0, SMS, tiles)
+    assert cp is not None and cp.vec * itemsize == 16
+    _assert_cluster_plan(cp, b, 64 * 64, 256, itemsize, tiles)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("hwc", [(256, 256, 64), (128, 128, 128)])
+def test_cluster_plan_leaves_large_slabs_to_the_split_design(hwc, itemsize):
+    """IN at 128^2 and 256^2: 2 MB and 8 MB a (sample, group) slab, more
+    than 16 blocks hold; the whole-LN reduces over a whole sample."""
+    h, w, c = hwc
+    for tiles in (1, 2):
+        assert norms.cluster_plan(1, h * w, c, itemsize, 0, SMS, tiles) is None
+        assert norms.cluster_plan(1, 64 * 64, 256, itemsize, 0, SMS, tiles,
+                                  whole=True) is None
+
+
+@pytest.mark.parametrize("shape,itemsize,ptr", [
+    ((3, 12, 20, 24), 4, 0),    # C below one group
+    ((3, 12, 20, 24), 2, 4),    # bf16, 4-byte aligned: 2-channel loads
+    ((2, 7, 5, 40), 4, 0),      # H*W = 35 over the blocks; C = 32 + 8
+    ((1, 9, 1, 3), 4, 8),       # fewer rows than 16 blocks; C = 3
+    ((16, 64, 64, 200), 2, 0),  # a partial last group of 8 channels
+])
+def test_cluster_plan_ragged_rows_and_channels(shape, itemsize, ptr):
+    b, h, w, c = shape
+    for tiles in (1, 2):
+        cp = norms.cluster_plan(b, h * w, c, itemsize, ptr, SMS, tiles)
+        assert cp is not None
+        _assert_cluster_plan(cp, b, h * w, c, itemsize, tiles)
+        assert cp.vec == norms.plan(b, h * w, c, itemsize, ptr, SMS)[0]

@@ -155,6 +155,102 @@ def test_backward_kernels_against_plain_on_card(shape, dtype):
                                            rtol=tol, atol=tol * scale)
 
 
+def _wide_affine(g, b):
+    """gamma and beta as column slices of one wider (B, 4C) tensor, as the
+    generator slices them from the style MLP's output."""
+    c = g.shape[1]
+    wide = torch.empty((g.shape[0], 4 * c), device=g.device)
+    wide[:, c:2 * c], wide[:, :c] = g, b
+    return wide[:, c:2 * c], wide[:, :c]
+
+
+def _check_designs(x, g2, b2, dy, relu, dt):
+    """IN and AdaIN through the cluster design against the plain forward
+    and closed-form backward, the split design against the same, and two
+    cluster runs bitwise equal."""
+    rtol, atol = (1e-4, 1e-4) if dt == torch.float32 else (2**-7, 3e-2)
+    tol = 1e-4 if dt == torch.float32 else 2 * 2**-8
+    for name, aff in (("instance_norm", [None, None]), ("adain", [g2, b2])):
+        plain = (norms.instance_norm_plain(x, relu) if name == "instance_norm"
+                 else norms.adain_plain(x, g2, b2, relu))
+        grads_plain = (
+            (norms.instance_norm_backward_plain(x, dy, relu),)
+            if name == "instance_norm"
+            else norms.adain_backward_plain(x, g2, b2, dy, relu))
+        runs = {}
+        for design in ("cluster", "cluster again", "split"):
+            split = design == "split"
+            y, stats = norms._launch(name, x, *aff, relu, False, split=split)
+            grads = norms._launch_backward(name, x, stats, *aff, dy, relu,
+                                           False, split=split)
+            runs[design] = (y, stats, *grads)
+            torch.cuda.synchronize()
+            assert y.dtype == dt and grads[0].dtype == dt
+            torch.testing.assert_close(y.float(), plain.float(), rtol=rtol,
+                                       atol=atol)
+            for got, want in zip(grads, grads_plain):
+                scale = want.float().abs().max().item()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol * scale)
+        for a, b in zip(runs["cluster"], runs["cluster again"]):
+            assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 2, 8, 16])
+def test_cluster_kernels_against_plain_on_card(b, dtype):
+    """IN and AdaIN at the decoders' (B, 64, 64, 256), every batch the path
+    runs, ReLU on and off, gamma and beta strided slices of a wider tensor:
+    the cluster design (one launch each way) against the plain forward and
+    closed-form backward, the split design forced at the same shape against
+    the same, and two runs bitwise equal. The wrapper's autograd path takes
+    the cluster design and launches once each way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(7)
+    shape = (b, 64, 64, 256)
+    x, g2, b2, _, _ = (t.cuda() for t in gap_inputs(shape, gen))
+    x = x.to(dt)
+    g2, b2 = _wide_affine(g2, b2)
+    assert g2.stride() == (4 * 256, 1)
+    dy = torch.randn(shape, generator=gen).to("cuda", dt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tiles in (1, 2):
+        assert norms.cluster_plan(b, 64 * 64, 256, x.element_size(),
+                                  x.data_ptr(), sms, tiles) is not None
+    for relu in (False, True):
+        _check_designs(x, g2, b2, dy, relu, dt)
+        norms.reset_launches()
+        y, *got = _grads(lambda x, g, bt: norms.adain(x, g, bt, relu), x,
+                         [g2, b2], dy)
+        torch.cuda.synchronize()
+        assert norms.launches["adain"] == 1 and norms.launches["adain_bwd"] == 1
+        for g, want in zip(got, norms.adain_backward_plain(x, g2, b2, dy,
+                                                           relu)):
+            tol = 1e-4 if dt == torch.float32 else 2 * 2**-8
+            torch.testing.assert_close(g.float(), want.float(), rtol=tol,
+                                       atol=tol * want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 7, 5, 40), (3, 12, 20, 24)])
+def test_cluster_kernels_ragged_on_card(shape, dtype):
+    """A ragged last block of rows (H*W = 35 over the cluster) and channel
+    counts that the group does not divide, both designs, ReLU on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    x, g2, b2, _, _ = (t.cuda() for t in gap_inputs(shape, gen))
+    g2, b2 = _wide_affine(g2, b2)
+    dy = torch.randn(shape, generator=gen).to("cuda", dt)
+    for relu in (False, True):
+        _check_designs(x.to(dt), g2, b2, dy, relu, dt)
+
+
 @pytest.mark.cuda
 def test_pool_gradients_on_card_match_the_cpu():
     """The discriminator's and classifier's pools take the same input
