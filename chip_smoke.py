@@ -6,17 +6,21 @@ Phases, each raising on failure (exit code 1):
 1. the card's name and power limit (nvidia-smi), and the build of every
    CUDA source of the port, one nvcc each, started together;
 2. each norm kernel against its plain PyTorch version on the card, at every
-   norm shape of the config_256 path, batch 1 and 8 (and 2 and 16 where
-   the cluster design runs: the wide decodes' 2B), f32 and bf16, ReLU on
-   and off; each path shape's launch plan (cluster or split design; the
-   cluster's group, K, rows, shared memory and the clusters the card holds
-   at once); then kernel, plain version, one library call and the
-   device-memory bound timed per shape (and the cluster design under
-   other tile budgets than the plan's), and where the cluster design runs,
-   the split design timed in the same run, a copy of x as the practical
-   floor, and two runs held bitwise equal; then a profile that finds one
-   device kernel per AdaIN call, forward and backward, and the host µs per
-   wrapper call of both designs;
+   norm shape of the config_256 path, batch 1, 2, 8 and 16 (the wide
+   decodes run at 2B), f32 and bf16, ReLU on and off; each path shape's
+   launch plan (cluster design at (B, 64, 64, 256) for IN and AdaIN, the
+   grid design at every other shape and for every LN, the split design
+   nowhere; the cluster's group, K, rows and resident clusters, the grid's
+   segments, blocks, rows kept on chip and blocks an SM holds); then
+   kernel, plain version, one library call (for IN and AdaIN the
+   F.batch_norm view, F.instance_norm beside it) and the device-memory
+   bound timed per shape, the split design (the "was") and a copy of x
+   timed in the same run, the split design held against the same
+   references and two runs held bitwise equal (and the cluster design
+   under other tile budgets than the plan's); then a profile that finds
+   one device kernel per call, forward and backward, of AdaIN at
+   (2, 64, 64, 256), IN at (1, 128, 128, 128) and the LN at
+   (2, 256, 256, 64), and the host µs per wrapper call of each design;
 3. the golden fixture (tests/fixtures/golden_gen.npz) reproduced on the
    card through the kernels;
 4. the main path: the translate CLI on the card at the full width of
@@ -28,9 +32,10 @@ Phases, each raising on failure (exit code 1):
 6. each backward kernel against the plain closed-form backward and against
    autograd of the plain forward, at every norm shape of the training path
    (the wide decodes at twice the batch), f32 and bf16, ReLU on and off;
-   then kernel, plain backward, one library call's autograd backward and
-   the byte bound timed per shape, the split design beside the cluster
-   design where it runs, two runs bitwise equal;
+   then kernel, plain backward, one library call's autograd backward (IN:
+   the F.batch_norm view, F.instance_norm beside it) and the byte bound
+   timed per shape, the split design beside it, two runs bitwise equal;
+   and the LN backward at batch 16 against a float64 closed form;
 7. the frozen ResNet34-8s segmenter (seeded random weights: the Cityscapes
    checkpoint is not in the repo) at (2, 256, 256, 3) on the card (TF32
    off) against the CPU, and the agreement of their pseudo-labels;
@@ -42,8 +47,10 @@ Phases, each raising on failure (exit code 1):
    segmenter runs no norm kernel); then training time at batch 1 and 8,
    TF32 on: each step kind, ms per iteration over the 5-iteration cycle,
    images/s as bench.py counts them, peak memory, a profile of one fused
-   step (which asserts one cluster kernel per AdaIN and (64, 64, 256) IN
-   call each way), and the segmenter's share (its targets pass and its
+   step (which asserts 84 one-launch norm kernels each way: a cluster
+   kernel per AdaIN and (64, 64, 256) IN call, a grid kernel per other IN
+   and per LN call, and no split-design kernel), the wrappers' launches by
+   design, and the segmenter's share (its targets pass and its
    loss forward and backward, timed and profiled apart: no weight-gradient
    kernel);
 9. one fused step's gradients on the card (TF32 off) against the CPU at
@@ -154,18 +161,27 @@ def call(norms, name, a, relu, plain=False):
     return fn(a["x"], a["g1"], a["b1"], relu)
 
 
-def library(name, a):
+def library(name, a, instance=False):
     """One PyTorch call for the same norm on an NCHW-contiguous copy (its
-    preferred layout). group_norm puts eps on the variance: timed only."""
+    preferred layout): for IN and AdaIN F.batch_norm on the (1, B C, H, W)
+    view in training mode (per (sample, channel) statistics, biased
+    variance, eps inside the root: the same function), or with
+    ``instance`` F.instance_norm; group_norm puts eps on the variance and
+    takes the biased std: timed only."""
     xc = a["x"].permute(0, 3, 1, 2).contiguous()
     b, c, h, w = xc.shape
+    flat = xc.view(1, b * c, h, w)
     if name == "instance_norm":
-        return lambda: F.instance_norm(xc)
+        if instance:
+            return lambda: F.instance_norm(xc)
+        return lambda: F.batch_norm(flat, None, None, None, None, True, 0.1,
+                                    1e-5)
+    dt = xc.dtype
     if name == "adain":
-        flat = xc.view(1, b * c, h, w)
-        g, bt = a["g2"].reshape(-1), a["b2"].reshape(-1)
+        g, bt = a["g2"].reshape(-1).to(dt), a["b2"].reshape(-1).to(dt)
         return lambda: F.batch_norm(flat, None, None, g, bt, True, 0.1, 1e-5)
-    return lambda: F.group_norm(xc, 1, a["g1"], a["b1"], 1e-5)
+    g, bt = a["g1"].to(dt), a["b1"].to(dt)
+    return lambda: F.group_norm(xc, 1, g, bt, 1e-5)
 
 
 def time_ms(fn, flush, iters=15):
@@ -201,10 +217,10 @@ def bound(name, a):
 
 
 # Where the cluster design runs on the path: IN and AdaIN at (64, 64, 256),
-# also at 2B (the wide decodes, and the phase-6 backward shapes).
+# also at 2B (the wide decodes, and the phase-6 backward shapes). Every
+# other norm call (IN at 128^2 and 256^2, every LN) runs the grid design.
 CLUSTER_SHAPE = (64, 64, 256)
-CLUSTER_NAMES = ("instance_norm", "adain")
-CLUSTER_BATCHES = (1, 2, 8, 16)
+PLAN_BATCHES = (1, 2, 8, 16)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -212,36 +228,64 @@ def dtype_name(dtype):
     return str(dtype).split(".")[1]
 
 
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def cluster_plan_of(norms, x, tiles):
     b, h, w, c = x.shape
     return norms.cluster_plan(b, h * w, c, x.element_size(), x.data_ptr(),
-                              torch.cuda.get_device_properties(0)
-                              .multi_processor_count, tiles)
+                              sm_count(), tiles)
+
+
+def plan_of(norms, x, tiles, whole):
+    b, h, w, c = x.shape
+    return norms.choose(b, h * w, c, x.element_size(), x.data_ptr(),
+                        sm_count(), tiles, whole)
+
+
+def design_of(norms, name, x, tiles=1):
+    """The design the wrapper runs for this call: "cluster" or "grid"."""
+    p = plan_of(norms, x, tiles, name == "whole_layer_norm")
+    return "cluster" if isinstance(p, norms.ClusterPlan) else "grid"
 
 
 def plan_phase(norms):
     """Each path shape's launch plan, forward (one tile) and backward (x
-    and dy): the cluster design's group, K, rows, shared memory and the
-    clusters of it the card holds at once, or the split design. Every
-    (64, 64, 256) shape must take the cluster design."""
+    and dy), for IN/AdaIN and for the LN: the cluster design's group, K,
+    rows, shared memory and resident clusters; the grid design's segments,
+    blocks, rows kept on chip, shared memory and blocks an SM holds. IN and
+    AdaIN must take the cluster design at (B, 64, 64, 256) and the grid
+    design elsewhere, the LN the grid design everywhere, the split design
+    nowhere; a grid must fit the card at once."""
     for tiles, way in ((1, "forward"), (2, "backward")):
         for dtype in DTYPES:
-            for b in CLUSTER_BATCHES:
+            for b in PLAN_BATCHES:
                 for h, w, c in SHAPES:
                     x = torch.empty((b, h, w, c), dtype=dtype, device="cuda")
-                    cp = cluster_plan_of(norms, x, tiles)
-                    row = {"direction": way, "shape": [b, h, w, c],
-                           "dtype": dtype_name(dtype),
-                           "design": "split" if cp is None else "cluster"}
-                    if cp is not None:
-                        row.update(cp._asdict())
-                        row["active_clusters"] = norms.cluster_occupancy(
-                            x, tiles == 2)
-                        row["blocks"] = b * -(-c // cp.cg) * cp.k
-                    emit(phase="plan", **row)
-                    check((cp is not None) == ((h, w, c) == CLUSTER_SHAPE),
-                          f"plan {row}: the cluster design must run at "
-                          f"{CLUSTER_SHAPE} and only there")
+                    for norm, whole in (("in_adain", False), ("ln", True)):
+                        p = plan_of(norms, x, tiles, whole)
+                        design = ("cluster" if isinstance(p, norms.ClusterPlan)
+                                  else "grid")
+                        row = {"direction": way, "norm": norm,
+                               "shape": [b, h, w, c],
+                               "dtype": dtype_name(dtype), "design": design,
+                               **p._asdict()}
+                        if design == "cluster":
+                            row["active_clusters"] = norms.cluster_occupancy(
+                                x, tiles == 2)
+                            row["blocks"] = b * -(-c // p.cg) * p.k
+                        else:
+                            per_sm = norms.grid_occupancy(x, tiles == 2, whole)
+                            row["blocks_per_sm"] = per_sm
+                            row["resident_share"] = min(
+                                1.0, p.blocks * p.res / (b * h * w))
+                            check(p.blocks <= per_sm * sm_count(),
+                                  f"plan {row}: the grid does not fit")
+                        emit(phase="plan", **row)
+                        want = ("cluster" if not whole
+                                and (h, w, c) == CLUSTER_SHAPE else "grid")
+                        check(design == want, f"plan {row}: want {want}")
                     del x
 
 
@@ -282,7 +326,8 @@ def budget_sweep(norms):
 
 
 def split_call(norms, name, a, relu):
-    """The same norm forced through the split design (three kernels)."""
+    """The same norm forced through the split design (three kernels): the
+    "was" of every path shape."""
     aff = {"instance_norm": (None, None), "adain": (a["g2"], a["b2"]),
            "whole_layer_norm": (a["g1"], a["b1"])}[name]
     return norms._launch(name, a["x"], *aff, relu,
@@ -290,39 +335,33 @@ def split_call(norms, name, a, relu):
 
 
 def phase2_cases():
-    for b in BATCHES:
+    for b in PLAN_BATCHES:
         for hwc in SHAPES:
             yield b, hwc, tuple(PATH_CALLS)
-    for b in CLUSTER_BATCHES:
-        if b not in BATCHES:
-            yield b, CLUSTER_SHAPE, CLUSTER_NAMES
 
 
 def kernel_phase(norms):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
-    err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in PATH_CALLS}
+    err = {}   # (wrapper, design, dtype): largest error against plain
     times = {}
     for b, (h, w, c), names in phase2_cases():
         for dtype in DTYPES:
             a = make_inputs(b, h, w, c, dtype, gen)
             dname = dtype_name(dtype)
-            cluster = cluster_plan_of(norms, a["x"], 1) is not None
             for name in names:
-                cluster_here = cluster and name in CLUSTER_NAMES
+                design = design_of(norms, name, a["x"])
                 shape_err = 0.0
                 for relu in (False, True):
                     got = call(norms, name, a, relu)
                     want = call(norms, name, a, relu, plain=True)
-                    outs = [(got, "kernel")]
-                    if cluster_here:
-                        outs.append((split_call(norms, name, a, relu),
-                                     "split design"))
-                        again = call(norms, name, a, relu)
+                    outs = [(got, "kernel"),
+                            (split_call(norms, name, a, relu), "split design")]
+                    again = call(norms, name, a, relu)
                     torch.cuda.synchronize()
                     check(got.dtype == dtype and got.shape == want.shape,
                           f"{name}: dtype or shape differs")
-                    check(not cluster_here or torch.equal(got, again),
+                    check(torch.equal(got, again),
                           f"{name} {(b, h, w, c)} {dname}: two runs differ")
                     for out, what in outs:
                         e = (out.float() - want.float()).abs().max().item()
@@ -334,25 +373,29 @@ def kernel_phase(norms):
                                              rtol=rtol, atol=atol),
                               f"{name} {(b, h, w, c)} {dname} relu={relu}: "
                               f"{what} differs from plain by {e}")
+                y = torch.empty_like(a["x"])
                 row = {"kernel": name, "shape": [b, h, w, c], "dtype": dname,
-                       "design": "cluster" if cluster_here else "split",
+                       "design": design,
                        "ms": time_ms(lambda: call(norms, name, a, False),
-                                     flush)}
-                if cluster_here:
-                    row["split_ms"] = time_ms(
-                        lambda: split_call(norms, name, a, False), flush)
-                    y = torch.empty_like(a["x"])
-                    row["copy_ms"] = time_ms(lambda: y.copy_(a["x"]), flush)
+                                     flush),
+                       "split_ms": time_ms(
+                           lambda: split_call(norms, name, a, False), flush),
+                       "copy_ms": time_ms(lambda: y.copy_(a["x"]), flush),
+                       "library_ms": time_ms(library(name, a), flush)}
+                if name == "instance_norm":
+                    row["instance_norm_ms"] = time_ms(
+                        library(name, a, instance=True), flush)
                 if dtype == torch.float32:
                     row["plain_ms"] = time_ms(
                         lambda: call(norms, name, a, False, plain=True),
                         flush)
-                    row["library_ms"] = time_ms(library(name, a), flush)
                 row["bound_ms"], row["bound_by"] = bound(name, a)
                 row["max_abs_err"] = shape_err
-                err[name][dname] = max(err[name][dname], shape_err)
+                key = (name, design, dname)
+                err[key] = max(err.get(key, 0.0), shape_err)
                 times[(name, b, h, w, c, dname)] = row
                 emit(phase="kernel", **row)
+                del y
             del a
     return err, times
 
@@ -361,59 +404,74 @@ PROFILE_CALLS = 8
 HOST_CALLS = 1000
 
 
+# (wrapper, shape, forward kernel, backward kernel) profiled per call: one
+# path shape of each design and norm kind.
+ONE_KERNEL_CASES = (
+    ("adain", (2, *CLUSTER_SHAPE), "norm_cluster_fwd", "norm_cluster_bwd"),
+    ("instance_norm", (1, 128, 128, 128), "norm_grid_fwd", "norm_grid_bwd"),
+    ("whole_layer_norm", (2, 256, 256, 64), "norm_grid_fwd", "norm_grid_bwd"),
+)
+
+
 def one_kernel_phase(norms):
-    """One device kernel per AdaIN call: PROFILE_CALLS forward calls (no
-    grad) and as many backward calls (autograd.grad through the wrapper's
-    Function, gamma and beta strided slices as the generator passes them)
-    at the wide decode's (2, 64, 64, 256), f32 and bf16, profiled; each
-    call's window must hold exactly one device kernel, the cluster kernel.
-    Then the host µs per call (a mean over HOST_CALLS calls, no
-    synchronise) of each design's launcher, and of the public wrapper."""
+    """One device kernel per call: PROFILE_CALLS forward calls (no grad) and
+    as many backward calls (autograd.grad through the wrapper's Function;
+    AdaIN's gamma and beta strided slices as the generator passes them) of
+    each ONE_KERNEL_CASES row, f32 and bf16, profiled; each call's window
+    must hold exactly one device kernel, the design's. Then the host µs
+    per call (a mean over HOST_CALLS calls, no synchronise) of each
+    design's launcher, and of the public wrapper."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    for dtype in DTYPES:
-        a = make_inputs(2, *CLUSTER_SHAPE, dtype, gen)
-        dy = torch.randn(a["x"].shape, generator=gen,
-                         device="cuda").to(dtype)
-        y, inputs = kernel_graph(norms, "adain", a, True)
+    for name, shape, fwd_kernel, bwd_kernel in ONE_KERNEL_CASES:
+        for dtype in DTYPES:
+            a = make_inputs(*shape, dtype, gen)
+            dy = torch.randn(a["x"].shape, generator=gen,
+                             device="cuda").to(dtype)
+            y, inputs = kernel_graph(norms, name, a, True)
 
-        def fwd():
-            with torch.no_grad():
-                norms.adain(a["x"], a["g2"], a["b2"], True)
+            def fwd():
+                with torch.no_grad():
+                    call(norms, name, a, True)
 
-        def bwd():
-            torch.autograd.grad(y, inputs, dy, retain_graph=True)
+            def bwd():
+                torch.autograd.grad(y, inputs, dy, retain_graph=True)
 
-        for way, step, kernel in (("forward", fwd, "norm_cluster_fwd"),
-                                  ("backward", bwd, "norm_cluster_bwd")):
-            step()
-            rows, _ = device_profile(step, PROFILE_CALLS)
-            per_call = [{"kernel": r[1][:90], "per_call": r[2]} for r in rows]
-            emit(phase="one_kernel", kernel="adain", direction=way,
-                 shape=[2, *CLUSTER_SHAPE], dtype=dtype_name(dtype),
-                 device_kernels=per_call)
-            check(len(rows) == 1 and kernel in rows[0][1]
-                  and rows[0][2] == 1,
-                  f"adain {way} {dtype_name(dtype)}: device kernels per "
-                  f"call {per_call}, want one {kernel}")
-        del a, dy, y, inputs
-    a = make_inputs(1, *CLUSTER_SHAPE, torch.float32, gen)
-    dy = torch.randn(a["x"].shape, generator=gen, device="cuda")
-    x, g, bt = a["x"], a["g2"], a["b2"]
-    stats = norms._launch("adain", x, g, bt, True, False)[1]
-    row = {}
-    for split in (False, True):
-        design = "split" if split else "cluster"
-        row[f"{design}_forward_us"] = host_us(
-            lambda: norms._launch("adain", x, g, bt, True, False, split=split))
-        row[f"{design}_backward_us"] = host_us(
-            lambda: norms._launch_backward("adain", x, stats, g, bt, dy, True,
-                                           False, split=split))
-    with torch.no_grad():
-        row["wrapper_forward_us"] = host_us(
-            lambda: norms.adain(x, g, bt, True))
-    emit(phase="host_per_call", kernel="adain", shape=[1, *CLUSTER_SHAPE],
-         dtype="float32", calls=HOST_CALLS, **row,
-         note="host µs per call, mean over the calls, no synchronise")
+            for way, step, kernel in (("forward", fwd, fwd_kernel),
+                                      ("backward", bwd, bwd_kernel)):
+                step()
+                rows, _ = device_profile(step, PROFILE_CALLS)
+                per_call = [{"kernel": r[1][:90], "per_call": r[2]}
+                            for r in rows]
+                emit(phase="one_kernel", kernel=name, direction=way,
+                     shape=list(shape), dtype=dtype_name(dtype),
+                     device_kernels=per_call)
+                check(len(rows) == 1 and kernel in rows[0][1]
+                      and rows[0][2] == 1,
+                      f"{name} {way} {list(shape)} {dtype_name(dtype)}: "
+                      f"device kernels per call {per_call}, want one {kernel}")
+            del a, dy, y, inputs
+    for name, shape in (("adain", (1, *CLUSTER_SHAPE)),
+                        ("instance_norm", (1, 128, 128, 128))):
+        a = make_inputs(*shape, torch.float32, gen)
+        dy = torch.randn(a["x"].shape, generator=gen, device="cuda")
+        x = a["x"]
+        aff = affine_of(name, a) or [None, None]
+        stats = norms._launch(name, x, *aff, True, False)[1]
+        design = design_of(norms, name, x)
+        row = {}
+        for split in (False, True):
+            tag = "split" if split else design
+            row[f"{tag}_forward_us"] = host_us(
+                lambda: norms._launch(name, x, *aff, True, False, split=split))
+            row[f"{tag}_backward_us"] = host_us(
+                lambda: norms._launch_backward(name, x, stats, *aff, dy, True,
+                                               False, split=split))
+        with torch.no_grad():
+            row["wrapper_forward_us"] = host_us(
+                lambda: call(norms, name, a, True))
+        emit(phase="host_per_call", kernel=name, shape=list(shape),
+             dtype="float32", calls=HOST_CALLS, **row,
+             note="host µs per call, mean over the calls, no synchronise")
 
 
 def host_us(fn):
@@ -469,6 +527,26 @@ def write_images(folder: Path, rng):
         image().save(folder / "input" / f"street{i}.png")
 
 
+# Of each wrapper's calls on the path, the share each design takes (a
+# content encode runs 9 of its 11 IN at (64, 64, 256), on the cluster
+# design, and 2 at 128^2 and 256^2, on the grid design).
+PATH_DESIGN_SHARE = {"instance_norm": {"cluster": 9, "grid": 2},
+                     "adain": {"cluster": 1},
+                     "whole_layer_norm": {"grid": 1}}
+
+
+def designs_of_calls(norms, calls, share):
+    """{wrapper (and _bwd): {design: launches}} of ``calls`` per wrapper,
+    split by ``share``; no call on the split design."""
+    out = {}
+    for key, n in calls.items():
+        parts = share[key.removesuffix("_bwd")]
+        total = sum(parts.values())
+        check(n % total == 0, f"{key}: {n} calls do not split as {parts}")
+        out[key] = {d: n * parts.get(d, 0) // total for d in norms.DESIGNS}
+    return out
+
+
 def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
     conf = get_config(str(CONFIG))
     gen = GenBundle(conf, "cpu")
@@ -486,12 +564,17 @@ def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(norms.launches)
+    by_design = {k: dict(v) for k, v in norms.design_launches.items()}
     want = {"instance_norm": 11 * N_IMAGES, "adain": 8 * N_IMAGES,
             "whole_layer_norm": 2 * N_IMAGES, "instance_norm_bwd": 0,
             "adain_bwd": 0, "whole_layer_norm_bwd": 0}
+    want_design = designs_of_calls(norms, want, PATH_DESIGN_SHARE)
     emit(phase="translate_card", images=N_IMAGES, seconds=wall,
-         launches=launches, expected=want)
+         launches=launches, expected=want, launches_by_design=by_design,
+         expected_by_design=want_design)
     check(launches == want, f"launch counts {launches}, expected {want}")
+    check(by_design == want_design,
+          f"launches by design {by_design}, expected {want_design}")
 
     out_cpu = translate.main(args + ["--output_folder", str(tmp / "cpu"),
                                      "--device", "cpu"])
@@ -505,7 +588,7 @@ def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
     check(len(out_gpu) == N_IMAGES and finite and shapes == {(256, 256, 3)},
           "card outputs are not finite 256x256x3 images")
     check(max(errs) <= 1e-3, f"card and CPU differ by {max(errs)}")
-    return conf, launches, tmp / "gen.pt"
+    return conf, by_design, tmp / "gen.pt"
 
 
 # ----------------------------------------------------------------- phase 5
@@ -552,9 +635,9 @@ def timing_phase(GenBundle, load_reference_checkpoint, conf, ckpt):
 
 # Kernel-name fragments of each group of device time, tried in this order.
 GROUPS = (
-    ("norm bwd", ("norm_bwd", "norm_cluster_bwd")),
+    ("norm bwd", ("norm_bwd", "norm_cluster_bwd", "norm_grid_bwd")),
     ("norm fwd", ("norm_partials", "norm_finalize", "norm_apply",
-                  "norm_cluster_fwd")),
+                  "norm_cluster_fwd", "norm_grid_fwd")),
     ("pad", ("pad",)),
     ("optimizer", ("foreach", "multi_tensor", "adam")),
     ("conv", ("conv", "xmma", "gemm", "sm90", "implicit", "cudnn",
@@ -682,23 +765,28 @@ def plain_backward(norms, name, a, relu):
     return list(out) if isinstance(out, tuple) else [out]
 
 
-def library_backward(name, a):
+def library_backward(name, a, instance=False):
     """Autograd backward of one PyTorch call for the same norm, on NCHW
-    copies (its preferred layout); the port never calls it."""
+    copies (its preferred layout), the calls of ``library``; the port
+    never calls it."""
     x = a["x"].permute(0, 3, 1, 2).contiguous().requires_grad_(True)
     dy = a["dy"].permute(0, 3, 1, 2).contiguous()
     b, c, h, w = x.shape
-    if name == "instance_norm":
+    if name == "instance_norm" and instance:
         y, inputs = F.instance_norm(x), [x]
+    elif name == "instance_norm":
+        y = F.batch_norm(x.view(1, b * c, h, w), None, None, None, None,
+                         True, 0.1, 1e-5).view(b, c, h, w)
+        inputs = [x]
     elif name == "adain":
-        g = a["g2"].reshape(-1).detach().requires_grad_(True)
-        bt = a["b2"].reshape(-1).detach().requires_grad_(True)
+        g = a["g2"].reshape(-1).to(x.dtype).detach().requires_grad_(True)
+        bt = a["b2"].reshape(-1).to(x.dtype).detach().requires_grad_(True)
         y = F.batch_norm(x.view(1, b * c, h, w), None, None, g, bt, True,
                          0.1, 1e-5).view(b, c, h, w)
         inputs = [x, g, bt]
     else:
-        g = a["g1"].detach().requires_grad_(True)
-        bt = a["b1"].detach().requires_grad_(True)
+        g = a["g1"].to(x.dtype).detach().requires_grad_(True)
+        bt = a["b1"].to(x.dtype).detach().requires_grad_(True)
         y, inputs = F.group_norm(x, 1, g, bt, 1e-5), [x, g, bt]
     return lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True)
 
@@ -736,14 +824,14 @@ def direct_backward(norms, name, a, relu, split=False):
 def backward_phase(norms):
     """Each backward kernel against the plain closed form and autograd of
     the plain forward, at every norm shape of the training path, f32 and
-    bf16, ReLU on and off; where the cluster design runs, the split design
-    held against the same references and two cluster runs held bitwise
-    equal. Timed (ReLU off; the launcher alone, as the Function calls it)
-    against the byte bound, the plain closed form and one library call's
-    autograd backward (f32), and the split design in the same run."""
+    bf16, ReLU on and off; the split design held against the same
+    references and two runs held bitwise equal. Timed (ReLU off; the
+    launcher alone, as the Function calls it) against the byte bound, the
+    plain closed form and one library call's autograd backward (f32), and
+    the split design in the same run."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
-    err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in BWD_CALLS}
+    err = {}   # (wrapper, design, dtype): largest error against plain
     times = {}
     for name, calls in BWD_CALLS.items():
         for mult, h, w, c in calls:
@@ -751,19 +839,17 @@ def backward_phase(norms):
                 for dtype in (torch.float32, torch.bfloat16):
                     dname = str(dtype).split(".")[1]
                     a = gap_inputs(b, h, w, c, dtype, gen)
-                    cluster = (name in CLUSTER_NAMES and cluster_plan_of(
-                        norms, a["x"], 2) is not None)
+                    design = design_of(norms, name, a["x"], tiles=2)
                     shape_err = 0.0
                     for relu in (False, True):
                         y, inputs = kernel_graph(norms, name, a, relu)
                         got = [("kernel", torch.autograd.grad(y, inputs,
                                                               a["dy"]))]
-                        if cluster:
-                            split = direct_backward(norms, name, a, relu,
-                                                    split=True)()
-                            got.append(("split design", split))
-                            once = direct_backward(norms, name, a, relu)
-                            first, second = once(), once()
+                        split = direct_backward(norms, name, a, relu,
+                                                split=True)()
+                        got.append(("split design", split))
+                        once = direct_backward(norms, name, a, relu)
+                        first, second = once(), once()
                         yp, ip = plain_graph(norms, name, a, relu)
                         auto = torch.autograd.grad(yp, ip, a["dy"])
                         closed = plain_backward(norms, name, a, relu)
@@ -771,7 +857,7 @@ def backward_phase(norms):
                         check(y.grad_fn is not None
                               and got[0][1][0].dtype == dtype,
                               f"{name}: no grad_fn or dx dtype differs")
-                        check(not cluster or all(
+                        check(all(
                             torch.equal(p, q) for p, q in zip(first, second)
                             if p is not None),
                             f"{name} bwd {(b, h, w, c)} {dname}: two runs "
@@ -790,24 +876,71 @@ def backward_phase(norms):
                                               f"by {e}")
                     row = {"kernel": name + "_bwd", "shape": [b, h, w, c],
                            "dtype": dname, "max_abs_err": shape_err,
-                           "design": "cluster" if cluster else "split",
+                           "design": design,
                            "ms": time_ms(direct_backward(norms, name, a,
-                                                         False), flush)}
-                    if cluster:
-                        row["split_ms"] = time_ms(direct_backward(
-                            norms, name, a, False, split=True), flush)
+                                                         False), flush),
+                           "split_ms": time_ms(direct_backward(
+                               norms, name, a, False, split=True), flush),
+                           "library_ms": time_ms(library_backward(name, a),
+                                                 flush)}
+                    if name == "instance_norm":
+                        row["instance_norm_ms"] = time_ms(
+                            library_backward(name, a, instance=True), flush)
+                    row["bound_ms"], row["bound_by"] = bwd_bound(name, a)
                     if dtype == torch.float32:
                         row["plain_ms"] = time_ms(
                             lambda: plain_backward(norms, name, a, False),
                             flush)
-                        row["library_ms"] = time_ms(library_backward(name, a),
-                                                    flush)
-                        row["bound_ms"], row["bound_by"] = bwd_bound(name, a)
                         times[(name, mult, h, w, c, b)] = row
-                    err[name][dname] = max(err[name][dname], shape_err)
+                    key = (name, design, dname)
+                    err[key] = max(err.get(key, 0.0), shape_err)
                     emit(phase="backward_kernel", **row)
                     del a
     return err, times
+
+
+# The LN's affine gradients sum over the batch and every pixel (up to 4 M
+# values a channel at (16, 256, 256, 64)), so float32 sums in any order
+# carry 1e-7 or more of their magnitude; the limit against float64 is about
+# three times the plain float32 version's own error there (3.4e-7 on an
+# H100 80GB HBM3).
+LN_F64_SHAPES = ((16, 256, 256, 64), (16, 128, 128, 128))
+LN_F64_TOL = 1e-6
+
+
+def ln_f64_phase(norms):
+    """The LN backward (f32, the wide decodes' batch 16) against a float64
+    closed form: the kernel's, the split design's and the plain f32
+    version's largest errors in dx, dgamma and dbeta, relative to each
+    gradient's largest magnitude. The kernel's must stay within
+    LN_F64_TOL."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for shape in LN_F64_SHAPES:
+        a = gap_inputs(*shape, torch.float32, gen)
+        args = (a["x"], a["g1"], a["b1"], a["dy"])
+        for relu in (False, True):
+            ref = norms.whole_layer_norm_backward_plain(
+                *(t.double() for t in args), relu)
+            stats = norms._launch("whole_layer_norm", a["x"], a["g1"],
+                                  a["b1"], relu, True)[1]
+            runs = {split: norms._launch_backward(
+                "whole_layer_norm", a["x"], stats, a["g1"], a["b1"], a["dy"],
+                relu, True, split=split) for split in (False, True)}
+            runs = {"kernel": runs[False], "split design": runs[True],
+                    "plain f32": norms.whole_layer_norm_backward_plain(
+                        *args, relu)}
+            row = {}
+            for who, grads in runs.items():
+                row[who] = {part: ((g.double() - r).abs().max()
+                                   / r.abs().max()).item()
+                            for part, g, r in zip(("dx", "dgamma", "dbeta"),
+                                                  grads, ref)}
+            emit(phase="ln_backward_vs_f64", shape=list(shape), relu=relu,
+                 tol=LN_F64_TOL, rel_err=row,
+                 note="largest |error| over the gradient's largest |value|")
+            check(max(row["kernel"].values()) <= LN_F64_TOL,
+                  f"LN backward {shape} relu={relu}: {row['kernel']}")
+        del a
 
 
 # ----------------------------------------------------------------- phase 7
@@ -919,14 +1052,17 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, copies = dict(norms.launches), dict(norms.dy_copies)
+    by_design = {k: dict(v) for k, v in norms.design_launches.items()}
     steps = cadence(conf, TRAIN_ITERS)
     want = expected_launches(norms, conf, steps)
+    want_design = designs_of_calls(norms, want, PATH_DESIGN_SHARE)
     values = {k: float(v) for m in metrics for k, v in m.items()}
     finite = all(np.isfinite(float(v)) for m in metrics for v in m.values())
     sem = [float(m["loss_sem_seg"]) for m in metrics if "loss_sem_seg" in m]
     emit(phase="train_card", batch=b, iterations=TRAIN_ITERS, steps=steps,
          semantic_w=conf["semantic_w"],
          seconds_incl_first_calls=wall, launches=launches, expected=want,
+         launches_by_design=by_design, expected_by_design=want_design,
          dy_copies=copies, finite=finite, loss_sem_seg=sem,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
          losses_first={k: float(v) for k, v in metrics[4].items()},
@@ -935,7 +1071,9 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b):
     check(len(sem) == steps["fused"] and all(v > 0 for v in sem),
           f"batch {b}: loss_sem_seg {sem} in {steps['fused']} gen steps")
     check(launches == want, f"batch {b}: launches {launches}, want {want}")
-    return tr, batch, launches
+    check(by_design == want_design,
+          f"batch {b}: launches by design {by_design}, want {want_design}")
+    return tr, batch, by_design
 
 
 def leaf_errors(got, want, zero):
@@ -1059,22 +1197,26 @@ def train_time_phase(tr, batch, conf, b):
             "cls_ms": cls_ms, "segmenter": seg}
 
 
-# The kernel each design launches first, forward and backward: one per call.
+# The kernel each design launches first, forward and backward: one per call
+# (the split design's is its first of three or four).
 FIRST_KERNELS = {"cluster": ("norm_cluster_fwd", "norm_cluster_bwd"),
+                 "grid": ("norm_grid_fwd", "norm_grid_bwd"),
                  "split": ("norm_partials", "norm_bwd_partials")}
 
 
 def check_norm_kernels(rows, conf, b):
     """In a fused step's profile: one cluster kernel per AdaIN call and per
-    IN call at the smallest resolution, each way, and the split design's
-    first kernel once per other IN and LN call (step_launches' counts)."""
+    IN call at the smallest resolution, each way; one grid kernel per other
+    IN call and per LN call (step_launches' counts), each way; no split
+    kernel. That is one one-launch norm kernel per norm call each way."""
     g = conf["gen"]
     fused = step_launches(conf)["fused"]
     enc = 1 + g["n_downsample"] + 2 * g["n_res"]
     small_in = fused["instance_norm"] // enc * (1 + 2 * g["n_res"])
     want = {"cluster": fused["adain"] + small_in,
-            "split": fused["instance_norm"] - small_in
-            + fused["whole_layer_norm"]}
+            "grid": fused["instance_norm"] - small_in
+            + fused["whole_layer_norm"],
+            "split": 0}
     got = {}
     for design, kernels in FIRST_KERNELS.items():
         for kernel in kernels:
@@ -1082,8 +1224,11 @@ def check_norm_kernels(rows, conf, b):
             check(got[kernel] == want[design],
                   f"batch {b} fused step: {got[kernel]} {kernel} launches, "
                   f"want {want[design]}")
+    calls = fused["instance_norm"] + fused["adain"] + fused["whole_layer_norm"]
+    check(want["cluster"] + want["grid"] == calls,
+          f"batch {b}: {calls} norm calls a fused step, {want} one-launch")
     emit(phase="train_norm_kernels", batch=b, per_fused_step=got,
-         expected=want)
+         expected=want, one_launch_kernels_each_way=calls)
 
 
 def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms):
@@ -1317,6 +1462,11 @@ def removed_by_norm(trainer):
             if isinstance(m, ConvBlock) and m.norm_type in ("in", "adain")}
 
 
+def norms_designs(rows):
+    """The designs of a wrapper's path calls, cluster first."""
+    return sorted({r["design"] for _, r in rows})
+
+
 # The whole-LN probes' Pallas kernels: (row, wrapper, probe, dtype of the
 # timed call, the TPU kernel it replaces)
 PROBE_KERNELS = (
@@ -1329,6 +1479,9 @@ PROBE_KERNELS = (
 
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                  mom_err, mom_times, probe_launches):
+    """The kernel line: one entry per wrapper and design (the cluster and
+    the grid kernels of a wrapper are separate kernels), forward and
+    backward, then the moments kernels of the probes."""
     def total(rows, key):
         return sum(n * row[key] for n, row in rows)
 
@@ -1336,51 +1489,55 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
         return ("bytes" if all(r["bound_by"] == "bytes" for _, r in rows)
                 else "operations")
 
-    def split_total(rows):
-        """The same calls' time with the split design where the cluster
-        design ran (measured in the same run)."""
-        if not any("split_ms" in r for _, r in rows):
-            return None
-        return sum(n * r.get("split_ms", r["ms"]) for n, r in rows)
+    def entry(name, design, rows, errs, **kw):
+        kernel = FIRST_KERNELS[design][name.endswith("_bwd")]
+        out = {"name": f"{name} [{kernel}]", "route": "cuda",
+               "source": SOURCE, **kw,
+               "max_abs_err": errs[(name.removesuffix("_bwd"), design,
+                                    "float32")],
+               "max_abs_err_bf16": errs[(name.removesuffix("_bwd"), design,
+                                         "bfloat16")],
+               "ms": total(rows, "ms"), "split_ms": total(rows, "split_ms"),
+               "plain_ms": total(rows, "plain_ms"),
+               "bound_ms": total(rows, "bound_ms"), "bound_by": bound_by(rows),
+               "library_ms": total(rows, "library_ms")}
+        if name.removesuffix("_bwd") == "instance_norm":
+            out["instance_norm_library_ms"] = total(rows, "instance_norm_ms")
+        if all("copy_ms" in r for _, r in rows):
+            out["copy_ms"] = total(rows, "copy_ms")
+        return out
 
     kernels = []
     for name, calls in PATH_CALLS.items():
         rows = [(n, times[(name, 1, *hwc, "float32")])
                 for hwc, n in calls.items()]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name][0], "also_replaces": REPLACES[name][1],
-            "launches": launches[name],
-            "launches_train": train_launches[name],
-            "max_abs_err": err[name]["float32"],
-            "max_abs_err_bf16": err[name]["bfloat16"],
-            "ms": total(rows, "ms"), "split_ms": split_total(rows),
-            "plain_ms": total(rows, "plain_ms"),
-            "bound_ms": total(rows, "bound_ms"), "bound_by": bound_by(rows),
-            "library_ms": total(rows, "library_ms"),
-            "per": "one translated image: its calls at batch 1, float32; "
-                   "split_ms: the split design's time for the calls where "
-                   "the cluster design runs; "
-                   "launches: translate run (phase 4), launches_train: "
-                   "15 training iterations at batch 1 (phase 8)",
-        })
+        for design in norms_designs(rows):
+            mine = [(n, r) for n, r in rows if r["design"] == design]
+            kernels.append(entry(
+                name, design, mine, err,
+                replaces=REPLACES[name][0], also_replaces=REPLACES[name][1],
+                launches=launches[name][design],
+                launches_train=train_launches[name][design],
+                per="one translated image: its calls of this design at "
+                    "batch 1, float32; split_ms: the split design's time "
+                    "for the same calls (the was); library_ms: one PyTorch "
+                    "call of the same function (IN and AdaIN: F.batch_norm "
+                    "on the (1, B C, H, W) view); launches: translate run "
+                    "(phase 4), launches_train: 15 training iterations at "
+                    "batch 1 (phase 8)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
-        kernels.append({
-            "name": name + "_bwd", "route": "cuda", "source": SOURCE,
-            "replaces": BWD_REPLACES[name], "also_replaces": BWD_ALSO,
-            "launches": train_launches[name + "_bwd"],
-            "max_abs_err": bwd_err[name]["float32"],
-            "max_abs_err_bf16": bwd_err[name]["bfloat16"],
-            "ms": total(rows, "ms"), "split_ms": split_total(rows),
-            "plain_ms": total(rows, "plain_ms"),
-            "bound_ms": total(rows, "bound_ms"), "bound_by": bound_by(rows),
-            "library_ms": total(rows, "library_ms"),
-            "per": "one fused dis+gen step's backward calls at batch 1, "
-                   "float32; launches: 15 training iterations at batch 1 "
-                   "(phase 8)",
-        })
+        for design in norms_designs(rows):
+            mine = [(n, r) for n, r in rows if r["design"] == design]
+            kernels.append(entry(
+                name + "_bwd", design, mine, bwd_err,
+                replaces=BWD_REPLACES[name], also_replaces=BWD_ALSO,
+                launches=train_launches[name + "_bwd"][design],
+                per="one fused dis+gen step's backward calls of this design "
+                    "at batch 1, float32; split_ms: the split design's "
+                    "time for the same calls; launches: 15 training "
+                    "iterations at batch 1 (phase 8)"))
     for row, name, probe, dname, replaces in PROBE_KERNELS:
         t = mom_times[(name, PROBE_SHAPES[0], dname)]
         kernels.append({
@@ -1477,6 +1634,7 @@ def main() -> int:
 
     parity_mode(True)
     bwd_err, bwd_times = backward_phase(norms)
+    ln_f64_phase(norms)
 
     segmenter_phase(ResNet34_8s, seg_preprocess)
 

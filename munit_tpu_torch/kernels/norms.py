@@ -16,11 +16,16 @@ forward and backward, or raises: there is no fallback. Each forward launch adds 
 | whole_layer_norm   | norms.py _ln_fwd_kernel; backward _ln_bwd and tools/normprobe3.py _dot_kernel |
 
 The kernels are bound by device-memory bytes; ``csrc/norms.cu`` says how.
-Instance norm and AdaIN take the cluster design (one launch each way) where
-``cluster_plan`` finds that a (sample, channel group) slab fits on chip, and
-the split design (three kernels each way, the LayerNorm's backward four)
-elsewhere; the whole-tensor LayerNorm always takes the split design. The choice is made
-from the shape, before the launch.
+Every call is one kernel launch each way, in one of two designs chosen from
+the shape before the launch (``choose``): instance norm and AdaIN take the
+cluster design where ``cluster_plan`` finds that a (sample, channel group)
+slab fits the shared memory of one thread block cluster; every other call
+(IN and AdaIN at larger slabs, the whole-tensor LayerNorm always) takes the
+grid design (``grid_plan``): one cooperative launch of blocks that are all
+resident at once, with grid barriers between its phases. The older split
+design (three kernels each way, the LayerNorm's backward four) is reached
+only through the private ``split=True`` of ``_launch`` and
+``_launch_backward``, to time it beside the others.
 """
 
 from __future__ import annotations
@@ -44,17 +49,25 @@ _CLUSTER_MAX = 16    # blocks per cluster (above 8: non-portable, allowed)
 # Tile bytes one block of the cluster design holds in shared memory: x
 # forward, x and dy backward (kMaxDynamicSmem in csrc/norms.cu is the cap).
 _CLUSTER_BUDGET = 64 * 1024
+# The grid design: blocks of it an SM holds (the launch must fit them all at
+# once) and the tile bytes each may keep in shared memory (x forward, x and
+# dy backward; kMaxDynamicSmem in csrc/norms.cu is the cap).
+_GRID_PER_SM = 1
+_GRID_BUDGET = 192 * 1024
 
 NAMES = ("instance_norm", "adain", "whole_layer_norm")
-# Launches of each wrapper's kernels since the last reset_launches().
+DESIGNS = ("cluster", "grid", "split")
+# Launches of each wrapper's kernels since the last reset_launches(), and
+# the same split by design.
 launches = {k: 0 for n in NAMES for k in (n, n + "_bwd")}
+design_launches = {k: {d: 0 for d in DESIGNS} for k in launches}
 # Backward calls whose incoming gradient was not contiguous NHWC and was
 # copied before the kernels read it.
 dy_copies = {n: 0 for n in NAMES}
 
 
 def reset_launches() -> None:
-    for d in (launches, dy_copies):
+    for d in (launches, dy_copies, *design_launches.values()):
         for k in d:
             d[k] = 0
 
@@ -224,6 +237,58 @@ def cluster_plan(b: int, hw: int, c: int, itemsize: int, ptr: int, sms: int,
                        tiles * rows * _LINE_BYTES)
 
 
+class GridPlan(NamedTuple):
+    """One grid-design launch: ``blocks`` blocks, all resident at once."""
+    vec: int     # channels per access
+    splits: int  # segments per sample, each of contiguous rows
+    rows: int    # rows per segment (the last of a sample may hold fewer)
+    blocks: int  # the grid; block j takes segments j, j + blocks, ...
+    res: int     # rows of a block's first segment kept in shared memory
+    smem: int    # dynamic shared memory per block: the tiles, bytes
+
+
+def grid_plan(b: int, hw: int, c: int, itemsize: int, ptr: int, sms: int,
+              tiles: int = 1) -> Optional[GridPlan]:
+    """The grid design's launch for any of the three norms, or None where C
+    is too wide for one block's threads (more than 256 vectors).
+
+    The card holds ``sms * _GRID_PER_SM`` blocks at once. Each sample's H*W
+    rows are cut into ``splits`` contiguous segments, so that B x splits
+    fills those blocks with at least one row per thread's lane; a segment
+    is one contiguous byte range of the NHWC tensor and never straddles two
+    samples. Above that many samples each block takes several whole
+    samples. A block keeps the first ``res`` rows of its first segment
+    on chip (``tiles``: 1 forward, x; 2 backward, x and dy), as many as
+    ``_GRID_BUDGET`` bytes hold; it re-reads the rest.
+    """
+    vec = _vec(c, itemsize, ptr)
+    groups = c // vec
+    if groups > _THREADS:
+        return None
+    lanes = _THREADS // groups
+    cap = sms * _GRID_PER_SM
+    splits = max(1, min(cap // b, hw // lanes))
+    rows = -(-hw // splits)
+    splits = -(-hw // rows)
+    res = min(rows, _GRID_BUDGET // (tiles * c * itemsize))
+    return GridPlan(vec, splits, rows, min(b * splits, cap), res,
+                    tiles * res * c * itemsize)
+
+
+def choose(b: int, hw: int, c: int, itemsize: int, ptr: int, sms: int,
+           tiles: int = 1, whole: bool = False):
+    """The plan of one call: a ClusterPlan, else a GridPlan; raises where
+    neither design takes the shape."""
+    cp = cluster_plan(b, hw, c, itemsize, ptr, sms, tiles, whole)
+    if cp is not None:
+        return cp
+    gp = grid_plan(b, hw, c, itemsize, ptr, sms, tiles)
+    if gp is None:
+        raise ValueError(f"C={c} is too wide for one block ({_THREADS} "
+                         f"threads of {_vec(c, itemsize, ptr)} channels)")
+    return gp
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("norms")
@@ -244,6 +309,16 @@ def _lib() -> ctypes.CDLL:
     lib.munit_norm_cluster_occupancy.argtypes = [i, i, i, i, i, i, i,
                                                  ctypes.POINTER(i)]
     lib.munit_norm_cluster_occupancy.restype = i
+    lib.munit_norm_grid_forward.argtypes = [p, p, p, p, p, p, ll, p, ll, i, i,
+                                            i, i, i, i, i, i, i, i, i, i,
+                                            ctypes.c_float, p]
+    lib.munit_norm_grid_forward.restype = i
+    lib.munit_norm_grid_backward.argtypes = [p, p, p, p, p, ll, p, ll, p, p,
+                                             p, p, p, i, i, i, i, i, i, i, i,
+                                             i, i, i, i, p]
+    lib.munit_norm_grid_backward.restype = i
+    lib.munit_norm_grid_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.munit_norm_grid_occupancy.restype = i
     lib.munit_error_string.argtypes = [i]
     lib.munit_error_string.restype = ctypes.c_char_p
     return lib
@@ -304,10 +379,16 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _plan_of(x, ptr, tiles, whole, split):
+    b, h, w, c = x.shape
+    args = (b, h * w, c, x.element_size(), ptr, _sm_count(x.device.index))
+    return plan(*args) if split else choose(*args, tiles, whole)
+
+
 def _launch(name, x, gamma, beta, relu, whole, split=False):
-    """Forward kernels: (y, stats), stats (B, 3, C) f32 per (sample, channel)
+    """Forward kernel: (y, stats), stats (B, 3, C) f32 per (sample, channel)
     mean, r and std for the backward. ``split`` forces the split design
-    where the cluster design would run: only for comparing the two."""
+    (three kernels) instead of the plan's: only for comparing them."""
     _check_x(name, x)
     b, h, w, c = x.shape
     lib = _lib()
@@ -315,35 +396,43 @@ def _launch(name, x, gamma, beta, relu, whole, split=False):
     bt, bs = _affine_arg(beta, x)
     y = torch.empty_like(x)
     stats = torch.empty((b, 3, c), dtype=torch.float32, device=x.device)
-    ptr = x.data_ptr() | y.data_ptr()
-    sms = _sm_count(x.device.index)
     bf16 = int(x.dtype == torch.bfloat16)
-    cp = None if split else cluster_plan(b, h * w, c, x.element_size(), ptr,
-                                         sms, whole=whole)
+    p = _plan_of(x, x.data_ptr() | y.data_ptr(), 1, whole, split)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    common = (_ptr(g), gs, _ptr(bt), bs, b, h * w, c)
     with torch.cuda.device(x.device):
-        if cp is not None:
+        if isinstance(p, ClusterPlan):
+            design = "cluster"
             err = lib.munit_norm_cluster_forward(
-                x.data_ptr(), y.data_ptr(), stats.data_ptr(), _ptr(g), gs,
-                _ptr(bt), bs, b, h * w, c, cp.k, cp.rows, cp.smem, bf16,
-                cp.vec, int(relu), ops.EPS, _stream(x))
+                x.data_ptr(), y.data_ptr(), stats.data_ptr(), *common, p.k,
+                p.rows, p.smem, bf16, p.vec, int(relu), ops.EPS, _stream(x))
+        elif isinstance(p, GridPlan):
+            design = "grid"
+            part = torch.empty((b * p.splits, 2, 1 if whole else c), **f32)
+            coef = None if whole else torch.empty((b, 3, c), **f32)
+            err = lib.munit_norm_grid_forward(
+                x.data_ptr(), y.data_ptr(), part.data_ptr(), _ptr(coef),
+                stats.data_ptr(), *common, p.splits, p.rows, p.res,
+                p.blocks, p.smem, bf16, p.vec, int(whole), int(relu),
+                ops.EPS, _stream(x))
         else:
-            vec, splits, rows = plan(b, h * w, c, x.element_size(), ptr, sms)
-            f32 = dict(dtype=torch.float32, device=x.device)
+            design = "split"
+            vec, splits, rows = p
             part = torch.empty((b, splits, 2, 1 if whole else c), **f32)
             coef = torch.empty((b, 3, c), **f32)
             err = lib.munit_norm_forward(
                 x.data_ptr(), y.data_ptr(), part.data_ptr(), coef.data_ptr(),
-                stats.data_ptr(), _ptr(g), gs, _ptr(bt), bs,
-                b, h * w, c, splits, rows, bf16, vec, int(whole), int(relu),
-                ops.EPS, _stream(x))
+                stats.data_ptr(), *common, splits, rows, bf16, vec,
+                int(whole), int(relu), ops.EPS, _stream(x))
     _raise_on(name, lib, err)
     launches[name] += 1
+    design_launches[name][design] += 1
     return y, stats
 
 
 def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole,
                      split=False):
-    """Backward kernels: (dx, dgamma, dbeta); the affine grads are None for
+    """Backward kernel: (dx, dgamma, dbeta); the affine grads are None for
     the instance norm. ``split`` as in ``_launch``."""
     _check_x(name, x)
     if dy.shape != x.shape or dy.device != x.device:
@@ -359,36 +448,47 @@ def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole,
     g, gs = _affine_arg(gamma, x)
     bt, bs = _affine_arg(beta, x)
     dx = torch.empty_like(x)
-    ptr = x.data_ptr() | dy.data_ptr() | dx.data_ptr()
-    sms = _sm_count(x.device.index)
     bf16 = int(x.dtype == torch.bfloat16)
     f32 = dict(dtype=torch.float32, device=x.device)
-    cp = None if split else cluster_plan(b, h * w, c, x.element_size(), ptr,
-                                         sms, tiles=2, whole=whole)
-    red = (torch.empty((b, 2, c), **f32) if gamma is not None or cp is None
-           else None)
+    p = _plan_of(x, x.data_ptr() | dy.data_ptr() | dx.data_ptr(), 2, whole,
+                 split)
+    # A, B per (sample, channel): AdaIN's dbeta, dgamma (and the split
+    # design's scratch); the LN's are summed over the batch into (C,)
+    red = (torch.empty((b, 2, c), **f32)
+           if (gamma is not None and not whole) or split else None)
     dgamma = dbeta = None
+    if whole:
+        dgamma = torch.empty((c,), **f32)
+        dbeta = torch.empty((c,), **f32)
+    common = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats.data_ptr(),
+              _ptr(g), gs, _ptr(bt), bs)
     with torch.cuda.device(x.device):
-        if cp is not None:
+        if isinstance(p, ClusterPlan):
+            design = "cluster"
             err = lib.munit_norm_cluster_backward(
-                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats.data_ptr(),
-                _ptr(g), gs, _ptr(bt), bs, _ptr(red), b, h * w, c, cp.k,
-                cp.rows, cp.smem, bf16, cp.vec, int(relu), _stream(x))
+                *common, _ptr(red), b, h * w, c, p.k, p.rows, p.smem, bf16,
+                p.vec, int(relu), _stream(x))
+        elif isinstance(p, GridPlan):
+            design = "grid"
+            part = torch.empty((b * p.splits, 2, c + 1), **f32)
+            bcoef = None if whole else torch.empty((b, 3, c), **f32)
+            err = lib.munit_norm_grid_backward(
+                *common, part.data_ptr(), _ptr(red), _ptr(bcoef),
+                _ptr(dgamma), _ptr(dbeta), b, h * w, c, p.splits, p.rows,
+                p.res, p.blocks, p.smem, bf16, p.vec, int(whole), int(relu),
+                _stream(x))
         else:
-            vec, splits, rows = plan(b, h * w, c, x.element_size(), ptr, sms)
+            design = "split"
+            vec, splits, rows = p
             part = torch.empty((b, splits, 2, c), **f32)
             bcoef = torch.empty((b, 3, c), **f32)
-            if whole:
-                dgamma = torch.empty((c,), **f32)
-                dbeta = torch.empty((c,), **f32)
             err = lib.munit_norm_backward(
-                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), stats.data_ptr(),
-                _ptr(g), gs, _ptr(bt), bs, part.data_ptr(), red.data_ptr(),
-                bcoef.data_ptr(), _ptr(dgamma), _ptr(dbeta),
-                b, h * w, c, splits, rows, bf16, vec, int(whole), int(relu),
-                _stream(x))
+                *common, part.data_ptr(), red.data_ptr(), bcoef.data_ptr(),
+                _ptr(dgamma), _ptr(dbeta), b, h * w, c, splits, rows, bf16,
+                vec, int(whole), int(relu), _stream(x))
     _raise_on(name, lib, err)
     launches[name + "_bwd"] += 1
+    design_launches[name + "_bwd"][design] += 1
     if gamma is None:
         return dx, None, None
     if not whole:
@@ -399,7 +499,7 @@ def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole,
 def cluster_occupancy(x, backward: bool) -> Optional[int]:
     """Clusters of the cluster design's kernel at x's launch shape that the
     card holds at once (cudaOccupancyMaxActiveClusters); None where the
-    plan sends x to the split design."""
+    plan sends x to the grid design."""
     b, h, w, c = x.shape
     cp = cluster_plan(b, h * w, c, x.element_size(), x.data_ptr(),
                       _sm_count(x.device.index), tiles=2 if backward else 1)
@@ -412,6 +512,25 @@ def cluster_occupancy(x, backward: bool) -> Optional[int]:
             int(backward), b, c, cp.k, cp.smem,
             int(x.dtype == torch.bfloat16), cp.vec, ctypes.byref(out))
     _raise_on("cluster_occupancy", lib, err)
+    return out.value
+
+
+def grid_occupancy(x, backward: bool, whole: bool = False) -> Optional[int]:
+    """Blocks of the grid design's kernel at x's plan that one SM holds at
+    once (cudaOccupancyMaxActiveBlocksPerMultiprocessor); None where the
+    plan sends x to the cluster design."""
+    b, h, w, c = x.shape
+    p = choose(b, h * w, c, x.element_size(), x.data_ptr(),
+               _sm_count(x.device.index), 2 if backward else 1, whole)
+    if not isinstance(p, GridPlan):
+        return None
+    lib = _lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        err = lib.munit_norm_grid_occupancy(
+            int(backward), p.smem, int(x.dtype == torch.bfloat16), p.vec,
+            ctypes.byref(out))
+    _raise_on("grid_occupancy", lib, err)
     return out.value
 
 

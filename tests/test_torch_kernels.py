@@ -237,7 +237,9 @@ def test_cluster_plan_at_the_decoders_shape(b, itemsize, tiles):
 @pytest.mark.parametrize("hwc", [(256, 256, 64), (128, 128, 128)])
 def test_cluster_plan_leaves_large_slabs_to_the_split_design(hwc, itemsize):
     """IN at 128^2 and 256^2: 2 MB and 8 MB a (sample, group) slab, more
-    than 16 blocks hold; the whole-LN reduces over a whole sample."""
+    than 16 blocks hold; the whole-LN reduces over a whole sample. These
+    calls take the grid design now (``grid_plan``, below); the split
+    design is no longer chosen for any shape."""
     h, w, c = hwc
     for tiles in (1, 2):
         assert norms.cluster_plan(1, h * w, c, itemsize, 0, SMS, tiles) is None
@@ -259,3 +261,96 @@ def test_cluster_plan_ragged_rows_and_channels(shape, itemsize, ptr):
         assert cp is not None
         _assert_cluster_plan(cp, b, h * w, c, itemsize, tiles)
         assert cp.vec == norms.plan(b, h * w, c, itemsize, ptr, SMS)[0]
+
+
+# -------------------------------------------------------------- grid_plan
+# Pure Python: the grid design's cut of a call into segments and blocks.
+# The kernels are held against the plain versions on the card
+# (tests/test_torch_kernels_cuda.py).
+
+
+def _assert_grid_plan(gp, b, hw, c, itemsize, tiles):
+    """Every row of every sample in exactly one segment, no segment
+    straddling two samples, every block resident at once, the tiles within
+    the budget and the kernel's shared-memory cap."""
+    assert c % gp.vec == 0 and gp.vec * itemsize <= 16
+    assert 1 <= gp.splits <= hw and 1 <= gp.rows <= hw
+    assert (gp.splits - 1) * gp.rows < hw <= gp.splits * gp.rows
+    assert gp.blocks == min(b * gp.splits, SMS * norms._GRID_PER_SM)
+    covered = {}
+    for seg in range(b * gp.splits):
+        sample, s = divmod(seg, gp.splits)
+        lo, hi = s * gp.rows, min((s + 1) * gp.rows, hw)
+        assert lo < hi, "an empty segment"
+        # one contiguous byte range of one sample
+        assert sample * hw + hi <= (sample + 1) * hw
+        covered.setdefault(sample, []).append((lo, hi))
+    for sample in range(b):
+        spans = sorted(covered[sample])
+        assert spans[0][0] == 0 and spans[-1][1] == hw
+        assert all(p[1] == q[0] for p, q in zip(spans, spans[1:]))
+    assert 0 <= gp.res <= gp.rows
+    assert gp.smem == tiles * gp.res * c * itemsize
+    assert gp.smem <= norms._GRID_BUDGET <= 200 * 1024
+    # a row per thread's lane at least, unless one segment is all there is
+    lanes = 256 // (c // gp.vec)
+    assert gp.splits == 1 or gp.rows >= lanes
+
+
+@pytest.mark.parametrize("whole", [False, True])
+@pytest.mark.parametrize("tiles", [1, 2])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("b", [1, 2, 8, 16])
+@pytest.mark.parametrize("hwc", [(256, 256, 64), (128, 128, 128)])
+def test_grid_plan_at_the_path_shapes(hwc, b, itemsize, tiles, whole):
+    """IN and AdaIN at 128^2 and 256^2, and the LN, at every batch the path
+    runs (2B for the wide decodes), forward and backward, take the grid
+    design with 16-byte loads; at batch 1 the whole tensor stays on chip
+    forward (8 and 16 MB over 132 blocks)."""
+    h, w, c = hwc
+    gp = norms.choose(b, h * w, c, itemsize, 0, SMS, tiles, whole)
+    assert isinstance(gp, norms.GridPlan) and gp.vec * itemsize == 16
+    _assert_grid_plan(gp, b, h * w, c, itemsize, tiles)
+    if b == 1 and tiles == 1:
+        assert gp.res == gp.rows and gp.blocks == gp.splits
+
+
+@pytest.mark.parametrize("shape,itemsize,ptr", [
+    ((1, 129, 131, 40), 4, 0),   # ragged rows; 10 groups of 4 over 256 threads
+    ((2, 7, 5, 40), 4, 0),       # H*W = 35: one segment a sample
+    ((1, 9, 1, 3), 4, 8),        # C = 3: one-channel loads, 85 lanes
+    ((3, 12, 20, 24), 2, 4),     # bf16, 4-byte aligned: 2-channel loads
+    ((300, 4, 4, 8), 4, 0),      # more samples than blocks: several a block
+    ((1, 64, 64, 1024), 4, 0),   # C = 1024: 256 vectors, one lane
+])
+def test_grid_plan_ragged_rows_and_channels(shape, itemsize, ptr):
+    b, h, w, c = shape
+    for tiles in (1, 2):
+        gp = norms.grid_plan(b, h * w, c, itemsize, ptr, SMS, tiles)
+        assert gp is not None
+        _assert_grid_plan(gp, b, h * w, c, itemsize, tiles)
+        assert gp.vec == norms.plan(b, h * w, c, itemsize, ptr, SMS)[0]
+
+
+def test_grid_plan_keeps_what_fits_on_chip():
+    """Above what the blocks hold, each keeps as many rows as the budget
+    allows and re-reads the rest; backward holds half as many (x and dy)."""
+    fwd = norms.grid_plan(8, 256 * 256, 64, 4, 0, SMS, 1)
+    bwd = norms.grid_plan(8, 256 * 256, 64, 4, 0, SMS, 2)
+    assert fwd.res < fwd.rows and bwd.res == fwd.res // 2
+    assert fwd.smem == bwd.smem == fwd.res * 64 * 4
+
+
+def test_choose_takes_cluster_then_grid_and_raises_beyond():
+    """The cluster design where it fits (IN and AdaIN at the decoders'
+    shape), the grid design for everything else, and a raise for a C that
+    no block's threads can cover: no split design, no fallback."""
+    assert isinstance(norms.choose(1, 64 * 64, 256, 4, 0, SMS),
+                      norms.ClusterPlan)
+    assert isinstance(norms.choose(1, 64 * 64, 256, 4, 0, SMS, whole=True),
+                      norms.GridPlan)
+    assert isinstance(norms.choose(1, 128 * 128, 128, 4, 0, SMS),
+                      norms.GridPlan)
+    assert norms.grid_plan(1, 64, 4096, 4, 0, SMS) is None
+    with pytest.raises(ValueError, match="too wide"):
+        norms.choose(1, 64 * 64, 4096, 4, 0, SMS, whole=True)

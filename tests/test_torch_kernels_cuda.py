@@ -9,10 +9,24 @@ f32 within rtol 1e-4, atol 1e-4 (summation order); bf16 within atol 3e-2,
 rtol 2**-7 (one bf16 ulp).
 """
 
+import faulthandler
+
 import pytest
 import torch
 
 from munit_tpu_torch.kernels import norms
+
+# Seconds one grid-design test may take before its process is ended with a
+# traceback: a grid barrier that waits on a block that never runs would
+# otherwise hang the card until the run's own limit.
+GRID_TEST_SECONDS = 180
+
+
+@pytest.fixture
+def deadline():
+    faulthandler.dump_traceback_later(GRID_TEST_SECONDS, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
 
 
 @pytest.mark.cuda
@@ -379,3 +393,138 @@ def test_semantic_gradient_reaches_the_generator_on_card():
             continue
         e = (card[k].cpu().double() - w.double()).norm() / w.double().norm()
         assert e <= 2e-2, (k, float(e))
+
+
+def _norm_cases(x, g2, b2, g1, b1):
+    """(name, affine, whole) of the three norms on x."""
+    return (("instance_norm", [None, None], False), ("adain", [g2, b2], False),
+            ("whole_layer_norm", [g1, b1], True))
+
+
+def _check_grid(x, g2, b2, g1, b1, dy, relu, dt, names=None):
+    """IN, AdaIN and the LN (or those of ``names``) through the grid
+    design, forward and backward, against the plain forward and closed-form
+    backward; the split design forced at the same shape against the same;
+    two grid runs bitwise equal; one grid launch per call each way."""
+    b, h, w, c = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rtol, atol = (1e-4, 1e-4) if dt == torch.float32 else (2**-7, 3e-2)
+    tol = 1e-4 if dt == torch.float32 else 2 * 2**-8
+    for name, aff, whole in _norm_cases(x, g2, b2, g1, b1):
+        if names is not None and name not in names:
+            continue
+        for tiles in (1, 2):
+            assert isinstance(norms.choose(b, h * w, c, x.element_size(),
+                                           x.data_ptr(), sms, tiles, whole),
+                              norms.GridPlan), (name, tiles)
+        plain = norms._plain_forward(name, x, *aff, relu)
+        grads_plain = norms._plain_backward(name, x, *aff, dy, relu)
+        runs = {}
+        for design in ("grid", "grid again", "split"):
+            split = design == "split"
+            norms.reset_launches()
+            y, stats = norms._launch(name, x, *aff, relu, whole, split=split)
+            grads = norms._launch_backward(name, x, stats, *aff, dy, relu,
+                                           whole, split=split)
+            torch.cuda.synchronize()
+            want = "split" if split else "grid"
+            assert norms.design_launches[name][want] == 1
+            assert norms.design_launches[name + "_bwd"][want] == 1
+            assert norms.launches[name] == norms.launches[name + "_bwd"] == 1
+            runs[design] = (y, stats, *grads)
+            assert y.dtype == dt and grads[0].dtype == dt
+            torch.testing.assert_close(y.float(), plain.float(), rtol=rtol,
+                                       atol=atol)
+            for got, want_g in zip(grads, grads_plain):
+                if want_g is None:
+                    assert got is None
+                    continue
+                scale = want_g.float().abs().max().item()
+                torch.testing.assert_close(got.float(), want_g.float(),
+                                           rtol=tol, atol=tol * scale)
+        for a, b_ in zip(runs["grid"], runs["grid again"]):
+            assert a is None or torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 2, 8, 16])
+@pytest.mark.parametrize("hwc", [(128, 128, 128), (256, 256, 64)])
+def test_grid_kernels_against_plain_on_card(hwc, b, dtype, deadline):
+    """IN, AdaIN and the LN at the path's 128^2 and 256^2 shapes, every batch
+    the path runs (2B for the wide decodes; from batch 8 on, and at batch 2
+    backward, more than the blocks keep on chip), ReLU on and off, AdaIN's
+    gamma and beta strided slices of a wider tensor: the grid design (one
+    launch each way) against the plain versions, the split design forced
+    at the same shape against the same, two runs bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(9)
+    shape = (b, *hwc)
+    x, g2, b2, g1, b1 = (t.cuda() for t in gap_inputs(shape, gen))
+    g2, b2 = _wide_affine(g2, b2)
+    dy = torch.randn(shape, generator=gen).to("cuda", dt)
+    for relu in (False, True):
+        _check_grid(x.to(dt), g2, b2, g1, b1, dy, relu, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 129, 131, 40), (2, 97, 211, 24),
+                                   (300, 4, 4, 8)])
+def test_grid_kernels_ragged_on_card(shape, dtype, deadline):
+    """Ragged rows over the segments, channel counts below 16-byte groups of
+    a block's threads, and more samples than blocks (each block takes
+    several whole samples; the LN only: IN and AdaIN take the cluster
+    design there), both designs, ReLU on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(10)
+    x, g2, b2, g1, b1 = (t.cuda() for t in gap_inputs(shape, gen))
+    g2, b2 = _wide_affine(g2, b2)
+    dy = torch.randn(shape, generator=gen).to("cuda", dt)
+    b, h, w, c = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # where IN and AdaIN run the cluster design, the LN alone is the grid's
+    names = (("whole_layer_norm",)
+             if norms.cluster_plan(b, h * w, c, 4, 0, sms) is not None
+             else None)
+    for relu in (False, True):
+        _check_grid(x.to(dt), g2, b2, g1, b1, dy, relu, dt, names)
+
+
+@pytest.mark.cuda
+def test_grid_norms_run_one_device_kernel_per_call(deadline):
+    """Through the public wrappers and autograd, as the generator calls
+    them: one IN at (1, 128, 128, 128) and one LN at (2, 256, 256, 64), each
+    one device kernel forward and one backward (no memset, no copy: dy is
+    contiguous), the grid kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(11)
+    cases = []
+    for shape, name in (((1, 128, 128, 128), "instance_norm"),
+                        ((2, 256, 256, 64), "whole_layer_norm")):
+        x, _, _, g1, b1 = (t.cuda() for t in gap_inputs(shape, gen))
+        x.requires_grad_(True)
+        aff = [] if name == "instance_norm" else [g1.requires_grad_(True),
+                                                  b1.requires_grad_(True)]
+        dy = torch.randn(shape, generator=gen).cuda()
+        cases.append((name, x, aff, dy))
+    for name, x, aff, dy in cases:
+        fn = getattr(norms, name)
+        fn(x, *aff, True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+            y = fn(x, *aff, True)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+            torch.autograd.grad(y, [x, *aff], dy)
+            torch.cuda.synchronize()
+        for prof, kernel in ((fwd, "norm_grid_fwd"), (bwd, "norm_grid_bwd")):
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            assert len(kernels) == 1 and kernel in kernels[0], (name, kernels)
