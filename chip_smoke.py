@@ -26,7 +26,9 @@ Phases, each raising on failure (exit code 1):
 4. the main path: the translate CLI on the card at the full width of
    configs/config_256.yaml with seeded random weights (a style image and 4
    content images), the kernels' launch counts of that run, and the same
-   translation on the CPU, which the card must match;
+   translation on the CPU, which the card must match; then the same
+   weights packed as the JAX package's bf16 inference .npz (written here
+   with numpy), translated from that file on the card and on the CPU;
 5. translation time per image at batch 1 and 8, TF32 off and on, and a
    profile of where a translation spends its device time at each batch;
 6. each backward kernel against the plain closed-form backward and against
@@ -40,22 +42,27 @@ Phases, each raising on failure (exit code 1):
    checkpoint is not in the repo) at (2, 256, 256, 3) on the card (TF32
    off) against the CPU, and the agreement of their pseudo-labels;
 8. the training path: configs/config_256.yaml as it is (semantic_w 3),
-   full width, seeded random weights, images and masks; 15 iterations in
+   full width, seeded random weights, images and masks, first with TF32
+   (f32 activations and operands) and then (8b) in bench.py's production
+   bf16 mode (bf16 conv operands and images, every norm kernel on a bf16
+   x, which the launch counts assert); 15 iterations in
    bench.py's cadence (12 dis steps, 3 fused dis+gen steps, 1
    classifier_sr step) at batch 1 and 8 with every loss finite,
    loss_sem_seg above 0, and the wrappers' launch counts asserted (the
-   segmenter runs no norm kernel); then training time at batch 1 and 8,
-   TF32 on: each step kind, ms per iteration over the 5-iteration cycle,
+   segmenter runs no norm kernel); then training time at batch 1 and 8:
+   each step kind, ms per iteration over the 5-iteration cycle,
    images/s as bench.py counts them, peak memory, a profile of one fused
    step (which asserts 84 one-launch norm kernels each way: a cluster
    kernel per AdaIN and (64, 64, 256) IN call, a grid kernel per other IN
-   and per LN call, and no split-design kernel), the wrappers' launches by
-   design, and the segmenter's share (its targets pass and its
+   and per LN call, and no split-design kernel, and times each of them
+   inside the step), the wrappers' launches by design, and the segmenter's
+   share (its targets pass and its
    loss forward and backward, timed and profiled apart: no weight-gradient
    kernel);
-9. one fused step's gradients on the card (TF32 off) against the CPU at
-   batch 1, with the semantic term, and the pseudo-label flips between the
-   two;
+9. one fused step's gradients at batch 1, with the semantic term, on the
+   card with TF32 off against the CPU, with TF32 on against float64, and in
+   bf16 against the CPU's bf16 and float64, and the pseudo-label flips of
+   each; then bench_torch.py at batch 8 and 30 iterations, bf16 and f32;
 10. the moments kernels (sample_sums, sample_affine) against their plain
    versions at every whole-LN probe shape, f32 and bf16, ReLU on and off,
    timed against the byte bound, the plain version and one library call;
@@ -553,7 +560,7 @@ def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
     gen.init(torch.Generator().manual_seed(SEED))
     torch.save({"2": gen.state_dict()}, tmp / "gen.pt")
     write_images(tmp, np.random.RandomState(SEED))
-    args = ["--config", str(CONFIG), "--checkpoint", str(tmp / "gen.pt"),
+    args = ["--checkpoint", str(tmp / "gen.pt"), "--config", str(CONFIG),
             "--input", str(tmp / "input"), "--style", str(tmp / "style.png")]
 
     parity_mode(True)
@@ -588,7 +595,71 @@ def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
     check(len(out_gpu) == N_IMAGES and finite and shapes == {(256, 256, 3)},
           "card outputs are not finite 256x256x3 images")
     check(max(errs) <= 1e-3, f"card and CPU differ by {max(errs)}")
+    packed_phase(translate, gen, args[2:], tmp)
     return conf, by_design, tmp / "gen.pt"
+
+
+def bf16_bits(a) -> np.ndarray:
+    """float32 → the uint16 bits of its bfloat16 rounding (to nearest,
+    ties to even), as the JAX package stores a bf16 leaf."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def write_packed(path: Path, tree):
+    """The JAX package's packed inference file (save_inference_params,
+    quant bf16) of a JAX param tree, written with numpy: a JSON manifest as
+    uint8 and one array per leaf, the kernels as bf16 bits."""
+    from munit_tpu_torch.io.weights import PACKED_MAGIC
+
+    def flat(t, prefix=""):
+        for k, v in t.items():
+            key = f"{prefix}/{k}" if prefix else k
+            yield from flat(v, key) if isinstance(v, dict) else [(key, v)]
+
+    arrays, keys = {}, {}
+    for i, (key, v) in enumerate(sorted(flat(tree))):
+        name = f"a{i}"
+        if v.ndim >= 2:
+            arrays[name] = bf16_bits(v)
+            keys[key] = {"name": name, "dtype": "bfloat16"}
+        else:
+            arrays[name] = np.asarray(v, np.float32)
+            keys[key] = {"name": name, "dtype": "float32"}
+    arrays["__manifest__"] = np.frombuffer(json.dumps(
+        {"magic": PACKED_MAGIC, "keys": keys}).encode(), np.uint8)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def packed_phase(translate, gen, args, tmp: Path):
+    """The translate CLI from a bf16-packed inference .npz of the same
+    weights, on the card and on the CPU: the loaded weights are the bf16
+    roundings of the originals, and the two translations agree."""
+    from munit_tpu_torch.io.weights import (load_reference_checkpoint,
+                                            to_jax_params)
+    sd = gen.state_dict()
+    path = tmp / "gen_packed.npz"
+    write_packed(path, to_jax_params(sd))
+    loaded = load_reference_checkpoint(str(path))
+    check(set(loaded) == set(sd), "packed checkpoint keys differ")
+    weight_err = max(float((loaded[k] - sd[k].to(torch.bfloat16).float()
+                            if sd[k].dim() >= 2 else loaded[k] - sd[k])
+                           .abs().max()) for k in sd)
+    parity_mode(True)
+    out = {dev: translate.main(["--checkpoint", str(path)] + args
+                               + ["--output_folder", str(tmp / f"p_{dev}"),
+                                  "--device", dev])
+           for dev in ("cuda", "cpu")}
+    errs = [float(np.abs(g - c).max()) for g, c in zip(out["cuda"], out["cpu"])]
+    finite = all(np.isfinite(o).all() for o in out["cuda"])
+    emit(phase="translate_packed", quant="bf16", file_mb=path.stat().st_size / 2**20,
+         weights_vs_bf16_rounding=weight_err, max_abs_err=max(errs), tol=1e-3,
+         finite=finite)
+    check(weight_err == 0.0, f"packed weights off their bf16 rounding by "
+                             f"{weight_err}")
+    check(len(errs) == N_IMAGES and finite, "packed translation not finite")
+    check(max(errs) <= 1e-3, f"packed: card and CPU differ by {max(errs)}")
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1003,6 +1074,12 @@ def step_launches(conf):
 # ~40 layers; phase 9 also prints each float32 run's error against a
 # float64 CPU run, the yardstick for this tolerance.
 GRAD_TOL = 2e-2
+# The bf16 leg: the card's bf16 gradients against float64 within this
+# factor of the CPU's bf16 gradients against float64 (worst and median
+# leaf). bf16 rounding moves ReLU masks and L1 signs, so two bf16 runs in
+# different summation orders differ by about as much as each differs from
+# float64.
+BF16_VS_CPU = 1.5
 
 
 def cadence(conf, iters):
@@ -1038,13 +1115,32 @@ def new_trainer(MUNITTrainer, conf, device):
     return tr
 
 
-def training_phase(norms, MUNITTrainer, train_steps, conf, b):
-    """15 iterations at batch b on the card (TF32 on), every loss finite,
-    the semantic loss above 0 in every gen step, the wrappers' launches as
-    the cadence predicts: the segmenter adds none."""
-    parity_mode(False)
+def set_numerics(numerics):
+    """The numerics of a run: "tf32_off" (parity: f32 operands and
+    activations, TF32 off), "tf32" (the same with TF32 on) or "bf16"
+    (bench.py's production mode: bf16 conv operands and activations)."""
+    from munit_tpu_torch.core import ops
+    ops.set_conv_compute(torch.bfloat16 if numerics == "bf16" else None)
+    parity_mode(numerics != "tf32")
+
+
+def numerics_inputs(batch, numerics):
+    """The images in bf16 for the bf16 mode (bench.py's BENCH_ACT_BF16);
+    the masks stay f32."""
+    if numerics != "bf16":
+        return batch
+    return [batch[0].bfloat16(), batch[1].bfloat16(), *batch[2:]]
+
+
+def training_phase(norms, MUNITTrainer, train_steps, conf, b,
+                   numerics="tf32"):
+    """15 iterations at batch b on the card in the given numerics, every
+    loss finite, the semantic loss above 0 in every gen step, the wrappers'
+    launches as the cadence predicts (the segmenter adds none), in bf16
+    every one of them on a bf16 x."""
+    set_numerics(numerics)
     tr = new_trainer(MUNITTrainer, conf, "cuda")
-    batch = train_inputs(b, SEED + b)
+    batch = numerics_inputs(train_inputs(b, SEED + b), numerics)
     torch.cuda.reset_peak_memory_stats()
     norms.reset_launches()
     t0 = time.perf_counter()
@@ -1052,6 +1148,7 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, copies = dict(norms.launches), dict(norms.dy_copies)
+    on_bf16 = dict(norms.bf16_launches)
     by_design = {k: dict(v) for k, v in norms.design_launches.items()}
     steps = cadence(conf, TRAIN_ITERS)
     want = expected_launches(norms, conf, steps)
@@ -1059,11 +1156,13 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b):
     values = {k: float(v) for m in metrics for k, v in m.items()}
     finite = all(np.isfinite(float(v)) for m in metrics for v in m.values())
     sem = [float(m["loss_sem_seg"]) for m in metrics if "loss_sem_seg" in m]
-    emit(phase="train_card", batch=b, iterations=TRAIN_ITERS, steps=steps,
-         semantic_w=conf["semantic_w"],
+    want_bf16 = want if numerics == "bf16" else {k: 0 for k in want}
+    emit(phase="train_card", batch=b, numerics=numerics,
+         iterations=TRAIN_ITERS, steps=steps, semantic_w=conf["semantic_w"],
          seconds_incl_first_calls=wall, launches=launches, expected=want,
          launches_by_design=by_design, expected_by_design=want_design,
-         dy_copies=copies, finite=finite, loss_sem_seg=sem,
+         launches_on_bf16_x=on_bf16, dy_copies=copies, finite=finite,
+         loss_sem_seg=sem,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
          losses_first={k: float(v) for k, v in metrics[4].items()},
          losses_last={k: float(v) for k, v in metrics[-1].items()})
@@ -1073,6 +1172,9 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b):
     check(launches == want, f"batch {b}: launches {launches}, want {want}")
     check(by_design == want_design,
           f"batch {b}: launches by design {by_design}, want {want_design}")
+    check(on_bf16 == want_bf16,
+          f"batch {b} {numerics}: launches on bf16 x {on_bf16}, want "
+          f"{want_bf16}")
     return tr, batch, by_design
 
 
@@ -1088,55 +1190,122 @@ def leaf_errors(got, want, zero):
     return sorted(rows, reverse=True)
 
 
+def fused_grads(MUNITTrainer, conf, batch, device, numerics="tf32_off",
+                f64=False):
+    """One fused step's gradients (dis_gen_grads) of a freshly seeded
+    trainer on ``device`` in the given numerics ("tf32_off", "tf32",
+    "bf16"), with its pseudo-labels: ({name: CPU tensor}, labels, the
+    trainer, seconds)."""
+    set_numerics(numerics)
+    tr = new_trainer(MUNITTrainer, conf, device)
+    b = numerics_inputs([t.to(device) for t in batch], numerics)
+    if f64:
+        for net in (tr.gen.module, tr.dis_a, tr.dis_b, tr.classifier_sr_a,
+                    tr.classifier_sr_b, tr.segmenter):
+            net.double()
+        b = [t.double() for t in b]
+    with torch.no_grad():
+        labels = [t.cpu() for t in tr._semantic_targets(*b[:2])]
+    t0 = time.perf_counter()
+    gd, gg = tr.dis_gen_grads(*b)
+    grads = {k: v.cpu() for k, v in {**gd, **gg}.items()}
+    seconds = time.perf_counter() - t0
+    set_numerics("tf32_off")
+    return grads, labels, tr, seconds
+
+
+def error_summary(got, want, zero):
+    rows = leaf_errors(got, want, zero)
+    return {"max_rel_l2": rows[0][0], "worst_leaf": rows[0][2],
+            "median_rel_l2": float(np.median([r[0] for r in rows])),
+            "max_rel_maxabs": max(r[1] for r in rows)}
+
+
+def flips(a, b):
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
 def grads_phase(MUNITTrainer, conf, removed_by_norm):
     """One fused step's gradients (dis_gen_grads) at batch 1 with the
-    semantic term, card with TF32 off against the CPU, leaf by leaf: the
-    relative L2 error within GRAD_TOL; the conv biases that a norm removes
-    (exact gradient 0) below 1e-5 of the net's largest gradient. Both
-    float32 runs are also held against a float64 CPU run. The pseudo-labels
-    of the two runs are compared too: a flip moves one pixel's CE term."""
-    parity_mode(True)
-    batch = train_inputs(1, SEED + 100)
-    card = new_trainer(MUNITTrainer, conf, "cuda")
-    with torch.no_grad():
-        t_card = [t.cpu() for t in card._semantic_targets(*batch[:2])]
-    gd, gg = card.dis_gen_grads(*batch)
-    got = {k: v.cpu() for k, v in {**gd, **gg}.items()}
-    del card, gd, gg
-    cpu = new_trainer(MUNITTrainer, conf, "cpu")
-    with torch.no_grad():
-        t_cpu = cpu._semantic_targets(*[t.cpu() for t in batch[:2]])
-    flips = sum(int((a != b).sum()) for a, b in zip(t_card, t_cpu))
-    t0 = time.perf_counter()
-    wd, wg = cpu.dis_gen_grads(*[t.cpu() for t in batch])
-    cpu_s = time.perf_counter() - t0
-    want = {**wd, **wg}
-    for net in (cpu.gen.module, cpu.dis_a, cpu.dis_b, cpu.classifier_sr_a,
-                cpu.classifier_sr_b, cpu.segmenter):
-        net.double()
-    rd, rg = cpu.dis_gen_grads(*[t.cpu().double() for t in batch])
-    ref = {**rd, **rg}
+    semantic term, leaf by leaf, in three numerics on the card:
+    - TF32 off against the CPU in float32: the relative L2 error within
+      GRAD_TOL; the conv biases that a norm removes (exact gradient 0)
+      below 1e-5 of the net's largest gradient;
+    - TF32 on, against the float64 CPU run and the TF32-off card run: its
+      worst leaf against float64 no larger than the bf16 leg's (TF32 keeps
+      three more mantissa bits);
+    - bf16 (bench.py's production mode) against the port's bf16 mode on
+      the CPU and against float64: the card no farther from float64 than
+      BF16_VS_CPU times the CPU's bf16 run, on the worst leaf and the
+      median one. A bf16 run's error against float64 is the mode's own; it
+      has no bound.
+    Every float32 run is held against a float64 CPU run, and each leg's
+    pseudo-labels against the CPU's in the same numerics: a flip moves one
+    pixel's CE term."""
+    batch = [t.cpu() for t in train_inputs(1, SEED + 100)]
+    runs = {}
+    for name, device, numerics in (("card", "cuda", "tf32_off"),
+                                   ("card_tf32", "cuda", "tf32"),
+                                   ("card_bf16", "cuda", "bf16"),
+                                   ("cpu", "cpu", "tf32_off"),
+                                   ("cpu_bf16", "cpu", "bf16")):
+        grads, labels, tr, seconds = fused_grads(MUNITTrainer, conf, batch,
+                                                 device, numerics)
+        runs[name] = {"grads": grads, "labels": labels, "seconds": seconds}
+        del tr
+        torch.cuda.empty_cache()
+    grads, labels, cpu, _ = fused_grads(MUNITTrainer, conf, batch, "cpu",
+                                        f64=True)
+    runs["cpu_f64"] = {"grads": grads, "labels": labels}
     zero = removed_by_norm(cpu)
+    got, want, ref = (runs[k]["grads"] for k in ("card", "cpu", "cpu_f64"))
     net = max(v.abs().max().item() for v in want.values())
     worst_zero = max(max(got[k].abs().max().item(), want[k].abs().max().item())
                      for k in zero) / net
-    summary = {}
-    for name, a, b in (("card_vs_cpu", got, want), ("card_vs_f64", got, ref),
-                       ("cpu_vs_f64", want, ref)):
-        rows = leaf_errors(a, b, zero)
-        summary[name] = {
-            "max_rel_l2": rows[0][0], "worst_leaf": rows[0][2],
-            "median_rel_l2": float(np.median([r[0] for r in rows])),
-            "max_rel_maxabs": max(r[1] for r in rows)}
+    summary = {name: error_summary(runs[a]["grads"], runs[b]["grads"], zero)
+               for name, a, b in (("card_vs_cpu", "card", "cpu"),
+                                  ("card_vs_f64", "card", "cpu_f64"),
+                                  ("cpu_vs_f64", "cpu", "cpu_f64"))}
     emit(phase="grads_card_vs_cpu", batch=1, leaves=len(want),
-         semantic_w=conf["semantic_w"], pseudo_label_flips=flips,
-         pseudo_labels=sum(t.numel() for t in t_cpu),
+         semantic_w=conf["semantic_w"],
+         pseudo_label_flips=flips(runs["card"]["labels"],
+                                  runs["cpu"]["labels"]),
+         pseudo_labels=sum(t.numel() for t in runs["cpu"]["labels"]),
          tol_rel_l2=GRAD_TOL, norm_removed_biases=len(zero),
-         their_max_over_net=worst_zero, their_tol=1e-5, cpu_f32_seconds=cpu_s,
-         **summary)
+         their_max_over_net=worst_zero, their_tol=1e-5,
+         cpu_f32_seconds=runs["cpu"]["seconds"], **summary)
     worst = summary["card_vs_cpu"]
     check(worst["max_rel_l2"] <= GRAD_TOL, f"card grads differ from CPU: {worst}")
     check(worst_zero <= 1e-5, f"norm-removed bias grads: {worst_zero}")
+
+    legs = {
+        "tf32": {
+            "vs_f64": error_summary(runs["card_tf32"]["grads"], ref, zero),
+            "vs_tf32_off": error_summary(runs["card_tf32"]["grads"], got,
+                                         zero),
+            "pseudo_label_flips_vs_cpu": flips(runs["card_tf32"]["labels"],
+                                               runs["cpu"]["labels"])},
+        "bf16": {
+            "vs_cpu_bf16": error_summary(runs["card_bf16"]["grads"],
+                                         runs["cpu_bf16"]["grads"], zero),
+            "vs_f64": error_summary(runs["card_bf16"]["grads"], ref, zero),
+            "cpu_bf16_vs_f64": error_summary(runs["cpu_bf16"]["grads"], ref,
+                                             zero),
+            "pseudo_label_flips_vs_cpu_bf16": flips(
+                runs["card_bf16"]["labels"], runs["cpu_bf16"]["labels"]),
+            "pseudo_label_flips_vs_cpu_f32": flips(
+                runs["card_bf16"]["labels"], runs["cpu"]["labels"]),
+            "cpu_bf16_seconds": runs["cpu_bf16"]["seconds"]},
+    }
+    emit(phase="grads_legs", batch=1, bf16_vs_cpu_factor=BF16_VS_CPU, **legs)
+    tf32, bf16 = legs["tf32"]["vs_f64"], legs["bf16"]
+    check(tf32["max_rel_l2"] <= bf16["vs_f64"]["max_rel_l2"],
+          f"TF32-on worst leaf {tf32} above the bf16 leg's {bf16['vs_f64']}")
+    for key in ("max_rel_l2", "median_rel_l2"):
+        check(bf16["vs_f64"][key]
+              <= BF16_VS_CPU * bf16["cpu_bf16_vs_f64"][key],
+              f"card bf16 {key} against float64 {bf16['vs_f64'][key]}, the "
+              f"CPU's bf16 {bf16['cpu_bf16_vs_f64'][key]}")
     parity_mode(False)
 
 
@@ -1153,12 +1322,12 @@ def host_ms(fn, reps):
     return float(np.median(times)), times
 
 
-def train_time_phase(tr, batch, conf, b):
-    """Training time at batch b, TF32 on: each step kind, the 5-iteration
-    cycle (4 dis, 1 fused), images/s as bench.py counts them (batch x
-    iterations / seconds, the classifier_sr step included once per 15),
-    peak memory, and a profile of one fused step."""
-    parity_mode(False)
+def train_time_phase(tr, batch, conf, b, numerics="tf32"):
+    """Training time at batch b in the given numerics: each step kind, the
+    5-iteration cycle (4 dis, 1 fused), images/s as bench.py counts them
+    (batch x iterations / seconds, the classifier_sr step included once per
+    15), peak memory, and a profile of one fused step."""
+    set_numerics(numerics)
     x_a, x_b, m_a, m_b = batch
     lamb = conf["adaptation"]["dfeat_lambda"]
     reps = 5 if b == 1 else 3
@@ -1174,7 +1343,8 @@ def train_time_phase(tr, batch, conf, b):
     cycle_ms, rounds = host_ms(cycle, reps)
     per_it = cycle_ms / 5
     bench_ips = b * TRAIN_ITERS / ((3 * cycle_ms + cls_ms) / 1e3)
-    emit(phase="train_time", batch=b, tf32=True, ms_per_iteration=per_it,
+    emit(phase="train_time", batch=b, numerics=numerics,
+         ms_per_iteration=per_it,
          cycle_ms=cycle_ms, cycle_rounds_ms=rounds, dis_step_ms=dis_ms,
          fused_step_ms=fused_ms, classifier_sr_step_ms=cls_ms,
          images_per_s_cycle=b * 5 / (cycle_ms / 1e3),
@@ -1183,18 +1353,19 @@ def train_time_phase(tr, batch, conf, b):
          note="median of host-clock rounds, each ending in a synchronise")
     rows, wall = device_profile(
         lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), 3)
-    check_norm_kernels(rows, conf, b)
+    in_step = check_norm_kernels(rows, conf, b, numerics)
     busy = sum(r[0] for r in rows)
-    emit(phase="train_profile", batch=b, tf32=True, step="fused dis+gen",
+    emit(phase="train_profile", batch=b, numerics=numerics,
+         step="fused dis+gen",
          profiled_wall_ms=wall, unprofiled_ms=fused_ms,
          device_busy_ms=busy if rows else "not measured",
          device_idle_share=(1 - busy / fused_ms) if rows else "not measured",
          by_group_ms=grouped(rows),
          top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
               for r in rows[:15]])
-    seg = segmenter_split(tr, batch, b, reps, fused_ms, busy)
+    seg = segmenter_split(tr, batch, b, reps, fused_ms, busy, numerics)
     return {"ms_per_iteration": per_it, "images_per_s": bench_ips,
-            "cls_ms": cls_ms, "segmenter": seg}
+            "cls_ms": cls_ms, "segmenter": seg, "norm_kernels": in_step}
 
 
 # The kernel each design launches first, forward and backward: one per call
@@ -1204,11 +1375,12 @@ FIRST_KERNELS = {"cluster": ("norm_cluster_fwd", "norm_cluster_bwd"),
                  "split": ("norm_partials", "norm_bwd_partials")}
 
 
-def check_norm_kernels(rows, conf, b):
+def check_norm_kernels(rows, conf, b, numerics):
     """In a fused step's profile: one cluster kernel per AdaIN call and per
     IN call at the smallest resolution, each way; one grid kernel per other
     IN call and per LN call (step_launches' counts), each way; no split
-    kernel. That is one one-launch norm kernel per norm call each way."""
+    kernel. That is one one-launch norm kernel per norm call each way.
+    Returns each kernel's device ms per fused step and per call."""
     g = conf["gen"]
     fused = step_launches(conf)["fused"]
     enc = 1 + g["n_downsample"] + 2 * g["n_res"]
@@ -1217,29 +1389,33 @@ def check_norm_kernels(rows, conf, b):
             "grid": fused["instance_norm"] - small_in
             + fused["whole_layer_norm"],
             "split": 0}
-    got = {}
+    got, ms = {}, {}
     for design, kernels in FIRST_KERNELS.items():
         for kernel in kernels:
             got[kernel] = sum(r[2] for r in rows if kernel in r[1])
+            ms[kernel] = sum(r[0] for r in rows if kernel in r[1])
             check(got[kernel] == want[design],
                   f"batch {b} fused step: {got[kernel]} {kernel} launches, "
                   f"want {want[design]}")
     calls = fused["instance_norm"] + fused["adain"] + fused["whole_layer_norm"]
     check(want["cluster"] + want["grid"] == calls,
           f"batch {b}: {calls} norm calls a fused step, {want} one-launch")
-    emit(phase="train_norm_kernels", batch=b, per_fused_step=got,
-         expected=want, one_launch_kernels_each_way=calls)
+    per_call = {k: ms[k] / got[k] for k in got if got[k]}
+    emit(phase="train_norm_kernels", batch=b, numerics=numerics,
+         per_fused_step=got, expected=want, one_launch_kernels_each_way=calls,
+         ms_per_fused_step=ms, ms_per_call=per_call)
+    return {"launches": got, "ms": ms, "ms_per_call": per_call}
 
 
-def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms):
+def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms, numerics):
     """The segmenter's part of a fused step at batch b, timed and profiled
     apart: its targets pass over [x_a | x_b] (no gradient) and its loss
     pass over two translations with the backward to them. The frozen net
     must launch no weight-gradient kernel."""
     x_a, x_b, m_a, m_b = batch
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    fakes = [torch.rand(x_a.shape, generator=g, device="cuda") * 2 - 1
-             for _ in range(2)]
+    fakes = [(torch.rand(x_a.shape, generator=g, device="cuda") * 2 - 1)
+             .to(x_a.dtype) for _ in range(2)]
     targets = tr._semantic_targets(x_a, x_b)
 
     def loss_grad():
@@ -1259,7 +1435,7 @@ def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms):
            "device_busy_ms": busy,
            "device_share_of_fused_step": busy / fused_busy_ms
            if fused_busy_ms else "not measured"}
-    emit(phase="train_segmenter", batch=b, tf32=True, **out,
+    emit(phase="train_segmenter", batch=b, numerics=numerics, **out,
          wgrad_kernels=wgrad, dgrad_kernels=len(dgrad),
          by_group_ms=grouped(rows),
          top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
@@ -1267,6 +1443,40 @@ def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms):
          note="targets: one no-grad pass over 2B images; loss: one pass "
               "over 2B translations and its backward to them")
     check(not wgrad, f"the frozen segmenter launched wgrad kernels: {wgrad}")
+    return out
+
+
+# ---------------------------------------------------------- bench_torch
+
+
+BENCH_ENV = {"BENCH_BATCH": "8", "BENCH_ITERS": "30"}
+
+
+def bench_phase():
+    """bench_torch.py as a subprocess at batch 8 and 30 timed iterations,
+    in bf16 (its default) and in f32 (TF32 off): each must exit 0 and end
+    with its JSON line, echoed here."""
+    import os
+    out = {}
+    for numerics, knobs in (("bf16", {}),
+                            ("f32", {"BENCH_BF16": "0",
+                                     "BENCH_ACT_BF16": "0"})):
+        env = dict(os.environ, **BENCH_ENV, **knobs)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0,
+              f"bench_torch.py {numerics}: rc {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        line = json.loads(run.stdout.strip().splitlines()[-1])
+        check(line["numerics"] == numerics and line["value"] > 0,
+              f"bench_torch.py {numerics}: {line}")
+        emit(phase="bench_torch", knobs={**BENCH_ENV, **knobs},
+             seconds=wall, result=line,
+             stderr=run.stderr.strip().splitlines()[-8:])
+        out[numerics] = line
     return out
 
 
@@ -1517,14 +1727,15 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 name, design, mine, err,
                 replaces=REPLACES[name][0], also_replaces=REPLACES[name][1],
                 launches=launches[name][design],
-                launches_train=train_launches[name][design],
+                launches_train=train_launches["tf32"][name][design],
+                launches_train_bf16=train_launches["bf16"][name][design],
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
                     "call of the same function (IN and AdaIN: F.batch_norm "
                     "on the (1, B C, H, W) view); launches: translate run "
-                    "(phase 4), launches_train: 15 training iterations at "
-                    "batch 1 (phase 8)"))
+                    "(phase 4), launches_train(_bf16): 15 training "
+                    "iterations at batch 1 with TF32 (in bf16; phase 8)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -1533,11 +1744,12 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
             kernels.append(entry(
                 name + "_bwd", design, mine, bwd_err,
                 replaces=BWD_REPLACES[name], also_replaces=BWD_ALSO,
-                launches=train_launches[name + "_bwd"][design],
+                launches=train_launches["tf32"][name + "_bwd"][design],
+                launches_bf16=train_launches["bf16"][name + "_bwd"][design],
                 per="one fused dis+gen step's backward calls of this design "
                     "at batch 1, float32; split_ms: the split design's "
-                    "time for the same calls; launches: 15 training "
-                    "iterations at batch 1 (phase 8)"))
+                    "time for the same calls; launches(_bf16): 15 training "
+                    "iterations at batch 1 with TF32 (in bf16; phase 8)"))
     for row, name, probe, dname, replaces in PROBE_KERNELS:
         t = mom_times[(name, PROBE_SHAPES[0], dname)]
         kernels.append({
@@ -1640,15 +1852,17 @@ def main() -> int:
 
     train_conf = get_config(str(CONFIG))
     check(train_conf["semantic_w"] > 0, "config_256 trains with semantic_w")
-    train_launches = None
-    for b in BATCHES:
-        tr, batch, counts = training_phase(norms, MUNITTrainer, train_steps,
-                                           train_conf, b)
-        train_launches = train_launches or counts
-        train_time_phase(tr, batch, train_conf, b)
-        del tr, batch
-        torch.cuda.empty_cache()
+    train_launches = {}
+    for numerics in ("tf32", "bf16"):
+        for b in BATCHES:
+            tr, batch, counts = training_phase(
+                norms, MUNITTrainer, train_steps, train_conf, b, numerics)
+            train_launches.setdefault(numerics, counts)
+            train_time_phase(tr, batch, train_conf, b, numerics)
+            del tr, batch
+            torch.cuda.empty_cache()
     grads_phase(MUNITTrainer, train_conf, removed_by_norm)
+    bench_phase()
 
     parity_mode(True)
     mom_err, mom_times = moments_phase(moments)

@@ -36,15 +36,64 @@ def pad2d(x: torch.Tensor, padding: int, mode: str) -> torch.Tensor:
     return F.pad(x.unsqueeze(1), (0, 0, p, p, p, p), mode=mode).squeeze(1)
 
 
+# The conv numerics (``munit_tpu/core/ops.py::set_conv_compute``). Parity
+# mode (the default): operands as they come, and f32 convs without TF32.
+# Production training: bf16 operands, f32 accumulation, the output cast back
+# to the input's type; norms, losses and the optimizer stay f32.
+_CONV_DTYPE = None
+
+
+def set_conv_compute(dtype=None) -> None:
+    """Set the conv numerics for the process: None (parity) or
+    torch.bfloat16 (bf16 operands, f32 accumulate). Either way f32 convs
+    and matmuls run without TF32 on the card, the counterpart of the JAX
+    package's ``lax.Precision.HIGHEST``; in bf16 mode every conv is bf16
+    and only the small f32 matmuls (the style MLP, the classifier's fc)
+    remain."""
+    global _CONV_DTYPE
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"conv compute dtype must be None or bfloat16, "
+                         f"got {dtype}")
+    _CONV_DTYPE = dtype
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def conv_compute_dtype():
+    """The configured conv operand type (None in parity mode): what a
+    caller choosing an activation type keys off."""
+    return _CONV_DTYPE
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None = None, stride: int = 1,
            dilation: int = 1, padding: int = 0) -> torch.Tensor:
     """Conv of an NHWC input; weight is OIHW. VALID over an already-padded
     input by default; ``padding`` zero-pads inside the conv, the same as
-    ``conv2d(pad2d(x, padding, "zero"), ...)`` without the padded copy."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride, padding,
-                 dilation)
-    return y.permute(0, 2, 3, 1).contiguous()
+    ``conv2d(pad2d(x, padding, "zero"), ...)`` without the padded copy.
+
+    Under ``set_conv_compute(torch.bfloat16)`` both operands are cast to
+    bf16, the output is cast back to x's type and the bias is added in that
+    type, as the JAX package does: a bias in f32 would promote every bf16
+    activation downstream."""
+    if _CONV_DTYPE is None:
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride, padding,
+                     dilation)
+        return y.permute(0, 2, 3, 1).contiguous()
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(_CONV_DTYPE),
+                 weight.to(_CONV_DTYPE), None, stride, padding, dilation)
+    y = y.permute(0, 2, 3, 1).to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y.contiguous()
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor) -> torch.Tensor:
+    """``x @ kernel + bias`` as the JAX package computes it: a bf16 x with
+    f32 weights promotes to f32 (``nn.Linear`` would raise on the mix)."""
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    return F.linear(x.to(dtype), weight, bias)
 
 
 def upcast_f32(x: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,11 @@
 
 Every transform is linear (transposes and renames), so the same functions
 carry a JAX gradient tree into the port's names and layout.
-- ``load_reference_checkpoint``: a reference ``gen_*.pt`` (``{"2": sd}``) or
+- ``to_jax_params``: the inverse of ``from_jax_params``.
+- ``load_reference_checkpoint``: a reference ``gen_*.pt`` (``{"2": sd}``),
   an ``.npz`` with ``sd::``-prefixed entries (``tests/fixtures/
-  golden_gen.npz``) → ``state_dict``.
+  golden_gen.npz``) or the JAX package's packed inference ``.npz``
+  (``load_packed_params``) → ``state_dict``.
 - ``load_segmenter_checkpoint``: the reference segmenter ``.pth`` (a bare
   ``resnet34_8s.*`` state dict) or an ``sd::`` ``.npz`` → ``state_dict``.
 
@@ -28,6 +30,8 @@ Transforms: conv kernels HWIO → OIHW, dense kernels (in, out) → (out, in),
 
 from __future__ import annotations
 
+import json
+import re
 from typing import Dict
 
 import numpy as np
@@ -47,42 +51,103 @@ def _conv(p: dict, key: str, sd: dict, bare: bool = False) -> None:
         sd[f"{key}.norm.beta"] = np.asarray(p["ln_beta"])
 
 
-def _res(p: dict, prefix: str, sd: dict) -> None:
-    for j in range(len(p)):
-        for c in range(2):
-            _conv(p[f"block_{j}"][f"conv_{c}"],
-                  f"{prefix}.model.{j}.model.{c}", sd)
+def _gen_layout(n_style: int, n_down: int, n_res: int, n_up: int,
+                n_mlp: int) -> list:
+    """(JAX tree path, port key prefix, conv) of every parameter group of
+    the dual generator: a conv group keeps its kernel and bias under
+    ``<prefix>.conv.*`` (and a LayerNorm's under ``<prefix>.norm.*``), a
+    bare one under ``<prefix>.*``."""
+    def res(net, prefix):
+        return [((net, "res", f"block_{j}", f"conv_{c}"),
+                 f"{prefix}.model.{j}.model.{c}", True)
+                for j in range(n_res) for c in range(2)]
+
+    out = [(("enc_style", f"layer_{i}"), f"enc_style.model.{i}", True)
+           for i in range(n_style)]
+    # enc_style.model.{n_style} is the paramless global average pool
+    out.append((("enc_style", "out_conv"), f"enc_style.model.{n_style + 1}",
+                False))
+    for net in ("enc1_content", "enc2_content"):
+        out += [((net, f"layer_{i}"), f"{net}.model.{i}", True)
+                for i in range(n_down + 1)]
+        out += res(net, f"{net}.model.{n_down + 1}")
+    for net in ("dec1", "dec2"):
+        out += res(net, f"{net}.model.0")
+        # dec.model.{2i + 1} is the paramless upsample
+        out += [((net, f"up_{i}"), f"{net}.model.{2 * i + 2}", True)
+                for i in range(n_up)]
+        out.append(((net, "out_conv"), f"{net}.model.{2 * n_up + 1}", True))
+    for net in ("mlp1", "mlp2"):
+        out += [((net, f"fc_{i}"), f"{net}.model.{i}.fc", False)
+                for i in range(n_mlp)]
+    return out
+
+
+_LEAVES = {"kernel": "weight", "bias": "bias", "ln_gamma": "gamma",
+           "ln_beta": "beta"}
+
+
+def _port_key(prefix: str, conv: bool, leaf: str) -> str:
+    if leaf.startswith("ln_"):
+        return f"{prefix}.norm.{_LEAVES[leaf]}"
+    return f"{prefix}{'.conv' if conv else ''}.{_LEAVES[leaf]}"
+
+
+def _to_port(a) -> np.ndarray:
+    """JAX kernel layout → torch: HWIO → OIHW, (in, out) → (out, in)."""
+    a = np.asarray(a)
+    return np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+
+
+def _to_jax(a) -> np.ndarray:
+    a = np.asarray(a)
+    return np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
 
 
 def from_jax_params(tree) -> StateDict:
     """Dual-generator (gen_state 1) JAX params → the port's state_dict.
     Depths (downsamplings, res blocks, MLP blocks) are read off the tree."""
+    layout = _gen_layout(len(tree["enc_style"]) - 1,
+                         len(tree["enc1_content"]) - 2,
+                         len(tree["enc1_content"]["res"]),
+                         len(tree["dec1"]) - 2, len(tree["mlp1"]))
     sd: dict = {}
-    style = tree["enc_style"]
-    n_conv = len(style) - 1                       # layer_* and out_conv
-    for i in range(n_conv):
-        _conv(style[f"layer_{i}"], f"enc_style.model.{i}", sd)
-    # model.{n_conv} is the paramless global average pool
-    _conv(style["out_conv"], f"enc_style.model.{n_conv + 1}", sd, bare=True)
-    for name in ("enc1_content", "enc2_content"):
-        p = tree[name]
-        nd = len(p) - 2                           # layer_0..layer_nd, res
-        for i in range(nd + 1):
-            _conv(p[f"layer_{i}"], f"{name}.model.{i}", sd)
-        _res(p["res"], f"{name}.model.{nd + 1}", sd)
-    for name in ("dec1", "dec2"):
-        p = tree[name]
-        nu = len(p) - 2                           # res, up_*, out_conv
-        _res(p["res"], f"{name}.model.0", sd)
-        for i in range(nu):                       # model.{2i+1}: upsample
-            _conv(p[f"up_{i}"], f"{name}.model.{2 * i + 2}", sd)
-        _conv(p["out_conv"], f"{name}.model.{2 * nu + 1}", sd)
-    for name in ("mlp1", "mlp2"):
-        p = tree[name]
-        for i in range(len(p)):
-            sd[f"{name}.model.{i}.fc.weight"] = np.asarray(p[f"fc_{i}"]["kernel"]).T
-            sd[f"{name}.model.{i}.fc.bias"] = np.asarray(p[f"fc_{i}"]["bias"])
+    for path, prefix, conv in layout:
+        node = tree
+        for part in path:
+            node = node[part]
+        for leaf, v in node.items():
+            sd[_port_key(prefix, conv, leaf)] = (
+                _to_port(v) if leaf == "kernel" else np.asarray(v))
     return _tensors(sd)
+
+
+def to_jax_params(sd) -> dict:
+    """The port's dual-generator state_dict → the JAX package's param tree
+    (nested dicts of float32 numpy arrays): the inverse of
+    ``from_jax_params``. Depths are read off the keys."""
+    def count(pattern):
+        return sum(1 for k in sd if re.fullmatch(pattern, k))
+
+    n_down = count(r"enc1_content\.model\.\d+\.conv\.weight") - 1
+    layout = _gen_layout(
+        count(r"enc_style\.model\.\d+\.conv\.weight"), n_down,
+        count(rf"enc1_content\.model\.{n_down + 1}\.model\.\d+\.model\.0"
+              r"\.conv\.weight"),
+        count(r"dec1\.model\.\d+\.norm\.gamma"),
+        count(r"mlp1\.model\.\d+\.fc\.weight"))
+    tree: dict = {}
+    for path, prefix, conv in layout:
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        for leaf in _LEAVES:
+            key = _port_key(prefix, conv, leaf)
+            if key in sd:
+                v = np.asarray(torch.as_tensor(sd[key]).detach().cpu().float())
+                node[leaf] = np.ascontiguousarray(
+                    _to_jax(v) if leaf == "kernel" else v)
+    return tree
 
 
 def from_jax_dis(tree) -> StateDict:
@@ -175,13 +240,62 @@ def drop_adain_buffers(sd: dict) -> dict:
             if not k.endswith(("norm.running_mean", "norm.running_var"))}
 
 
+# The JAX package's packed inference file (``munit_tpu/io/checkpoint.py::
+# save_inference_params``): a ``__manifest__`` entry (the uint8 bytes of a
+# JSON object {"magic", "keys"}) maps each "/"-joined param path to its array
+# ``a<i>`` and the type it was stored in: "bfloat16" as the uint16 bits,
+# "int8" with a float32 scale per last-axis channel, else as it is.
+PACKED_MAGIC = "munit_tpu-inference-v1"
+
+
+def load_packed_params(path: str) -> dict:
+    """A packed inference ``.npz`` → the JAX param tree, dequantized to
+    float32 numpy arrays (``load_inference_params`` of the JAX package)."""
+    with np.load(path) as z:
+        manifest = json.loads(bytes(z["__manifest__"]).decode())
+        if manifest.get("magic") != PACKED_MAGIC:
+            raise ValueError(f"{path}: manifest magic "
+                             f"{manifest.get('magic')!r}, expected "
+                             f"{PACKED_MAGIC!r}")
+        tree: dict = {}
+        for key, ent in manifest["keys"].items():
+            v = z[ent["name"]]
+            if ent["dtype"] == "bfloat16":
+                v = (v.astype(np.uint32) << 16).view(np.float32)
+            elif ent["dtype"] == "int8":
+                v = v.astype(np.float32) * z[ent["scale"]]
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.asarray(v, np.float32)
+    return tree
+
+
+def _load_npz(path: str) -> StateDict:
+    """An ``.npz`` of ``sd::`` entries or a packed inference file →
+    state_dict; anything else raises, naming both formats."""
+    with np.load(path) as blob:
+        files = blob.files
+        sd = {k[4:]: torch.from_numpy(blob[k]) for k in files
+              if k.startswith("sd::")}
+    if sd:
+        return sd
+    if "__manifest__" in files:
+        return from_jax_params(load_packed_params(path))
+    raise ValueError(
+        f"{path}: neither an .npz of 'sd::' state_dict entries nor a packed "
+        f"inference file (a '__manifest__' with magic {PACKED_MAGIC!r}, "
+        "from munit_tpu's save_inference_params)")
+
+
 def load_reference_checkpoint(path: str) -> StateDict:
-    """A reference ``gen_*.pt`` ({"2": sd}) or an ``.npz`` of ``sd::``
-    entries → the port's state_dict (CPU tensors)."""
+    """A reference ``gen_*.pt`` ({"2": sd}), an ``.npz`` of ``sd::``
+    entries or the JAX package's packed inference ``.npz`` (bf16 or int8
+    weights, dequantized to float32) → the port's state_dict (CPU
+    tensors)."""
     if str(path).endswith(".npz"):
-        with np.load(path) as blob:
-            sd = {k[4:]: torch.from_numpy(blob[k]) for k in blob.files
-                  if k.startswith("sd::")}
+        sd = _load_npz(path)
     else:
         blob = torch.load(path, map_location="cpu", weights_only=True)
         if "2" not in blob:

@@ -7,7 +7,8 @@ version: the forward of ``munit_tpu_torch.core.ops`` and the closed-form
 backward below, which mirrors the JAX package's rules. On a CUDA tensor it
 launches the CUDA kernels of ``csrc/norms.cu`` on the current stream,
 forward and backward, or raises: there is no fallback. Each forward launch adds one to
-``launches[<wrapper>]``, each backward launch to ``launches[<wrapper>_bwd]``.
+``launches[<wrapper>]``, each backward launch to ``launches[<wrapper>_bwd]``;
+``bf16_launches`` counts those of them on a bf16 x.
 
 | wrapper            | replaces                                               |
 | ------------------ | ------------------------------------------------------ |
@@ -61,13 +62,16 @@ DESIGNS = ("cluster", "grid", "split")
 # the same split by design.
 launches = {k: 0 for n in NAMES for k in (n, n + "_bwd")}
 design_launches = {k: {d: 0 for d in DESIGNS} for k in launches}
+# Of those, the launches on a bf16 x.
+bf16_launches = {k: 0 for k in launches}
 # Backward calls whose incoming gradient was not contiguous NHWC and was
 # copied before the kernels read it.
 dy_copies = {n: 0 for n in NAMES}
 
 
 def reset_launches() -> None:
-    for d in (launches, dy_copies, *design_launches.values()):
+    for d in (launches, bf16_launches, dy_copies,
+              *design_launches.values()):
         for k in d:
             d[k] = 0
 
@@ -426,6 +430,7 @@ def _launch(name, x, gamma, beta, relu, whole, split=False):
                 int(whole), int(relu), ops.EPS, _stream(x))
     _raise_on(name, lib, err)
     launches[name] += 1
+    bf16_launches[name] += bf16
     design_launches[name][design] += 1
     return y, stats
 
@@ -488,6 +493,7 @@ def _launch_backward(name, x, stats, gamma, beta, dy, relu, whole,
                 vec, int(whole), int(relu), _stream(x))
     _raise_on(name, lib, err)
     launches[name + "_bwd"] += 1
+    bf16_launches[name + "_bwd"] += bf16
     design_launches[name + "_bwd"][design] += 1
     if gamma is None:
         return dx, None, None

@@ -1,6 +1,10 @@
 """The training losses, on NHWC tensors: counterparts of
 ``munit_tpu/losses/losses.py`` (reference trainer.py:279-305, 638-667,
-706-771, networks.py:79-115). Losses compute in at least float32.
+706-771, networks.py:79-115). The reconstruction and GAN losses upcast to
+at least float32; the classifier and cross-entropy losses work in their
+input's type, as the JAX package's do (in bf16 training both inputs are
+f32 already: the classifier's batch norm and the segmenter's f32 input
+promote them).
 """
 
 from __future__ import annotations
@@ -73,11 +77,11 @@ def classifier_sr_loss(out_a: torch.Tensor, out_b: torch.Tensor,
 
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy over every pixel (B·H·W). logits (..., C)
-    with the classes last (NHWC), labels (...) integer."""
+    """Mean softmax cross-entropy over every pixel (B·H·W), in the logits'
+    type, as the JAX package takes it. logits (..., C) with the classes
+    last (NHWC), labels (...) integer."""
     c = logits.shape[-1]
-    return F.cross_entropy(upcast_f32(logits).reshape(-1, c),
-                           labels.reshape(-1).long())
+    return F.cross_entropy(logits.reshape(-1, c), labels.reshape(-1).long())
 
 
 def semantic_seg_loss_masked(logits: torch.Tensor, target: torch.Tensor,
@@ -90,9 +94,8 @@ def semantic_seg_loss_masked(logits: torch.Tensor, target: torch.Tensor,
 
     logits (B, H, W, C); target (B, H, W) integer; mask (B, H, W) in
     {0, 1}."""
-    m = upcast_f32(mask)
     m_long = mask.long()
     relabelled = (1 - m_long) * target.long() + m_long * num_classes
-    masked = upcast_f32(logits) * (1.0 - m)[..., None]
-    return cross_entropy_loss(torch.cat([masked, m[..., None]], dim=-1),
+    masked = logits * (1.0 - mask)[..., None]
+    return cross_entropy_loss(torch.cat([masked, mask[..., None]], dim=-1),
                               relabelled)

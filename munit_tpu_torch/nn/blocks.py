@@ -2,7 +2,8 @@
 
 Counterparts of ``munit_tpu/nn/blocks.py`` (reference networks.py):
 - ConvBlock   ≙ Conv2dBlock (networks.py:627-701): pad → conv → norm → act.
-- LinearBlock (networks.py:704-749): linear → act.
+- LinearBlock (networks.py:704-749): linear → act; a bf16 input promotes
+  to f32 against the f32 weights, as ``x @ kernel + bias`` does in JAX.
 - ResBlock    (networks.py:603-624): two 3x3 conv blocks and the identity;
   the second conv block has no activation.
 - MLP         (networks.py:583-597): linear blocks, linear output.
@@ -81,7 +82,7 @@ class LinearBlock(nn.Module):
         self.act = ops.activation(activ)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.fc(x))
+        return self.act(ops.linear(x, self.fc.weight, self.fc.bias))
 
 
 class ResBlock(nn.Module):

@@ -29,7 +29,9 @@ BN_EPS = 1e-5
 
 
 class BatchNorm(nn.Module):
-    """Train-mode batch norm over (B, H, W) of an NHWC tensor."""
+    """Train-mode batch norm over (B, H, W) of an NHWC tensor. The output
+    takes the promoted type of x and the parameters, as flax's does: a bf16
+    x with f32 scale and shift gives f32."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -47,7 +49,7 @@ class BatchNorm(nn.Module):
                 self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
                 self.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)
         y = (xf - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias
-        return y.to(x.dtype)
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 
 
 class _Downsample(nn.Module):
@@ -102,7 +104,8 @@ class DomainClassifier(nn.Module):
         x = ops.max_pool(x, 2, 2)
         x = self.BasicBlock2(x, update_stats)
         x = ops.window_avg_pool(x, 16)
-        return self.fc(x.reshape(x.shape[0], -1))
+        return ops.linear(x.reshape(x.shape[0], -1), self.fc.weight,
+                          self.fc.bias)
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded init as the JAX package's: N(0, 0.02) convs and fc weight,

@@ -167,9 +167,12 @@ class ResNet34_8s(nn.Module):
 
 
 def imagenet_normalize(img01: torch.Tensor) -> torch.Tensor:
-    """[0, 1] NHWC → ImageNet normalization (utils.py:159-174)."""
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=img01.dtype, device=img01.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=img01.dtype, device=img01.device)
+    """[0, 1] NHWC → ImageNet normalization (utils.py:159-174). The
+    constants are at least f32, as the JAX package's ``jnp.asarray`` ones
+    are, so a bf16 image becomes an f32 segmenter input."""
+    dtype = torch.promote_types(img01.dtype, torch.float32)
+    mean = torch.tensor(_IMAGENET_MEAN, dtype=dtype, device=img01.device)
+    std = torch.tensor(_IMAGENET_STD, dtype=dtype, device=img01.device)
     return (img01 - mean) / std
 
 

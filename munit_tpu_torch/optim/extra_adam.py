@@ -12,6 +12,8 @@ Semantics of the reference (extraadam.py:14-168, driven by trainer.py:
   Without a saved copy it is a plain Adam step.
 - The moments and the step count advance on both half-steps.
 - Weight decay is L2, added to the gradient.
+- Parameters, gradients and moments keep the parameters' type (f32, also
+  in bf16 training); a gradient of another type raises.
 - u = -lr * sqrt(1 - b2^t) / (1 - b1^t) * m / (sqrt(v) + eps): eps sits
   beside sqrt(v), not beside the bias-corrected sqrt(v) as in
   ``torch.optim.Adam``; the two differ on the first steps.
@@ -57,6 +59,11 @@ def extra_adam_update(grads: Dict[str, torch.Tensor], state: ExtraAdamState,
     names = list(params)
     p: List[torch.Tensor] = [params[k] for k in names]
     g: List[torch.Tensor] = [grads[k] for k in names]
+    for k, pk, gk in zip(names, p, g):
+        if gk.dtype != pk.dtype:
+            # bf16 training keeps parameters, gradients and moments in f32
+            raise TypeError(f"{k}: a {gk.dtype} gradient for a {pk.dtype} "
+                            "parameter")
     m = [state.mu[k] for k in names]
     v = [state.nu[k] for k in names]
     pc = [state.params_copy[k] for k in names]

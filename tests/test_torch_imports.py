@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of munit_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package munit_tpu."""
+"""The PyTorch port stands alone: no module of munit_tpu_torch, and neither
+chip_smoke.py nor bench_torch.py, imports jax, flax or the JAX package
+munit_tpu."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix()
                for p in (ROOT / "munit_tpu_torch").rglob("*.py"))
-FILES.append("chip_smoke.py")
+FILES += ["chip_smoke.py", "bench_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "munit_tpu")
 
 

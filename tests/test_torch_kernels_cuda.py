@@ -528,3 +528,96 @@ def test_grid_norms_run_one_device_kernel_per_call(deadline):
             kernels = [e.name for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
             assert len(kernels) == 1 and kernel in kernels[0], (name, kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [
+    ("instance_norm", (1, 256, 256, 64)), ("instance_norm", (2, 64, 64, 256)),
+    ("adain", (2, 64, 64, 256)), ("whole_layer_norm", (2, 128, 128, 128))])
+def test_bf16_wrappers_as_bf16_training_calls_them_on_card(name, shape):
+    """The wrappers as bf16 training calls them: a bf16 x, f32 gamma and
+    beta (AdaIN's as column slices of the style MLP's f32 output), a
+    contiguous bf16 dy. Forward and backward against the plain versions
+    (one bf16 ulp forward, two of the largest value backward), dx bf16 and
+    the affine gradients f32, one launch each way counted on a bf16 x, no
+    dy copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(4)
+    x, g2, b2, g1, b1 = gap_inputs(shape, gen)
+    x = x.to("cuda", torch.bfloat16)
+    g2, b2 = _wide_affine(g2.cuda(), b2.cuda())
+    g1, b1 = g1.cuda(), b1.cuda()
+    dy = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+    affine = {"instance_norm": [], "adain": [g2, b2],
+              "whole_layer_norm": [g1, b1]}[name]
+    fn = getattr(norms, name)
+    norms.reset_launches()
+    y, *got = _grads(lambda x, *a: fn(x, *a, True), x, affine, dy)
+    torch.cuda.synchronize()
+    plain = getattr(norms, name + "_plain")(x, *affine, True)
+    want = norms._plain_backward(name, x, *(affine or [None, None]), dy, True)
+    assert y.dtype == got[0].dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    torch.testing.assert_close(y.float(), plain.float(), rtol=2**-7,
+                               atol=3e-2)
+    for g, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=2 * 2**-8,
+                                   atol=2 * 2**-8 * scale)
+    for key in (name, name + "_bwd"):
+        assert norms.launches[key] == norms.bf16_launches[key] == 1, key
+    assert norms.dy_copies[name] == 0
+
+
+@pytest.mark.cuda
+def test_bf16_fused_step_on_card_matches_the_cpu():
+    """One bf16 fused step (bf16 conv operands and images) at small width,
+    card against the CPU: every gradient f32, every norm launch on a bf16
+    x; the gradients nearer the CPU's bf16 mode than the CPU's f32 one (a
+    bf16 run's rounding moves ReLU masks and L1 signs, so no per-leaf bound
+    holds between two summation orders: PERF.md); the fused step's losses
+    within 2e-2 of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from munit_tpu_torch.config import validate
+    from munit_tpu_torch.core import ops
+    from munit_tpu_torch.train.trainer import MUNITTrainer
+    from torch_port_util import small_train_spec, train_batch
+    conf = validate(small_train_spec())
+    batch = [torch.from_numpy(t) for t in train_batch(1)]
+    grads, losses = {}, {}
+    try:
+        for dev, mode in (("cpu", None), ("cpu", torch.bfloat16),
+                          ("cuda", torch.bfloat16)):
+            ops.set_conv_compute(mode)
+            tr = MUNITTrainer(conf, dev)
+            tr.init(torch.Generator().manual_seed(0))
+            x_a, x_b, m_a, m_b = (t.to(dev) for t in batch)
+            if mode is not None:
+                x_a, x_b = x_a.bfloat16(), x_b.bfloat16()
+            norms.reset_launches()
+            gd, gg = tr.dis_gen_grads(x_a, x_b, m_a, m_b)
+            g = {k: v.cpu() for k, v in {**gd, **gg}.items()}
+            assert all(v.dtype == torch.float32 for v in g.values())
+            grads[(dev, mode)] = g
+            losses[(dev, mode)] = {k: float(v) for k, v in
+                                   tr.dis_gen_update(x_a, x_b, m_a,
+                                                     m_b).items()}
+            if dev == "cuda":
+                assert norms.launches == norms.bf16_launches
+                assert norms.launches["adain_bwd"] > 0
+    finally:
+        ops.set_conv_compute(None)
+    card = grads[("cuda", torch.bfloat16)]
+
+    def dist(other):
+        num = sum(float((card[k] - other[k]).double().square().sum())
+                  for k in card)
+        return (num / sum(float(other[k].double().square().sum())
+                          for k in card)) ** 0.5
+
+    assert dist(grads[("cpu", torch.bfloat16)]) < dist(grads[("cpu", None)])
+    for k, v in losses[("cpu", torch.bfloat16)].items():
+        assert abs(losses[("cuda", torch.bfloat16)][k] - v) <= 2e-2 * max(
+            abs(v), 1e-3), k

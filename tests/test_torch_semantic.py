@@ -203,10 +203,19 @@ def _worst_leaf(got, want):
 class _ReluInputs:
     """Records the input of every F.relu and F.leaky_relu call while
     inside (the port's activations and the norms' fused ReLUs), so two runs
-    of one net can be compared sign by sign."""
+    of one net can be compared sign by sign, and the innermost module of a
+    watched net (``watch``) that made each call."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.modules, self._stack = [], [], []
+
+    def watch(self, prefix, net):
+        for name, m in net.named_modules():
+            if not any(True for _ in m.children()):
+                continue            # leaves (a Conv2d) call no activation
+            m.register_forward_pre_hook(
+                lambda m, a, n=f"{prefix}.{name}": self._stack.append(n))
+            m.register_forward_hook(lambda m, a, o: self._stack.pop() and None)
 
     def __enter__(self):
         self._saved = F.relu, F.leaky_relu
@@ -215,6 +224,7 @@ class _ReluInputs:
         def rec(fn):
             def wrapped(x, *a, **k):
                 self.calls.append(x.detach().double().clone())
+                self.modules.append(self._stack[-1] if self._stack else "?")
                 return fn(x, *a, **k)
             return wrapped
         F.relu, F.leaky_relu = rec(relu), rec(lrelu)
@@ -224,18 +234,63 @@ class _ReluInputs:
         F.relu, F.leaky_relu = self._saved
 
 
-def _sign_flips(calls32, calls64):
-    """[{call, shape, flips, at}] of the activation inputs whose sign
-    differs between two runs; ``at``: the largest |x| of the flipped
+def _sign_flips(calls32, calls64, modules):
+    """[{call, module, shape, flips, at}] of the activation inputs whose
+    sign differs between two runs; ``at``: the largest |x| of the flipped
     elements in the float64 run over that input's largest |x|."""
     out = []
     for i, (a, b) in enumerate(zip(calls32, calls64)):
         d = (a > 0) != (b > 0)
         if d.any():
-            out.append({"call": i, "shape": list(a.shape),
-                        "flips": int(d.sum()),
+            out.append({"call": i, "module": modules[i],
+                        "shape": list(a.shape), "flips": int(d.sum()),
                         "at": float(b[d].abs().max() / b.abs().max())})
     return out
+
+
+def op_accuracy(seed=0):
+    """Relative RMS error against float64 of each float32 op the
+    pre-activations come from, JAX's and the port's, on seeded inputs at the
+    small generator's shapes: the convs (XLA's against oneDNN's on the CPU)
+    and the norms (JAX's one-pass statistics, E[x^2] - mean^2 with a clamp,
+    against the port's two-pass ones)."""
+    from munit_tpu.core import ops as jops
+    from munit_tpu_torch.core import ops
+    rng = np.random.RandomState(seed)
+
+    def rms(a, ref):
+        return float(np.sqrt(np.mean((np.asarray(a, np.float64) - ref) ** 2)
+                             / np.mean(ref ** 2)))
+
+    rows = []
+    for h, cin, cout, k in ((38, 3, 16, 7), (18, 16, 32, 4), (10, 64, 64, 3),
+                            (36, 32, 16, 5)):
+        x = rng.randn(2, h, h, cin).astype(np.float32)
+        w = (rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(
+            np.float32)
+        wt = torch.from_numpy(w).permute(3, 2, 0, 1).contiguous()
+        ref = ops.conv2d(torch.from_numpy(x).double(), wt.double()).numpy()
+        rows.append({"op": f"conv {k}x{k} {cin}->{cout} at {h}px",
+                     "jax": rms(jops.conv2d(jnp.asarray(x), jnp.asarray(w)),
+                                ref),
+                     "port": rms(ops.conv2d(torch.from_numpy(x), wt), ref)})
+    for shape in ((2, 32, 32, 16), (2, 8, 8, 64)):
+        x = (rng.randn(*shape) * 3 + 1).astype(np.float32)
+        g2 = (rng.rand(shape[0], shape[-1]) + 0.5).astype(np.float32)
+        b2 = (rng.randn(shape[0], shape[-1]) * 0.5).astype(np.float32)
+        g1 = rng.rand(shape[-1]).astype(np.float32)
+        b1 = (rng.randn(shape[-1]) * 0.1).astype(np.float32)
+        for name, args in (("instance_norm", ()), ("adain", (g2, b2)),
+                           ("whole_layer_norm", (g1, b1))):
+            ref = getattr(ops, name)(torch.from_numpy(x).double(), *(
+                torch.from_numpy(a).double() for a in args)).numpy()
+            rows.append({
+                "op": f"{name} {shape}",
+                "jax": rms(getattr(jops, name)(jnp.asarray(x), *map(
+                    jnp.asarray, args)), ref),
+                "port": rms(getattr(ops, name)(torch.from_numpy(x), *map(
+                    torch.from_numpy, args)), ref)})
+    return rows
 
 
 def grad_seed_readings(seeds, semantic_ws=(0, 3)):
@@ -267,6 +322,11 @@ def grad_seed_readings(seeds, semantic_ws=(0, 3)):
                             tr.segmenter):
                     if net is not None:
                         net.to(dtype)
+                if dtype == torch.float32:
+                    for name in ("gen", "dis_a", "dis_b", "classifier_sr_a",
+                                 "classifier_sr_b"):
+                        net = getattr(tr, name)
+                        acts.watch(name, getattr(net, "module", net))
                 ports[dtype] = tr
             for seed in seeds:
                 yield _seed_row(jtr, ports, acts, seed, sw)
@@ -284,13 +344,13 @@ def _seed_row(jtr, ports, acts, seed, sw):
     want = {f"{d}.{k}": v.numpy() for d in ("a", "b")
             for k, v in from_jax_dis(gd[d]).items()}
     want.update({k: v.numpy() for k, v in from_jax_params(gg).items()})
-    got, calls = {}, {}
+    got, calls, modules = {}, {}, {}
     for dtype, tr in ports.items():
-        acts.calls = []
+        acts.calls, acts.modules = [], []
         rd, rg = tr.dis_gen_grads(*(torch.from_numpy(t).to(dtype)
                                     for t in batch))
         got[dtype] = {k: v.double().numpy() for k, v in {**rd, **rg}.items()}
-        calls[dtype] = acts.calls
+        calls[dtype], modules[dtype] = acts.calls, acts.modules
     f32, f64 = got[torch.float32], got[torch.float64]
     row = {"seed": seed, "semantic_w": sw}
     for name, a, b in (("jax32_vs_port32", f32, want),
@@ -298,8 +358,8 @@ def _seed_row(jtr, ports, acts, seed, sw):
                        ("port32_vs_port64", f32, f64)):
         err, leaf, over = _worst_leaf(a, b)
         row[name] = {"max": err, "leaf": leaf, "leaves_over_tol": over}
-    row["port32_vs_port64_sign_flips"] = _sign_flips(calls[torch.float32],
-                                                     calls[torch.float64])
+    row["port32_vs_port64_sign_flips"] = _sign_flips(
+        calls[torch.float32], calls[torch.float64], modules[torch.float32])
     return row
 
 
@@ -308,5 +368,7 @@ if __name__ == "__main__":
     import json
     import sys
     torch.set_num_threads(1)
+    for r in op_accuracy():
+        print(json.dumps(r), flush=True)
     for r in grad_seed_readings([int(s) for s in sys.argv[1:]] or range(8)):
         print(json.dumps(r), flush=True)
