@@ -68,7 +68,22 @@ Phases, each raising on failure (exit code 1):
    timed against the byte bound, the plain version and one library call;
 11. the whole-LN probes P1, P2 and P3 (munit_tpu_torch.tools.normprobe) at
    their full shapes with a short chain, each variant's time and error,
-   and the moments kernels' launches in each probe.
+   and the moments kernels' launches in each probe;
+12. the train CLI: `python -m munit_tpu_torch train` in a subprocess on a
+   copy of configs/config_256.yaml (bf16, semantic_w 3, full width) over 16
+   seeded 286x286 JPEGs per domain with PNG masks, 20 iterations: every
+   step logged and finite, loss_sem_seg above 0, the grids at 10 and 20,
+   index.html, snapshots at 10 and 20, the norm launches of the cadence
+   and the 8 sample grids by design, no PIL fallback; `translate` from the
+   step-20 snapshot; (b) resume at batch 1 in bf16 (extra_adam): 11
+   iterations, a checkpoint, a fresh trainer restored bit for bit and 9
+   more against two uninterrupted runs of 20 (within twice their
+   difference in the largest leaf), and the same resume with the anchor
+   flag dropped, which the bit-for-bit check must catch; (c) the loop's
+   images/s at batch 1 and 8 beside phase 8b's fixed-tensor time, the
+   device idle share of a fused step inside the loop, and the loader alone
+   at batch 8 (decode cache, no cache, and the native image ops, which
+   must run).
 Earlier lines are JSON objects. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
 checkout of the repo, it exits non-zero and prints no result.
@@ -1057,16 +1072,20 @@ def step_launches(conf):
     a decode 2 n_res AdaIN and n_downsample LN. A dis step encodes both
     domains and decodes one batch per domain; a fused step does that twice
     (the second encode and decode are the re-encode and the cycle) and runs
-    every norm backward; a classifier_sr step encodes both domains. At
-    config_256: 22 IN, 16 AdaIN, 4 LN; 44, 32, 8 each way; 22 IN."""
+    every norm backward; a classifier_sr step encodes both domains; a
+    sample grid encodes both and decodes four times. At config_256: 22 IN,
+    16 AdaIN, 4 LN; 44, 32, 8 each way; 22 IN; 22, 32, 8."""
     g = conf["gen"]
     enc = 1 + g["n_downsample"] + 2 * g["n_res"]
     dec = {"adain": 2 * g["n_res"], "whole_layer_norm": g["n_downsample"]}
     dis = {"instance_norm": 2 * enc, **{k: 2 * v for k, v in dec.items()}}
     fused = {k: 2 * v for k, v in dis.items()}
     fused.update({k + "_bwd": v for k, v in fused.items()})
+    # a sample grid (trainer.sample, guided): two content encodes and four
+    # decodes (two recons, two translations), forward only
+    sample = {"instance_norm": 2 * enc, **{k: 4 * v for k, v in dec.items()}}
     return {"dis": dis, "fused": fused,
-            "classifier_sr": {"instance_norm": 2 * enc}}
+            "classifier_sr": {"instance_norm": 2 * enc}, "sample": sample}
 
 
 # Card (TF32 off) against CPU, relative L2 error per gradient leaf. At full
@@ -1365,7 +1384,11 @@ def train_time_phase(tr, batch, conf, b, numerics="tf32"):
               for r in rows[:15]])
     seg = segmenter_split(tr, batch, b, reps, fused_ms, busy, numerics)
     return {"ms_per_iteration": per_it, "images_per_s": bench_ips,
-            "cls_ms": cls_ms, "segmenter": seg, "norm_kernels": in_step}
+            "cls_ms": cls_ms, "segmenter": seg, "norm_kernels": in_step,
+            "fused_idle_share": (1 - busy / fused_ms) if rows
+            else "not measured",
+            "fused_idle_share_profiled": (1 - busy / wall) if rows
+            else "not measured"}
 
 
 # The kernel each design launches first, forward and backward: one per call
@@ -1662,6 +1685,472 @@ def ln_device_times(moments, norms):
             del x
 
 
+# ---------------------------------------------------------------- phase 12
+
+CLI_ITERS = 20
+# config_256.yaml as it is but for these keys (and the data keys)
+CLI_KEYS = {"max_iter": CLI_ITERS, "snapshot_save_iter": 10,
+            "image_save_iter": 10, "image_display_iter": 5,
+            "display_size": 2, "num_workers": 8}
+DATA_IMAGES, DATA_SIZE = 16, 286   # per domain; 286 = 256 * 1.12
+# `python -m munit_tpu_torch <args>` in this process, then the norm
+# wrappers' launch counts and the image paths taken, into a JSON file
+CLI_RUNNER = """
+import json, runpy, sys
+from munit_tpu_torch.data import transforms
+from munit_tpu_torch.kernels import norms
+out, sys.argv = sys.argv[1], ["munit_tpu_torch", *sys.argv[2:]]
+try:
+    runpy.run_module("munit_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    with open(out, "w") as f:
+        json.dump({"launches": norms.launches,
+                   "launches_by_design": norms.design_launches,
+                   "launches_on_bf16_x": norms.bf16_launches,
+                   "image_paths": dict(transforms.paths)}, f)
+"""
+RESUME_ITERS, RESUME_SPLIT = 20, 11   # an odd split: mid-extrapolation
+FEED_WARM, FEED_ITERS = 10, 40        # the loop's first window dropped
+
+
+def write_train_data(root: Path) -> dict:
+    """16 seeded random 286x286 JPEGs per domain, binary PNG masks and their
+    lists; returns the config's data keys (absolute paths)."""
+    from PIL import Image
+    rng = np.random.RandomState(SEED)
+    root.mkdir(parents=True)
+    keys = {}
+    for dom in ("a", "b"):
+        imgs, masks = [], []
+        for i in range(DATA_IMAGES):
+            img, mask = root / f"{dom}{i:02d}.jpg", root / f"{dom}{i:02d}.png"
+            Image.fromarray(rng.randint(0, 256, (DATA_SIZE, DATA_SIZE, 3),
+                                        np.uint8)).save(img, quality=90)
+            Image.fromarray(((rng.rand(DATA_SIZE, DATA_SIZE) > 0.7) * 255)
+                            .astype(np.uint8)).save(mask)
+            imgs.append(str(img))
+            masks.append(str(mask))
+        for name, paths in ((f"{dom}.txt", imgs), (f"{dom}_seg.txt", masks)):
+            (root / name).write_text("\n".join(paths) + "\n")
+        keys.update({f"data_list_train_{dom}": str(root / f"{dom}.txt"),
+                     f"data_list_test_{dom}": str(root / f"{dom}.txt"),
+                     f"data_folder_train_{dom}": "/",
+                     f"data_folder_test_{dom}": "/",
+                     f"data_list_train_{dom}_seg":
+                         str(root / f"{dom}_seg.txt")})
+    return keys
+
+
+def write_config(path: Path, data: dict, keys: dict) -> Path:
+    """configs/config_256.yaml with the data keys and ``keys`` replaced."""
+    import yaml
+    raw = yaml.safe_load(CONFIG.read_text())
+    raw.update(data)
+    raw.update(keys)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+def sample_calls(conf, iters):
+    """trainer.sample calls of the loop over ``iters`` iterations: test and
+    train grids at image_save_iter, train_current at image_display_iter."""
+    return sum(2 * ((it + 1) % conf["image_save_iter"] == 0)
+               + ((it + 1) % conf["image_display_iter"] == 0)
+               for it in range(iters))
+
+
+def cli_phase(norms, get_config, tmp: Path):
+    """12(a): `python -m munit_tpu_torch train` on a copy of config_256
+    (bf16, semantic_w 3, full width) over seeded JPEGs in a subprocess,
+    its run directory and the norm launches by design; then `translate`
+    from its step-20 snapshot through the module's entry point."""
+    data = write_train_data(tmp / "data")
+    cfg = write_config(tmp / "cli" / "config_256.yaml", data, CLI_KEYS)
+    conf = get_config(str(cfg))
+    counts_file = tmp / "cli_counts.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, str(counts_file), "train",
+         "--config", str(cfg), "--output_path", str(tmp / "cli")],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"train CLI exit {proc.returncode}: {proc.stderr[-3000:]}")
+    counts = json.loads(counts_file.read_text())
+    run = tmp / "cli" / "outputs" / "config_256"
+    lines = [json.loads(ln) for ln in (run / "metrics.jsonl").open()]
+    losses = {m["step"]: m for m in lines if "loss_dis_total" in m}
+    finite = all(np.isfinite(v) for m in losses.values()
+                 for k, v in m.items() if k != "step")
+    sem = [m["loss_sem_seg"] for m in losses.values() if "loss_sem_seg" in m]
+    images = sorted(p.name for p in (run / "images").iterdir())
+    want_images = sorted(f"gen_{d}_{k}.jpg" for d in ("a2b", "b2a")
+                         for k in ("test_00000010", "train_00000010",
+                                   "test_00000020", "train_00000020",
+                                   "train_current"))
+    from munit_tpu_torch.io import checkpoint
+    snapshots = checkpoint.steps(str(run / "checkpoints"))
+    steps = cadence(conf, CLI_ITERS)
+    steps["sample"] = sample_calls(conf, CLI_ITERS)
+    want = expected_launches(norms, conf, steps)
+    want_bf16 = expected_launches(
+        norms, conf, {k: v for k, v in steps.items() if k != "sample"})
+    want_design = designs_of_calls(norms, want, PATH_DESIGN_SHARE)
+    ips = [m["images_per_sec"] for m in lines if "images_per_sec" in m]
+    emit(phase="train_cli", seconds_incl_start=wall, iterations=CLI_ITERS,
+         steps=steps, logged_steps=sorted(losses), finite=finite,
+         loss_sem_seg=sem, images=images, snapshots=snapshots,
+         images_per_sec=ips, launches=counts["launches"], expected=want,
+         launches_by_design=counts["launches_by_design"],
+         expected_by_design=want_design,
+         launches_on_bf16_x=counts["launches_on_bf16_x"],
+         expected_on_bf16_x=want_bf16, image_paths=counts["image_paths"],
+         losses_last=losses.get(CLI_ITERS),
+         note="images_per_sec: the loop's own, one window over all 20 "
+              "iterations (first calls, grids and snapshots included); "
+              "image_paths: image_transform calls by path (the training "
+              "and display datasets crop from the decode cache)")
+    check(sorted(losses) == list(range(1, CLI_ITERS + 1)),
+          f"logged steps {sorted(losses)}")
+    check(finite, "a logged loss is not finite")
+    check(len(sem) == steps["fused"] and all(v > 0 for v in sem),
+          f"loss_sem_seg {sem} in {steps['fused']} gen steps")
+    check(images == want_images, f"images {images}")
+    check((run / "index.html").exists(), "no index.html")
+    check(snapshots == [10, 20], f"snapshots {snapshots}")
+    check(counts["launches"] == want,
+          f"CLI launches {counts['launches']}, want {want}")
+    check(counts["launches_by_design"] == want_design,
+          f"CLI launches by design {counts['launches_by_design']}, want "
+          f"{want_design}")
+    check(counts["launches_on_bf16_x"] == want_bf16,
+          f"CLI launches on bf16 x {counts['launches_on_bf16_x']}, want "
+          f"{want_bf16}")
+    check(counts["image_paths"].get("pil", 0) == 0,
+          f"the PIL fallback ran: {counts['image_paths']}")
+
+    from munit_tpu_torch.__main__ import main as entry
+    from PIL import Image
+    (tmp / "tr_in").mkdir()
+    content = Path(data["data_list_train_a"]).read_text().split()[:2]
+    style = Path(data["data_list_train_b"]).read_text().split()[0]
+    for i, path in enumerate(content):
+        Image.open(path).save(tmp / "tr_in" / f"input{i}.jpg")
+    set_numerics("tf32_off")     # as a fresh translate process runs
+    norms.reset_launches()
+    rc = entry(["translate", "--config", str(cfg), "--checkpoint",
+                str(run / "checkpoints"), "--input", str(tmp / "tr_in"),
+                "--style", style, "--output_folder", str(tmp / "tr_out")])
+    outs = sorted(p.name for p in (tmp / "tr_out").iterdir())
+    sizes = {Image.open(tmp / "tr_out" / o).size for o in outs}
+    tr_launches = {k: v for k, v in norms.launches.items() if v}
+    emit(phase="translate_from_snapshot", step=snapshots[-1], outputs=outs,
+         sizes=sorted(sizes), launches=tr_launches)
+    check(rc == 0 and outs == ["output000.jpg", "output001.jpg"]
+          and sizes == {(256, 256)}, f"translate wrote {outs} {sizes}")
+    check(tr_launches == {"instance_norm": 22, "adain": 16,
+                          "whole_layer_norm": 4},
+          f"translate launches {tr_launches}")
+    return counts["launches_by_design"], data
+
+
+def state_leaves(tr):
+    """Every tensor of a trainer's whole state, as a flat dict of copies on
+    the card, and the Python numbers apart."""
+    out, nums = {}, {}
+
+    def walk(state, prefix):
+        for k, v in state.items():
+            name = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, name)
+            elif isinstance(v, torch.Tensor):
+                out[name] = v.detach().float().clone()
+            else:
+                nums[name] = v
+    walk(tr.state_dict(), "")
+    return out, nums
+
+
+def largest_difference(a, b):
+    """The largest per-leaf max |a - b| over the state's tensors."""
+    check(set(a[0]) == set(b[0]) and a[1] == b[1],
+          "the two states differ in leaves or counters")
+    return max((a[0][k] - b[0][k]).abs().max().item() for k in a[0])
+
+
+def part_differences(a, b):
+    """Mean |a - b| over each part of the state: each net's parameters and
+    buffers, and each optimizer's mu, nu and params_copy. A fault moves
+    every element of a part a little; the card's run-to-run noise moves a
+    few elements a lot, which is what the largest leaf sees."""
+    sums, counts = {}, {}
+    for k, v in a[0].items():
+        p = k.split("/")
+        part = "/".join(p[:3] if p[0] == "opt" else p[:2])
+        sums[part] = sums.get(part, 0.0) + (v - b[0][k]).abs().sum().item()
+        counts[part] = counts.get(part, 0) + v.numel()
+    return {part: sums[part] / counts[part] for part in sums}
+
+
+def restored_exactly(a, b):
+    """The leaves whose tensors or numbers differ at all (``iterations``
+    aside: resume sets it to the step it returns)."""
+    return sorted([k for k in a[0] if not torch.equal(a[0][k], b[0][k])]
+                  + [k for k in a[1]
+                     if k != "iterations" and a[1][k] != b[1].get(k)])
+
+
+def resume_phase(MUNITTrainer, train_steps, conf, tmp: Path):
+    """12(b): at batch 1 in bf16, two uninterrupted runs of 20 iterations,
+    then 11, a checkpoint, a fresh trainer, resume and 9 more. The fresh
+    trainer's state must equal the saved one bit for bit (counters and the
+    anchor flag too). Conv and pad backward kernels may use atomics on the
+    card, so after the 9 iterations the resumed run is held against the
+    first uninterrupted one within 2x the two uninterrupted runs'
+    difference in their largest leaf (0 when that is 0). The same resume
+    with the discriminators' anchor flag cleared (a resume that lost it)
+    must fail the bit-for-bit check. Each part's mean |difference| is
+    printed for all three: the fault moves each discriminator weight by
+    about as much as the card's run-to-run noise does in 20 bf16
+    iterations, so no check after the 9 iterations can tell them apart.
+    config_256 with ``optimizer: extra_adam`` (it ships adam, which never
+    extrapolates): after 11 iterations the discriminators' last half-step
+    (iteration 10) was an extrapolation, so the checkpoint carries its
+    anchor."""
+    from munit_tpu_torch.cli.train import load_segmenter
+    from munit_tpu_torch.io import checkpoint
+    conf = {**conf, "optimizer": "extra_adam"}
+    set_numerics("bf16")
+    batches = [numerics_inputs(train_inputs(1, SEED + 100 + it), "bf16")
+               for it in range(RESUME_ITERS)]
+
+    def trainer(seed):
+        tr = MUNITTrainer(conf, "cuda")
+        tr.init(torch.Generator().manual_seed(seed))
+        load_segmenter(tr, conf)        # as the CLI re-makes it
+        return tr
+
+    def run(tr, start, stop):
+        for it in range(start, stop):
+            train_steps(tr, *batches[it], [it])
+
+    t0 = time.perf_counter()
+    full = []
+    for _ in range(2):
+        tr = trainer(SEED)
+        run(tr, 0, RESUME_ITERS)
+        full.append(state_leaves(tr))
+        del tr
+    tr = trainer(SEED)
+    run(tr, 0, RESUME_SPLIT)
+    anchor = tr.dis_opt.has_copy
+    saved = state_leaves(tr)
+    ckpt = str(tmp / "resume_checkpoints")
+    checkpoint.save_checkpoint(ckpt, tr.state_dict(), RESUME_SPLIT)
+    del tr
+    noise_max = largest_difference(full[1], full[0])
+    noise = part_differences(full[1], full[0])
+    out = {}
+    for name in ("resumed", "anchor_dropped"):
+        tr = trainer(SEED + 1)
+        start = checkpoint.resume(tr, ckpt)
+        if name == "anchor_dropped":
+            tr.dis_opt.has_copy = False     # the planted fault
+        not_restored = restored_exactly(state_leaves(tr), saved)
+        run(tr, start, RESUME_ITERS)
+        final = state_leaves(tr)
+        del tr
+        parts = part_differences(final, full[0])
+        out[name] = {"resumed_from": start, "not_restored": not_restored,
+                     "max_abs_diff": largest_difference(final, full[0]),
+                     "mean_abs_diff_by_part": parts,
+                     "parts_over_bound": [k for k in parts
+                                          if parts[k] > 2 * noise[k]]}
+    torch.cuda.synchronize()
+    emit(phase="resume_card", batch=1, numerics="bf16",
+         optimizer=conf["optimizer"], iterations=RESUME_ITERS,
+         split=RESUME_SPLIT, saved_mid_extrapolation=anchor,
+         leaves=len(full[0][0]), run_to_run_max_abs_diff=noise_max,
+         bound=2 * noise_max, run_to_run_mean_abs_diff_by_part=noise, **out,
+         seconds=time.perf_counter() - t0,
+         note="max_abs_diff: the largest leaf's max |diff| over the state's "
+              "tensors (parameters, buffers, ExtraAdam moments and "
+              "anchors); mean_abs_diff_by_part: mean |diff| over each net's "
+              "tensors and each optimizer's mu, nu, params_copy; "
+              "parts_over_bound: parts above twice the run-to-run one "
+              "(printed, not asserted); "
+              "anchor_dropped: the same resume with dis_opt.has_copy "
+              "cleared, a planted fault")
+    ok, bad = out["resumed"], out["anchor_dropped"]
+    check(ok["resumed_from"] == RESUME_SPLIT and anchor,
+          "not resumed mid-extrapolation")
+    check(not ok["not_restored"],
+          f"resume did not restore {ok['not_restored'][:5]}")
+    check(ok["max_abs_diff"] <= 2 * noise_max,
+          f"resumed run differs by {ok['max_abs_diff']}, twice the "
+          f"run-to-run difference is {2 * noise_max}")
+    check(bad["not_restored"] == ["opt/dis/has_copy"],
+          f"the planted fault (anchor flag dropped) read as not restored: "
+          f"{bad['not_restored'][:5]}")
+    torch.cuda.empty_cache()
+
+
+def loader_rate(make, batches=20):
+    """images/s of a loader over ``batches`` batches after one epoch."""
+    loader = make()
+    it = iter(loader)
+    try:
+        for _ in range(len(loader)):       # one epoch: fills a cache
+            next(it)
+        t0 = time.perf_counter()
+        n = sum(next(it)["image"].shape[0] for _ in range(batches))
+        return n / (time.perf_counter() - t0)
+    finally:
+        it.close()
+
+
+class MemoryLoader:
+    """The first batches of a loader, decoded once and yielded again in
+    turn: the loop's feed without the decode threads."""
+
+    def __init__(self, loader, n=2):
+        it = iter(loader)
+        self.batches = [next(it) for _ in range(n)]
+        it.close()
+
+    def __iter__(self):
+        return self.iter_from(0)
+
+    def iter_from(self, start):
+        i = start
+        while True:
+            yield self.batches[i % len(self.batches)]
+            i += 1
+
+
+def feed_phase(norms, MUNITTrainer, get_config, data, fixed, tmp: Path):
+    """12(c): the loop's images/s at batch 1 and 8 in bf16 (40 iterations
+    of train_loop with the CLI's loaders, the first window of 10
+    dropped) beside phase 8b's ms per iteration on tensors already on the
+    card, and beside 30 more iterations fed from batches decoded once (the
+    feed's host-to-device stage without the decode threads); the device
+    idle share of a fused step inside the loop at batch 8 (its second,
+    profiled as it runs); then the loader alone at batch 8."""
+    from munit_tpu_torch.cli.train import build_loaders, load_segmenter
+    from munit_tpu_torch.data import transforms
+    from munit_tpu_torch.data.datasets import ImageFilelist, ImageMaskDataset
+    from munit_tpu_torch.data.loader import DataLoader
+    from munit_tpu_torch.train.loop import train_loop
+    set_numerics("bf16")
+    out = {}
+    for b in BATCHES:
+        keys = {**CLI_KEYS, "batch_size": b, "max_iter": FEED_ITERS,
+                "snapshot_save_iter": 10**6, "image_save_iter": 10**6,
+                "image_display_iter": 10**6}
+        cfg = write_config(tmp / f"feed{b}" / "config_256.yaml", data, keys)
+        conf = get_config(str(cfg))
+        tr = new_trainer(MUNITTrainer, conf, "cuda")
+        load_segmenter(tr, conf)
+        loaders = build_loaders(conf, seed=SEED)
+        prof = {}
+        if b == 8:
+            orig, calls = tr.dis_gen_update, []
+
+            def fused(*a, **k):
+                calls.append(1)
+                if len(calls) != 2:
+                    return orig(*a, **k)
+                res = []
+                rows, wall = device_profile(
+                    lambda: res.append(orig(*a, **k)), 1)
+                busy = sum(r[0] for r in rows)
+                prof.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                            device_idle_share=1 - busy / wall,
+                            by_group_ms=grouped(rows))
+                return res[0]
+            tr.dis_gen_update = fused
+        train_loop(tr, conf, loaders, str(tmp / f"feed{b}" / "warm"),
+                   max_iter=FEED_WARM, device="cuda")
+        steady = tmp / f"feed{b}" / "steady"
+        train_loop(tr, conf, loaders, str(steady), start_iteration=FEED_WARM,
+                   max_iter=FEED_ITERS, device="cuda")
+        span = FEED_ITERS - FEED_WARM
+
+        def loop_rate(name, loop_conf, feed, start):
+            """The loop's images_per_sec over ``span`` iterations."""
+            run = tmp / f"feed{b}" / name
+            train_loop(tr, loop_conf, feed, str(run), start_iteration=start,
+                       max_iter=start + span, device="cuda")
+            ips = [json.loads(ln)["images_per_sec"]
+                   for ln in (run / "metrics.jsonl").open()
+                   if "images_per_sec" in ln]
+            check(len(ips) == 1, f"batch {b} {name}: images_per_sec {ips}")
+            return ips[0]
+
+        ips = [json.loads(ln)["images_per_sec"]
+               for ln in (steady / "metrics.jsonl").open()
+               if "images_per_sec" in ln]
+        check(len(ips) == 1, f"batch {b}: images_per_sec lines {ips}")
+        mem_ips = [loop_rate("memory", conf, {k: MemoryLoader(v) for k, v
+                                              in loaders.items()},
+                             FEED_ITERS)]
+        fixed_ms = fixed[b]["ms_per_iteration"]
+        out[b] = {"loop_images_per_sec": ips[0],
+                  "loop_ms_per_iteration": b * 1e3 / ips[0],
+                  "memory_fed_loop_images_per_sec": mem_ips[0],
+                  "memory_fed_loop_ms_per_iteration": b * 1e3 / mem_ips[0],
+                  "fixed_tensor_ms_per_iteration": fixed_ms,
+                  "fixed_tensor_images_per_s": fixed[b]["images_per_s"],
+                  "feed_share": 1 - fixed_ms / (b * 1e3 / ips[0])}
+        if prof:
+            prof["fixed_tensor_fused_step_idle_share"] = \
+                fixed[b]["fused_idle_share"]
+            prof["fixed_tensor_fused_step_idle_share_profiled_wall"] = \
+                fixed[b]["fused_idle_share_profiled"]
+            out[b]["fused_step_in_loop"] = prof
+        emit(phase="feed_loop", batch=b, numerics="bf16",
+             iterations=FEED_ITERS - FEED_WARM, **out[b],
+             note="images_per_sec: the loop's metrics.jsonl over iterations "
+                  "10-39 (bench.py's cadence, the classifier_sr step twice); "
+                  "memory fed: iterations 40-69 from 2 batches decoded once; "
+                  "fixed tensor: phase 8b's 5-iteration cycle, batch "
+                  "already on the card; feed_share: the loop's time per "
+                  "iteration beyond that; the in-loop fused step's idle "
+                  "share is against its profiled wall, as is the fixed "
+                  "tensor's _profiled_wall one")
+        check(all(np.isfinite(v) for v in (ips[0], fixed_ms)),
+              f"batch {b}: no loop rate")
+        del tr, loaders
+        torch.cuda.empty_cache()
+
+    lists = (data["data_list_train_a"], data["data_list_train_a_seg"])
+    rates = {}
+    for name, cache_mb in (("mask_dataset_decode_cache", None),
+                           ("mask_dataset_no_cache", 0)):
+        rates[name] = loader_rate(lambda: DataLoader(
+            ImageMaskDataset(*lists, 256, 256, 256, cache_mb=cache_mb), 8,
+            shuffle=True, num_workers=CLI_KEYS["num_workers"], seed=SEED))
+    before = dict(transforms.paths)
+    rates["list_dataset_native"] = loader_rate(lambda: DataLoader(
+        ImageFilelist("", lists[0], 256, 256, 256, train=True, cache_mb=0),
+        8, shuffle=True, num_workers=CLI_KEYS["num_workers"], seed=SEED))
+    took = {k: transforms.paths[k] - before.get(k, 0)
+            for k in ("native", "pil")}
+    emit(phase="feed_loader", batch=8, images_per_sec=rates,
+         image_transform_paths=took,
+         note="DataLoader alone over the phase's 16 JPEGs per domain, "
+              "uint8 out, 8 workers, 20 batches after one epoch; decode "
+              "cache: the training default (decode and resize once, then "
+              "crop); no cache: PIL decode and resize every draw; native: "
+              "the list dataset without cache, its resize and crop in the "
+              "native image ops")
+    check(took["native"] >= 8 * 20 and took["pil"] == 0,
+          f"the native image ops did not run: {took}")
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1688,7 +2177,7 @@ PROBE_KERNELS = (
 
 
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
-                 mom_err, mom_times, probe_launches):
+                 mom_err, mom_times, probe_launches, cli_launches):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
     backward, then the moments kernels of the probes."""
@@ -1729,13 +2218,16 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches=launches[name][design],
                 launches_train=train_launches["tf32"][name][design],
                 launches_train_bf16=train_launches["bf16"][name][design],
+                launches_cli=cli_launches[name][design],
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
                     "call of the same function (IN and AdaIN: F.batch_norm "
                     "on the (1, B C, H, W) view); launches: translate run "
                     "(phase 4), launches_train(_bf16): 15 training "
-                    "iterations at batch 1 with TF32 (in bf16; phase 8)"))
+                    "iterations at batch 1 with TF32 (in bf16; phase 8), "
+                    "launches_cli: the train CLI's 20 iterations and 8 "
+                    "sample grids (phase 12)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -1746,10 +2238,13 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 replaces=BWD_REPLACES[name], also_replaces=BWD_ALSO,
                 launches=train_launches["tf32"][name + "_bwd"][design],
                 launches_bf16=train_launches["bf16"][name + "_bwd"][design],
+                launches_cli=cli_launches[name + "_bwd"][design],
                 per="one fused dis+gen step's backward calls of this design "
                     "at batch 1, float32; split_ms: the split design's "
                     "time for the same calls; launches(_bf16): 15 training "
-                    "iterations at batch 1 with TF32 (in bf16; phase 8)"))
+                    "iterations at batch 1 with TF32 (in bf16; phase 8), "
+                    "launches_cli: the train CLI's 20 iterations (phase "
+                    "12)"))
     for row, name, probe, dname, replaces in PROBE_KERNELS:
         t = mom_times[(name, PROBE_SHAPES[0], dname)]
         kernels.append({
@@ -1852,13 +2347,15 @@ def main() -> int:
 
     train_conf = get_config(str(CONFIG))
     check(train_conf["semantic_w"] > 0, "config_256 trains with semantic_w")
-    train_launches = {}
+    train_launches, fixed = {}, {}
     for numerics in ("tf32", "bf16"):
         for b in BATCHES:
             tr, batch, counts = training_phase(
                 norms, MUNITTrainer, train_steps, train_conf, b, numerics)
             train_launches.setdefault(numerics, counts)
-            train_time_phase(tr, batch, train_conf, b, numerics)
+            res = train_time_phase(tr, batch, train_conf, b, numerics)
+            if numerics == "bf16":
+                fixed[b] = res
             del tr, batch
             torch.cuda.empty_cache()
     grads_phase(MUNITTrainer, train_conf, removed_by_norm)
@@ -1868,9 +2365,15 @@ def main() -> int:
     mom_err, mom_times = moments_phase(moments)
     _, probe_launches = probe_phase(moments, norms, normprobe)
 
+    parity_mode(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, data = cli_phase(norms, get_config, Path(tmp))
+        resume_phase(MUNITTrainer, train_steps, train_conf, Path(tmp))
+        feed_phase(norms, MUNITTrainer, get_config, data, fixed, Path(tmp))
+
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
-        mom_times, probe_launches)}), flush=True)
+        mom_times, probe_launches, cli_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,6 +7,8 @@ commands ported so far.
 import sys
 
 COMMANDS = {
+    "train": ("munit_tpu_torch.cli.train",
+              "train a config on one device (reference train.py)"),
     "translate": ("munit_tpu_torch.cli.translate",
                   "guided single-style folder inference (reference test.py)"),
 }

@@ -1,0 +1,195 @@
+"""Training CLI (reference train.py semantics), the port's counterpart of
+``munit_tpu/cli/train.py`` on one device:
+
+  python -m munit_tpu_torch train --config configs/config_256.yaml \\
+      [--output_path out] [--resume] [--seed N] [--device cuda|cpu]
+
+Builds the masked A/B loaders, copies the config into the run directory
+``<output_path>/outputs/<config name>/``, and runs the loop
+(``train/loop.py``): ``metrics.jsonl``, ``images/`` grids, ``index.html``
+and ``checkpoints/``. ``--resume`` continues exactly from the latest
+checkpoint. The config's ``precision:`` (default bf16, the JAX CLI's
+default) sets the conv numerics: bf16 conv operands and images, or
+``parity``/``f32`` (f32, TF32 off). Runs on the CUDA card by default and
+raises without one; ``--device cpu`` runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import signal
+import threading
+
+import numpy as np
+import torch
+
+from munit_tpu_torch.cli.translate import resolve_device
+from munit_tpu_torch.config import flatten_opts, get_config
+from munit_tpu_torch.core import ops
+from munit_tpu_torch.data.api import (get_all_data_loaders,
+                                      get_data_loader_mask_and_im)
+from munit_tpu_torch.io import checkpoint
+from munit_tpu_torch.io.weights import load_segmenter_checkpoint
+from munit_tpu_torch.train.loop import train_loop
+from munit_tpu_torch.train.trainer import MUNITTrainer
+from munit_tpu_torch.utils.logging import MetricLogger
+from munit_tpu_torch.utils.misc import get_git_revision_hash, prepare_sub_folder
+
+# the JAX CLI seeds the frozen segmenter with its own key, whatever --seed
+SEGMENTER_SEED = 1
+
+
+def build_loaders(conf, seed=0):
+    """The A and B image-and-mask training loaders, with seeds seed and
+    seed + 1 so their shuffles are independent. A synthetic list that
+    exists with synthetic_frequency > 0 is refused: its loader and steps
+    are not ported."""
+    synth = conf.get("data_list_train_a_synth")
+    if conf["synthetic_frequency"] > 0 and synth and \
+            os.path.exists(str(synth)):
+        raise NotImplementedError(
+            "synthetic_frequency > 0 with a synthetic list (the "
+            "synthetic-pair loader and steps) is not ported; ROADMAP queue "
+            "1 item 11")
+    kw = dict(new_size=conf["new_size"], height=conf["crop_image_height"],
+              width=conf["crop_image_width"], num_workers=conf["num_workers"])
+    use_masks = conf["semantic_w"] > 0
+    mask_a = conf.get("data_list_train_a_seg") if use_masks else None
+    mask_b = conf.get("data_list_train_b_seg") if use_masks else None
+    return {
+        "a": get_data_loader_mask_and_im(conf["data_list_train_a"], mask_a,
+                                         conf["batch_size"], True, seed=seed,
+                                         **kw),
+        "b": get_data_loader_mask_and_im(conf["data_list_train_b"], mask_b,
+                                         conf["batch_size"], True,
+                                         seed=seed + 1, **kw)}
+
+
+def display_batch(loader, display: int, device) -> torch.Tensor:
+    """The first ``display`` images of a loader's dataset, each drawn with
+    rng(index), float32 in [-1, 1] on ``device`` (train.py:132-143)."""
+    n = len(loader.dataset)
+    skip_bad = os.environ.get("MUNIT_LOADER_SKIP_BAD", "0") == "1"
+    imgs, i = [], 0
+    while len(imgs) < min(display, n) and i < n:
+        try:
+            imgs.append(
+                loader.dataset.get(i, np.random.default_rng(i))["image"])
+        except Exception:  # noqa: BLE001 — skipped only when asked to
+            if not skip_bad:
+                raise
+            print(f"display batch: sample {i} failed; skipping")
+        i += 1
+    x = np.stack(imgs)
+    if x.dtype == np.uint8:   # device_prefetch's normalization, on the host
+        x = x.astype(np.float32) / 255.0 * 2.0 - 1.0
+    return torch.from_numpy(x).to(device)
+
+
+def set_precision(conf) -> None:
+    """The config's ``precision:`` → the conv numerics (bf16 by default)."""
+    prec = str(conf.get("precision", "bf16")).lower()
+    if prec in ("bf16", "bfloat16"):
+        ops.set_conv_compute(torch.bfloat16)
+    elif prec in ("parity", "f32", "float32"):
+        ops.set_conv_compute(None)
+    else:
+        raise ValueError(f"unknown precision: {prec!r}")
+
+
+def install_stop_handler() -> threading.Event:
+    """SIGTERM/SIGINT set the returned event: the loop snapshots and
+    returns. A second signal restores the default handler and re-raises,
+    so a run stuck before the loop can still be stopped."""
+    stop = threading.Event()
+
+    def on_signal(signum, frame):
+        if stop.is_set():
+            signal.signal(signum, signal.SIG_DFL)
+            signal.raise_signal(signum)
+        stop.set()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, on_signal)
+        except ValueError:
+            pass  # not the main thread (driven from a test harness)
+    return stop
+
+
+def load_segmenter(trainer, conf) -> None:
+    path = conf.get("semantic_ckpt_path")
+    if path and os.path.exists(str(path)):
+        trainer.load_segmenter(load_segmenter_checkpoint(str(path)))
+        return
+    print("WARNING: semantic_ckpt_path missing — using random frozen "
+          "segmenter weights (loss is well-defined but meaningless)")
+    trainer.segmenter.init(torch.Generator().manual_seed(SEGMENTER_SEED))
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(prog="python -m munit_tpu_torch train")
+    p.add_argument("--config", required=True)
+    p.add_argument("--output_path", default=".")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--trainer", default="MUNIT",
+                   help="reference train.py flag; every other value exits "
+                        "'Only support MUNIT'")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="a torch.profiler trace of N iterations (after 2) "
+                        "into <run>/trace")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    """Train as the config says; returns the iteration reached."""
+    opts = parse_args(argv)
+    if opts.trainer != "MUNIT":
+        raise SystemExit("Only support MUNIT")   # reference train.py:72
+    # first, so a signal during the set-up still ends in a snapshot
+    stop = install_stop_handler()
+    device = resolve_device(opts.device)
+    conf = get_config(opts.config)
+    set_precision(conf)
+    model_name = os.path.splitext(os.path.basename(opts.config))[0]
+    output_directory = os.path.join(opts.output_path, "outputs", model_name)
+    ckpt_dir, _ = prepare_sub_folder(output_directory)
+    shutil.copy(opts.config, os.path.join(output_directory, "config.yaml"))
+
+    logger = MetricLogger(output_directory)
+    params = dict(flatten_opts(conf))
+    git_hash = get_git_revision_hash()
+    if git_hash:
+        params["git_hash"] = git_hash
+    logger.log_parameters(params)
+
+    trainer = MUNITTrainer(conf, device)
+    trainer.init(torch.Generator().manual_seed(opts.seed))
+    if trainer.segmenter is not None:
+        load_segmenter(trainer, conf)
+    start = checkpoint.resume(trainer, ckpt_dir) if opts.resume else 0
+
+    loaders = build_loaders(conf, seed=opts.seed)
+    display = int(conf["display_size"])
+    display_batches = tuple(display_batch(ld, display, device)
+                            for ld in get_all_data_loaders(conf,
+                                                           seed=opts.seed))
+    try:
+        end = train_loop(trainer, conf, loaders, output_directory, logger,
+                         start_iteration=start,
+                         display_batches=display_batches,
+                         profile=(start + 2, opts.profile) if opts.profile
+                         else None, stop=stop, device=device)
+    finally:
+        logger.close()
+    if stop.is_set():
+        print(f"preempted at iteration {end}; state saved — "
+              "restart with --resume to continue exactly")
+    return end
+
+
+if __name__ == "__main__":
+    main()

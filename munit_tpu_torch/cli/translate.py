@@ -7,8 +7,10 @@ image encode content with branch 1, decode with branch 2, and save
 output%03d.jpg.
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain versions
-of the kernels on the CPU. Weights: a reference ``gen_*.pt`` ({"2": sd}) or
-an ``.npz`` of ``sd::`` entries.
+of the kernels on the CPU. Weights: a reference ``gen_*.pt`` ({"2": sd}),
+an ``.npz`` of ``sd::`` entries or a packed inference ``.npz``, or the
+generator of a training checkpoint of the port (``io/checkpoint.py``): a
+``ckpt_<step>.pt`` file or a directory of them, whose latest is read.
 
 Usage:
   python -m munit_tpu_torch translate --config configs/config_256.yaml \\
@@ -28,6 +30,7 @@ from PIL import Image
 
 from munit_tpu_torch.config import get_config
 from munit_tpu_torch.data import transforms as T
+from munit_tpu_torch.io import checkpoint
 from munit_tpu_torch.io.weights import load_reference_checkpoint
 from munit_tpu_torch.nn.generator import GenBundle
 
@@ -51,6 +54,14 @@ def save_image01(arr01: np.ndarray, path: str):
     lo, hi = arr01.min(), arr01.max()
     arr = (arr01 - lo) / max(hi - lo, 1e-5)
     Image.fromarray((arr * 255).round().astype(np.uint8)).save(path)
+
+
+def load_generator_weights(path: str):
+    """The generator's state_dict from a training checkpoint (file or
+    directory) or a reference/inference checkpoint file."""
+    if checkpoint.is_training_checkpoint(path):
+        return checkpoint.generator_state(path)
+    return load_reference_checkpoint(path)
 
 
 def parse_args(argv=None):
@@ -88,7 +99,7 @@ def main(argv=None):
     os.makedirs(opts.output_folder, exist_ok=True)
 
     gen = GenBundle(conf, device)
-    gen.load_state_dict(load_reference_checkpoint(opts.checkpoint))
+    gen.load_state_dict(load_generator_weights(opts.checkpoint))
     new_size = conf["new_size"]
 
     s_b = gen.encode_style(load_image(opts.style, new_size, device))

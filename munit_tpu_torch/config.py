@@ -1,8 +1,9 @@
 """YAML config loading for the PyTorch port.
 
-The port's own copy of the parts of ``munit_tpu/config.py`` that inference
-and the training step need: the YAML load, the defaults of the generator,
-discriminator, optimizer, loss-weight and adaptation keys, and their checks.
+The port's own copy of the parts of ``munit_tpu/config.py`` that inference,
+the training steps and the training loop need: the YAML load, the defaults
+of the generator, discriminator, optimizer, loss-weight, adaptation, loop
+and data keys, and their checks.
 Unknown keys are preserved, as the reference passes sub-dicts wholesale into
 model constructors (reference utils.py:743-758).
 """
@@ -17,7 +18,12 @@ import yaml
 
 # Values are configs/config_256.yaml's where that file defines them.
 _DEFAULTS: Dict[str, Any] = {
+    "image_save_iter": 1000,
+    "image_display_iter": 500,
     "display_size": 8,
+    "snapshot_save_iter": 5000,
+    "log_iter": 1,
+    "max_iter": 1000000,
     "batch_size": 1,
     "grad_accum": 1,
     "weight_decay": 0.0001,
@@ -37,14 +43,19 @@ _DEFAULTS: Dict[str, Any] = {
     "semantic_w": 0,
     "recon_mask": 0,
     "domain_adv_w": 0,
+    "synthetic_frequency": -1,
     "recon_synth_w": 0,
+    "synthetic_seg_gt": 0,
+    "classifier_frequency": 100000,
     "optimizer": "adam",          # utils.py:755-757 default injection
     "gen_state": 0,
     "guided": 0,
     "ratio_disc_gen": 1,
+    "eval_fid": 0,
     "semantic_ckpt_path": None,   # the frozen segmenter's .pth
     "input_dim_a": 3,
     "input_dim_b": 3,
+    "num_workers": 8,
     "new_size": 256,
     "crop_image_height": 256,
     "crop_image_width": 256,
@@ -80,6 +91,7 @@ _DEFAULTS: Dict[str, Any] = {
 
 _REQUIRED_TYPES = {"gen_state": int, "guided": int, "new_size": int,
                    "input_dim_a": int, "batch_size": int, "lr": (int, float),
+                   "max_iter": int,
                    "ratio_disc_gen": int, "crop_image_height": int,
                    "crop_image_width": int}
 
@@ -149,3 +161,16 @@ def get_config(path: str) -> Dict[str, Any]:
     with open(path) as f:
         conf = yaml.safe_load(f)
     return validate(conf or {})
+
+
+def flatten_opts(conf: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Flatten a nested config for the logged parameters
+    (utils.py:1395-1435)."""
+    out = {}
+    for k, v in conf.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_opts(v, prefix=f"{key}."))
+        else:
+            out[key] = v
+    return out

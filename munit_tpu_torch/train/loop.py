@@ -1,0 +1,246 @@
+"""The training loop: the reference cadences (train.py:159-330) over the
+trainer's steps, the port's counterpart of ``munit_tpu/train/loop.py``.
+
+Per iteration (config_256 in parens):
+- the dis step, or the fused dis+gen step (``dis_gen_update``, the JAX
+  trainer's default, equal to ``dis_update`` then ``gen_update``) when
+  (it+1) % ratio_disc_gen == 0 (5);
+- the sim/real classifier step when (it+1) % classif_frequency == 0 (15);
+- metrics of every log_iter-th iteration buffered and written every
+  ``100 // log_iter`` of them (no per-iteration device sync), with
+  ``images_per_sec`` over each written window and the card's memory
+  (``hbm_gb_in_use``, ``hbm_gb_peak``);
+- sample grids at image_save_iter / image_display_iter, a checkpoint at
+  snapshot_save_iter; the stop event snapshots and returns.
+
+A non-finite logged loss raises ``TrainingDiverged`` when its window is
+written, which happens before any checkpoint is committed, so the last
+checkpoint is never a poisoned one. The DANN, output-level DA,
+synthetic-pair and seg-head steps are not ported: the loop refuses a
+config or loaders that ask for them.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from munit_tpu_torch.core.ops import conv_compute_dtype
+from munit_tpu_torch.data.loader import device_prefetch
+from munit_tpu_torch.eval.sample import write_2images
+from munit_tpu_torch.io.checkpoint import CheckpointWriter
+from munit_tpu_torch.utils.html import write_html
+from munit_tpu_torch.utils.logging import MetricLogger
+
+
+class TrainingDiverged(RuntimeError):
+    """A logged loss went NaN/Inf: the optimizer state is poisoned and
+    every later step is garbage; stop instead of training on."""
+
+
+def check_loop_ported(conf, loaders) -> None:
+    """Raise NotImplementedError for the loop branches the port lacks."""
+    ad = conf["adaptation"]
+    asks = {"domain_adv_w > 0 (the DANN step)": conf["domain_adv_w"] > 0,
+            "a synthetic loader (the synthetic-pair and output-level DA "
+            "steps)": bool(loaders.get("synth")),
+            "adaptation.output_classifier_lambda > 0 (output-level DA)":
+                ad["output_classifier_lambda"] > 0,
+            "adaptation.sem_seg_lambda > 0 (the seg head)":
+                ad["sem_seg_lambda"] > 0}
+    for what, on in asks.items():
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported; ROADMAP queue 1 item 11")
+    if conf.get("eval_fid", 0) > 0:
+        raise NotImplementedError(
+            "eval_fid > 0 (in-training FID) is not ported; ROADMAP queue 1 "
+            "item 14")
+
+
+def device_memory_stats(device) -> Optional[dict]:
+    """{hbm_gb_in_use, hbm_gb_peak} of a CUDA device; None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return {"hbm_gb_in_use": torch.cuda.memory_allocated(device) / 2**30,
+            "hbm_gb_peak": torch.cuda.max_memory_allocated(device) / 2**30}
+
+
+def _check_finite(metrics, step):
+    """Divergence guard at the metric flush (the scalars were just read for
+    logging)."""
+    bad = [k for k, v in metrics.items() if not np.isfinite(float(v))]
+    if bad:
+        raise TrainingDiverged(
+            f"non-finite loss at iteration {step}: {', '.join(sorted(bad))}. "
+            "Training state is unrecoverable past this point; resume from "
+            "the last checkpoint (--resume) with a lower lr or gan_w.")
+
+
+class _Profile:
+    """The --profile window: torch.profiler over ``n`` iterations from
+    ``first``, its chrome trace written to ``<out>/trace``."""
+
+    def __init__(self, window, output_directory):
+        self.first, self.n = window
+        self.dir = os.path.join(output_directory, "trace")
+        self.prof = None
+
+    def at(self, iteration):
+        if self.prof is None and iteration == self.first:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        elif self.prof is not None and iteration >= self.first + self.n:
+            self.stop()
+
+    def stop(self):
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+
+
+def train_loop(trainer, conf, loaders, output_directory: str,
+               logger: Optional[MetricLogger] = None,
+               start_iteration: int = 0,
+               max_iter: Optional[int] = None,
+               display_batches=None,
+               profile: Optional[tuple] = None,
+               stop=None,
+               device=None) -> int:
+    """Train from ``start_iteration`` to ``max_iter`` (the config's when
+    None); returns the iteration reached.
+
+    loaders: {"a", "b"}, image-and-mask loaders (``iter_from`` gives exact
+    data order on resume). display_batches: (train_a, train_b, test_a,
+    test_b) tensors for the sample grids. profile: (first iteration,
+    iterations). stop: a threading.Event; when set, the loop snapshots the
+    whole state and returns. device: where the batches go (the trainer's
+    when None)."""
+    check_loop_ported(conf, loaders)
+    device = torch.device(device if device is not None else trainer.device)
+    logger = logger or MetricLogger(output_directory)
+    ckpt_dir = os.path.join(output_directory, "checkpoints")
+    img_dir = os.path.join(output_directory, "images")
+    max_iter = max_iter or conf["max_iter"]
+    ad = conf["adaptation"]
+    display = int(conf["display_size"])
+    # bf16 conv operands take bf16 images, as the JAX loop feeds them
+    act_dt = conv_compute_dtype()
+
+    def stream(loader):
+        src = (loader.iter_from(start_iteration) if start_iteration
+               else iter(loader))
+        return device_prefetch(src, device, size=2, image_dtype=act_dt)
+
+    it_a, it_b = stream(loaders["a"]), stream(loaders["b"])
+    pending = []
+    flush_every = max(1, 100 // max(conf["log_iter"], 1))
+    ckpt_writer = None
+    prof = _Profile(profile, output_directory) if profile else None
+    iterations = start_iteration
+    tput_t0, tput_imgs = time.monotonic(), 0
+
+    def flush():
+        """Log, then divergence-check, the buffered window."""
+        for step_, m_ in pending:
+            logger.log_metrics(m_, step_)
+        for step_, m_ in pending:
+            _check_finite(m_, step_)
+        pending.clear()
+
+    def writer():
+        nonlocal ckpt_writer
+        if ckpt_writer is None:
+            ckpt_writer = CheckpointWriter(ckpt_dir,
+                                           keep=conf.get("snapshot_keep"))
+        return ckpt_writer
+
+    try:
+        while iterations < max_iter:
+            if prof is not None:
+                prof.at(iterations)
+            ba, bb = next(it_a), next(it_b)
+            trainer.iterations = iterations
+            x_a, mask_a = ba["image"], ba["mask"]
+            x_b, mask_b = bb["image"], bb["mask"]
+            if (iterations + 1) % conf["ratio_disc_gen"] == 0:
+                metrics = dict(trainer.dis_gen_update(x_a, x_b,
+                                                      mask_a, mask_b))
+            else:
+                metrics = dict(trainer.dis_update(x_a, x_b))
+            if trainer.use_classifier_sr and \
+                    (iterations + 1) % ad["classif_frequency"] == 0:
+                metrics.update(trainer.domain_classifier_sr_update(
+                    x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
+
+            tput_imgs += int(x_a.shape[0])
+            if (iterations + 1) % conf["log_iter"] == 0:
+                # device scalars, read in windows: no per-iteration sync
+                pending.append((iterations + 1, metrics))
+                if len(pending) >= flush_every:
+                    flush()
+                    dt = time.monotonic() - tput_t0
+                    if dt > 0:
+                        logger.log_metrics(
+                            {"images_per_sec": tput_imgs / dt}, iterations + 1)
+                    tput_t0, tput_imgs = time.monotonic(), 0
+                    stats = device_memory_stats(device)
+                    if stats:
+                        logger.log_metrics(stats, iterations + 1)
+
+            if display_batches is not None:
+                tr_a, tr_b, te_a, te_b = display_batches
+                if (iterations + 1) % conf["image_save_iter"] == 0:
+                    write_2images(trainer.sample(te_a, te_b), display,
+                                  img_dir, "test_%08d" % (iterations + 1))
+                    write_2images(trainer.sample(tr_a, tr_b), display,
+                                  img_dir, "train_%08d" % (iterations + 1))
+                    write_html(os.path.join(output_directory, "index.html"),
+                               iterations + 1, conf["image_save_iter"],
+                               img_dir)
+                if (iterations + 1) % conf["image_display_iter"] == 0:
+                    write_2images(trainer.sample(tr_a, tr_b), display,
+                                  img_dir, "train_current")
+
+            if (iterations + 1) % conf["snapshot_save_iter"] == 0:
+                # a NaN since the last flush must not reach a checkpoint
+                flush()
+                writer().save(trainer.state_dict(), iterations + 1)
+
+            iterations += 1
+            if stop is not None and stop.is_set():
+                flush()
+                writer().save(trainer.state_dict(), iterations)
+                logger.log_metrics({"preempted": 1.0}, iterations)
+                break
+        last_step = pending[-1][0] if pending else None
+        flush()   # the last window: logged and divergence-checked
+        if last_step is not None:
+            dt = time.monotonic() - tput_t0
+            if dt > 0 and tput_imgs:
+                logger.log_metrics({"images_per_sec": tput_imgs / dt},
+                                   last_step)
+    finally:
+        # on any exit: stop the feed's threads, end the trace, and commit
+        # the queued checkpoints before the error (if any) propagates
+        it_a.close()
+        it_b.close()
+        if prof is not None:
+            prof.stop()
+        if ckpt_writer is not None:
+            ckpt_writer.close()
+    return iterations

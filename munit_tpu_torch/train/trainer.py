@@ -9,6 +9,11 @@ for ``gen_state: 1``, ``guided: 1`` and ``grad_accum: 1``.
 - ``domain_classifier_sr_update`` ≙ ``_classifier_sr_step_impl`` (:1283-1312)
 - ``dis_gen_grads``   ≙ ``dis_gen_grads`` (:1025-1070), the fused step's
   gradients against the current D, with no update
+- ``sample``          ≙ ``sample`` (:1474-1515), guided: the display grid's
+  columns
+- ``state_dict`` / ``load_state_dict``: the whole training state that a
+  checkpoint holds (``io/checkpoint.py``), the counterpart of the JAX
+  trainer's ``state`` pytree
 
 Every forward makes the JAX trainer's ``wide: 1`` calls (its default at
 256 px): one style encode of both domains, the two content encoders as a
@@ -35,15 +40,18 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from munit_tpu_torch.config import dis_pyramid_floor, pyramid_message
 from munit_tpu_torch.core import ops
+from munit_tpu_torch.eval.segmap import decode_segmap
 from munit_tpu_torch.losses import losses
 from munit_tpu_torch.nn import classifiers, discriminator
 from munit_tpu_torch.nn.generator import GenBundle
 from munit_tpu_torch.nn.resnet import NUM_CLASSES, ResNet34_8s, seg_preprocess
-from munit_tpu_torch.optim.extra_adam import (extra_adam_init,
+from munit_tpu_torch.optim.extra_adam import (ExtraAdamState,
+                                              extra_adam_init,
                                               extra_adam_update)
 from munit_tpu_torch.optim.schedule import from_config as schedule_from_config
 
@@ -162,6 +170,61 @@ class MUNITTrainer:
         if self.segmenter is None:
             raise ValueError("no segmenter: semantic_w is 0")
         self.segmenter.load_state_dict(state_dict)
+
+    # --------------------------------------------------------------- state
+
+    def _nets(self) -> Dict[str, torch.nn.Module]:
+        nets = {"gen": self.gen.module, "dis_a": self.dis_a,
+                "dis_b": self.dis_b}
+        if self.classifier_sr_a is not None:
+            nets.update(classifier_sr_a=self.classifier_sr_a,
+                        classifier_sr_b=self.classifier_sr_b)
+        return nets
+
+    def _opts(self) -> Dict[str, ExtraAdamState]:
+        opts = {"gen": self.gen_opt, "dis": self.dis_opt}
+        if self.classif_sr_opt is not None:
+            opts["classif_sr"] = self.classif_sr_opt
+        return opts
+
+    def state_dict(self) -> Dict:
+        """The whole training state, by reference (no copy): every
+        trainable net's parameters and buffers (the classifiers' running
+        statistics too), each optimizer's ``ExtraAdamState`` and
+        ``iterations``. The frozen segmenter is not part of it."""
+        return {
+            "iterations": self.iterations,
+            "nets": {k: m.state_dict() for k, m in self._nets().items()},
+            "opt": {k: {"count": o.count, "mu": o.mu, "nu": o.nu,
+                        "params_copy": o.params_copy,
+                        "has_copy": o.has_copy}
+                    for k, o in self._opts().items()}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a ``state_dict()`` into this trainer's tensors, in place
+        (device and memory format stay); the nets and their names must
+        match."""
+        nets, opts = self._nets(), self._opts()
+        if set(state["nets"]) != set(nets) or set(state["opt"]) != set(opts):
+            raise ValueError(
+                f"checkpoint holds nets {sorted(state['nets'])} and "
+                f"optimizers {sorted(state['opt'])}; this config has "
+                f"{sorted(nets)} and {sorted(opts)}")
+        for k, m in nets.items():
+            m.load_state_dict(state["nets"][k])
+        with torch.no_grad():
+            for k, o in opts.items():
+                saved = state["opt"][k]
+                for field in ("mu", "nu", "params_copy"):
+                    dst, src = getattr(o, field), saved[field]
+                    if set(dst) != set(src):
+                        raise ValueError(f"optimizer {k}.{field}: the "
+                                         "checkpoint's names differ")
+                    for name, t in dst.items():
+                        t.copy_(src[name])
+                o.count = int(saved["count"])
+                o.has_copy = bool(saved["has_copy"])
+        self.iterations = int(state["iterations"])
 
     # ------------------------------------------------------------- forwards
 
@@ -418,6 +481,34 @@ class MUNITTrainer:
         self.classif_sr_opt = self._update(self._grads(loss, params),
                                            self.classif_sr_opt, params, lr)
         return _detached({"loss_classifier_sr": loss})
+
+    # ------------------------------------------------------------ sampling
+
+    @torch.no_grad()
+    def sample(self, x_a, x_b) -> Tuple[torch.Tensor, ...]:
+        """The display grid's columns, guided (trainer.py:1474-1515): per
+        direction (x, recon, x_ab, x_ab), each style taken from the other
+        domain's image. With the segmenter, 12 columns: per direction (x,
+        recon, seg(x), x_ab, seg(x_ab), x_ab), each overlay the Cityscapes
+        colours of the segmenter's labels in [0, 1]."""
+        gen = self.gen
+        c_a, s_a = gen.encode(x_a, 1)
+        c_b, s_b = gen.encode(x_b, 2)
+        x_a_recon = gen.decode(c_a, s_a, 1)
+        x_b_recon = gen.decode(c_b, s_b, 2)
+        x_ab = gen.decode(c_a, s_b, 2)
+        x_ba = gen.decode(c_b, s_a, 1)
+        if self.segmenter is None:
+            return (x_a, x_a_recon, x_ab, x_ab, x_b, x_b_recon, x_ba, x_ba)
+
+        def overlay(img):
+            labels = self._segment(img).argmax(dim=-1).cpu().numpy()
+            rgb = np.stack([decode_segmap(lb) for lb in labels])
+            return torch.from_numpy(rgb.astype(np.float32) / 255.0).to(
+                img.device)
+
+        return (x_a, x_a_recon, overlay(x_a), x_ab, overlay(x_ab), x_ab,
+                x_b, x_b_recon, overlay(x_b), x_ba, overlay(x_ba), x_ba)
 
 
 def _detached(m: Dict[str, torch.Tensor], **extra) -> Dict:
