@@ -25,8 +25,13 @@ Knobs (bench.py's, with its defaults):
   run in bf16;
 - BENCH_DEVICE (cuda): without a card the run exits non-zero; ``cpu`` runs
   the kernels' plain versions, for the smoke test only.
-BENCH_MESH=auto and BENCH_REMAT are not ported and raise; BENCH_PARWARM has
-nothing to warm (the port compiles no step). There is no retry: on the card
+BENCH_MESH=auto and BENCH_REMAT are not ported and raise. On the card the
+trainer captures each step variant of the cadence as a CUDA graph at its
+second call and replays it after (``munit_tpu_torch/train/graphs.py``), so
+the warm-up runs ``capture_warmup`` iterations (30 at this spec, 60 with
+extra_adam), which capture every variant before the clock starts, and the
+seconds spent capturing go to stderr; BENCH_PARWARM (the JAX package's
+parallel warm compile) has no counterpart. There is no retry: on the card
 a retry would hide a failure.
 
     python3 bench_torch.py
@@ -42,7 +47,6 @@ import numpy as np
 
 REFERENCE_H100_IMAGES_PER_SEC = 20.0
 BATCH = int(os.environ.get("BENCH_BATCH", "8"))
-WARMUP = 4
 ITERS = int(os.environ.get("BENCH_ITERS", "150"))
 CROP = int(os.environ.get("BENCH_CROP", "256"))
 TINY = os.environ.get("BENCH_TINY", "0") == "1"
@@ -95,13 +99,16 @@ def main():
                          "runs the smoke test's CPU path)")
     from munit_tpu_torch.config import validate
     from munit_tpu_torch.core import ops
-    from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
+    from munit_tpu_torch.train.trainer import (MUNITTrainer, cadence_steps,
+                                               capture_warmup, train_steps)
 
+    card = ""
     if DEVICE == "cuda":
-        log("bench_torch: " + subprocess.run(
+        card = subprocess.run(
             ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip())
+            check=True, timeout=60).stdout.strip()
+        log("bench_torch: " + card)
     conf = validate(spec())
     # production numerics: bf16 conv operands, f32 accumulate and norms
     ops.set_conv_compute(torch.bfloat16 if BF16 else None)
@@ -134,16 +141,37 @@ def main():
         t0 = time.perf_counter()
         run([it])
         log(f"bench_torch: first {kind} step {time.perf_counter() - t0:.3f} s")
-    run(range(WARMUP))
+    eager_peak = (torch.cuda.max_memory_allocated() / 2**30
+                  if DEVICE == "cuda" else 0.0)
+    warmup = capture_warmup(conf)
+    run(range(warmup))
+    graphs = tr._graphs
+    if DEVICE == "cuda":
+        variants = {v for it in range(warmup) for v in cadence_steps(conf, it)}
+        if len(graphs) < len(variants):
+            raise RuntimeError(f"bench_torch: {len(graphs)} graphs after the "
+                               f"warm-up, {len(variants)} step variants")
+        each = ", ".join(f"{key[0]} {sec:.3f}"
+                         for key, sec in graphs.capture_seconds.items())
+        log(f"bench_torch: {len(graphs)} step graphs captured in "
+            f"{sum(graphs.capture_seconds.values()):.3f} s ({each}) in "
+            f"{warmup} warm-up iterations, on {card}")
+    captured = len(graphs)
     sync()
     t0 = time.perf_counter()
-    run(range(WARMUP, WARMUP + ITERS))
+    run(range(warmup, warmup + ITERS))
     dt = time.perf_counter() - t0
+    if len(graphs) != captured:
+        raise RuntimeError("bench_torch: a step was captured on the clock")
     log(f"bench_torch: {ITERS} iterations in {dt:.3f} s, "
         f"{dt / ITERS * 1e3:.3f} ms per iteration")
     if DEVICE == "cuda":
-        log(f"bench_torch: peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"bench_torch: peak memory {eager_peak:.2f} GiB allocated by "
+            f"the eager first steps, "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the "
+            f"captures; the graphs' pool holds "
+            f"{graphs.pool_bytes() / 2**30:.2f} GiB, "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved")
 
     images_per_sec = BATCH * ITERS / dt
     print(json.dumps({

@@ -37,7 +37,13 @@ Phases, each raising on failure (exit code 1):
    then kernel, plain backward, one library call's autograd backward (IN:
    the F.batch_norm view, F.instance_norm beside it) and the byte bound
    timed per shape, the split design beside it, two runs bitwise equal;
-   and the LN backward at batch 16 against a float64 closed form;
+   and the LN backward at batch 16 against a float64 closed form; then
+   (6b) each norm kernel design on the training path (cluster and grid,
+   forward and backward, f32 and bf16) and the moments kernels run alone
+   through the trainer's step graphs (train/graphs.py: eager, captured and
+   replayed, replayed on other inputs), every output bit for bit equal to
+   an eager call, and the launch counts by design those of as many eager
+   calls;
 7. the frozen ResNet34-8s segmenter (seeded random weights: the Cityscapes
    checkpoint is not in the repo) at (2, 256, 256, 3) on the card (TF32
    off) against the CPU, and the agreement of their pseudo-labels;
@@ -47,18 +53,31 @@ Phases, each raising on failure (exit code 1):
    bf16 mode (bf16 conv operands and images, every norm kernel on a bf16
    x, which the launch counts assert); 15 iterations in
    bench.py's cadence (12 dis steps, 3 fused dis+gen steps, 1
-   classifier_sr step) at batch 1 and 8 with every loss finite,
+   classifier_sr step) at batch 1 and 8, as the trainer runs them on a
+   card (each step kind eager at its first call, captured as a CUDA graph
+   at its second, replayed after), with every loss finite,
    loss_sem_seg above 0, and the wrappers' launch counts asserted (the
-   segmenter runs no norm kernel); then training time at batch 1 and 8:
+   segmenter runs no norm kernel; replays counted); then training time at
+   batch 1 and 8, eager and captured on the same trainer:
    each step kind, ms per iteration over the 5-iteration cycle,
-   images/s as bench.py counts them, peak memory, a profile of one fused
-   step (which asserts 84 one-launch norm kernels each way: a cluster
+   images/s as bench.py counts them, peak memory, the graphs and their
+   capture seconds, a profile of one fused step eager and one replayed
+   (each asserts 84 one-launch norm kernels each way: a cluster
    kernel per AdaIN and (64, 64, 256) IN call, a grid kernel per other IN
    and per LN call, and no split-design kernel, and times each of them
    inside the step), the wrappers' launches by design, and the segmenter's
    share (its targets pass and its
    loss forward and backward, timed and profiled apart: no weight-gradient
-   kernel);
+   kernel); then (8c) 15 iterations at batch 1 in parity numerics (TF32
+   off, cuDNN deterministic), two eager trainers and a captured one in
+   lockstep from one seeded state (each iteration from the first eager
+   trainer's state, loaded in place): every loss an iteration takes
+   before its own updates bit for bit; the state bit for bit where the
+   two eager trainers' is, else its mean |difference| within twice
+   theirs, and the losses taken after an update (the fused step's
+   adversarial terms) within 1e-4 relative: the reflect pad's backward
+   adds with atomics, which a repeated run of it shows; the graphs kept
+   across the loads;
 9. one fused step's gradients at batch 1, with the semantic term, on the
    card with TF32 off against the CPU, with TF32 on against float64, and in
    bf16 against the CPU's bf16 and float64, and the pseudo-label flips of
@@ -74,16 +93,19 @@ Phases, each raising on failure (exit code 1):
    seeded 286x286 JPEGs per domain with PNG masks, 20 iterations: every
    step logged and finite, loss_sem_seg above 0, the grids at 10 and 20,
    index.html, snapshots at 10 and 20, the norm launches of the cadence
-   and the 8 sample grids by design, no PIL fallback; `translate` from the
-   step-20 snapshot; (b) resume at batch 1 in bf16 (extra_adam): 11
-   iterations, a checkpoint, a fresh trainer restored bit for bit and 9
-   more against two uninterrupted runs of 20 (within twice their
-   difference in the largest leaf), and the same resume with the anchor
-   flag dropped, which the bit-for-bit check must catch; (c) the loop's
-   images/s at batch 1 and 8 beside phase 8b's fixed-tensor time, the
-   device idle share of a fused step inside the loop, and the loader alone
-   at batch 8 (decode cache, no cache, and the native image ops, which
-   must run).
+   and the 8 sample grids by design, no PIL fallback, and the `--profile 2`
+   trace of two replayed dis steps naming their norm kernels; `translate`
+   from the
+   step-20 snapshot; (b) resume at batch 1 in bf16 (extra_adam),
+   captured: 11 iterations, a checkpoint, a trainer that has captured its
+   steps restored bit for bit in place (its graphs kept) and 9 more
+   against two uninterrupted runs of 20 (within twice their difference in
+   the largest leaf), and the same resume with the anchor flag dropped,
+   which the bit-for-bit check must catch; (c) the loop's images/s at
+   batch 1 and 8 (captured steps; and eager) with its host stages, beside
+   phase 8b's fixed-tensor time, the device idle share of a replayed fused
+   step inside the loop, and the loader alone at batch 8 (decode cache, no
+   cache, and the native image ops, which must run).
 Earlier lines are JSON objects. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
 checkout of the repo, it exits non-zero and prints no result.
@@ -97,11 +119,13 @@ comparison of two trees (parent, change, change, parent).
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -731,10 +755,11 @@ GROUPS = (
 )
 
 
-def device_profile(step, reps):
+def device_profile(step, reps, api=None):
     """[(device ms per step, kernel name, launches per step)] of ``reps``
     runs of ``step`` under torch.profiler, largest first, and the profiled
-    host wall ms per step."""
+    host wall ms per step. ``api``: a dict that gets the host ms per step
+    of each CUDA API call (where the host waits)."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -751,6 +776,9 @@ def device_profile(step, reps):
         if dev > 0 and getattr(ev, "device_type", None) is not None \
                 and "CUDA" in str(ev.device_type):
             rows.append((dev / 1e3 / reps, ev.key, ev.count / reps))
+        elif api is not None and ev.key.startswith("cu"):
+            api[ev.key] = {"host_ms": ev.self_cpu_time_total / 1e3 / reps,
+                           "calls": ev.count / reps}
     rows.sort(reverse=True)
     return rows, wall_ms
 
@@ -1153,10 +1181,12 @@ def numerics_inputs(batch, numerics):
 
 def training_phase(norms, MUNITTrainer, train_steps, conf, b,
                    numerics="tf32"):
-    """15 iterations at batch b on the card in the given numerics, every
-    loss finite, the semantic loss above 0 in every gen step, the wrappers'
-    launches as the cadence predicts (the segmenter adds none), in bf16
-    every one of them on a bf16 x."""
+    """15 iterations at batch b on the card in the given numerics, as the
+    trainer runs them: each step kind eager at its first call, captured at
+    its second, replayed after. Every loss finite, the semantic loss above
+    0 in every gen step, the wrappers' launches as the cadence predicts
+    (replays counted; the segmenter adds none), in bf16 every one of them
+    on a bf16 x; one graph per step kind."""
     set_numerics(numerics)
     tr = new_trainer(MUNITTrainer, conf, "cuda")
     batch = numerics_inputs(train_inputs(b, SEED + b), numerics)
@@ -1183,6 +1213,9 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b,
          launches_on_bf16_x=on_bf16, dy_copies=copies, finite=finite,
          loss_sem_seg=sem,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+         graphs=len(tr._graphs),
+         capture_seconds={step_label(k): v
+                          for k, v in tr._graphs.capture_seconds.items()},
          losses_first={k: float(v) for k, v in metrics[4].items()},
          losses_last={k: float(v) for k, v in metrics[-1].items()})
     check(finite, f"batch {b}: a loss is not finite: {values}")
@@ -1194,6 +1227,8 @@ def training_phase(norms, MUNITTrainer, train_steps, conf, b,
     check(on_bf16 == want_bf16,
           f"batch {b} {numerics}: launches on bf16 x {on_bf16}, want "
           f"{want_bf16}")
+    check(len(tr._graphs) == sum(n > 1 for n in steps.values()),
+          f"batch {b}: {len(tr._graphs)} graphs for the steps {steps}")
     return tr, batch, by_design
 
 
@@ -1341,15 +1376,17 @@ def host_ms(fn, reps):
     return float(np.median(times)), times
 
 
-def train_time_phase(tr, batch, conf, b, numerics="tf32"):
-    """Training time at batch b in the given numerics: each step kind, the
-    5-iteration cycle (4 dis, 1 fused), images/s as bench.py counts them
-    (batch x iterations / seconds, the classifier_sr step included once per
-    15), peak memory, and a profile of one fused step."""
-    set_numerics(numerics)
+def step_times(tr, batch, conf, b, reps):
+    """Host ms (median of rounds, each ending in a synchronise) of each
+    step kind and of the 5-iteration cycle (4 dis, 1 fused), images/s as
+    bench.py counts them (batch x iterations / seconds, the classifier_sr
+    step included once per 15), and the peak memory of these runs."""
     x_a, x_b, m_a, m_b = batch
     lamb = conf["adaptation"]["dfeat_lambda"]
-    reps = 5 if b == 1 else 3
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     dis_ms, _ = host_ms(lambda: tr.dis_update(x_a, x_b), reps)
     fused_ms, _ = host_ms(lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), reps)
     cls_ms, _ = host_ms(lambda: tr.domain_classifier_sr_update(
@@ -1360,35 +1397,92 @@ def train_time_phase(tr, batch, conf, b, numerics="tf32"):
             tr.dis_update(x_a, x_b)
         tr.dis_gen_update(x_a, x_b, m_a, m_b)
     cycle_ms, rounds = host_ms(cycle, reps)
-    per_it = cycle_ms / 5
-    bench_ips = b * TRAIN_ITERS / ((3 * cycle_ms + cls_ms) / 1e3)
-    emit(phase="train_time", batch=b, numerics=numerics,
-         ms_per_iteration=per_it,
-         cycle_ms=cycle_ms, cycle_rounds_ms=rounds, dis_step_ms=dis_ms,
-         fused_step_ms=fused_ms, classifier_sr_step_ms=cls_ms,
-         images_per_s_cycle=b * 5 / (cycle_ms / 1e3),
-         images_per_s_bench=bench_ips,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
-         note="median of host-clock rounds, each ending in a synchronise")
-    rows, wall = device_profile(
-        lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), 3)
-    in_step = check_norm_kernels(rows, conf, b, numerics)
-    busy = sum(r[0] for r in rows)
-    emit(phase="train_profile", batch=b, numerics=numerics,
-         step="fused dis+gen",
-         profiled_wall_ms=wall, unprofiled_ms=fused_ms,
-         device_busy_ms=busy if rows else "not measured",
-         device_idle_share=(1 - busy / fused_ms) if rows else "not measured",
-         by_group_ms=grouped(rows),
-         top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
-              for r in rows[:15]])
-    seg = segmenter_split(tr, batch, b, reps, fused_ms, busy, numerics)
-    return {"ms_per_iteration": per_it, "images_per_s": bench_ips,
-            "cls_ms": cls_ms, "segmenter": seg, "norm_kernels": in_step,
-            "fused_idle_share": (1 - busy / fused_ms) if rows
-            else "not measured",
-            "fused_idle_share_profiled": (1 - busy / wall) if rows
-            else "not measured"}
+    return {"ms_per_iteration": cycle_ms / 5, "cycle_ms": cycle_ms,
+            "cycle_rounds_ms": rounds, "dis_step_ms": dis_ms,
+            "fused_step_ms": fused_ms, "classifier_sr_step_ms": cls_ms,
+            "images_per_s_cycle": b * 5 / (cycle_ms / 1e3),
+            "images_per_s_bench": b * TRAIN_ITERS
+            / ((3 * cycle_ms + cls_ms) / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 2**30,
+            "graph_pool_gb": tr._graphs.pool_bytes() / 2**30,
+            "live_gb": torch.cuda.memory_allocated() / 2**30}
+
+
+def step_label(key):
+    return key[0] + (" extrapolate" if key[1] else "")
+
+
+def train_time_phase(tr, batch, conf, b, numerics="tf32"):
+    """Training time at batch b in the given numerics, eager and captured
+    on the same trainer (its steps were captured by the training phase):
+    each step kind, the 5-iteration cycle, images/s and peak memory of
+    each (reserved: the graphs' pool is reserved, not allocated, between
+    replays); the graphs and the seconds each took to capture; a profile
+    of one fused step eager (which asserts its norm kernels) and one
+    captured (its device busy time and idle share)."""
+    set_numerics(numerics)
+    x_a, x_b, m_a, m_b = batch
+    reps = 5 if b == 1 else 3
+    times = {}
+    for mode, capture in (("eager", False), ("captured", True)):
+        tr._capture = capture
+        times[mode] = step_times(tr, batch, conf, b, reps)
+    eager, captured = times["eager"], times["captured"]
+    emit(phase="train_time", batch=b, numerics=numerics, **times,
+         graphs=len(tr._graphs),
+         capture_seconds={step_label(k): v
+                          for k, v in tr._graphs.capture_seconds.items()},
+         note="median of host-clock rounds, each ending in a synchronise; "
+              "captured: replays of the graphs that the training phase "
+              "captured, on the same trainer; peak_memory_gb: the most "
+              "allocated during the mode's runs (a replay allocates only "
+              "its outputs' copy); graph_pool_gb: what the graphs' one pool "
+              "holds; live_gb: allocated after the runs (nets, optimizer "
+              "state, the graphs' input and output buffers); reserved: the "
+              "process's, after earlier phases")
+    prof = {}
+    for mode, capture in (("eager", False), ("captured", True)):
+        tr._capture = capture
+        tr.dis_gen_update(x_a, x_b, m_a, m_b)
+        api = {}
+        rows, wall = device_profile(
+            lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), 3, api)
+        busy = sum(r[0] for r in rows)
+        step_ms = times[mode]["fused_step_ms"]
+        prof[mode] = {"rows": rows, "busy": busy, "wall": wall,
+                      "idle": (1 - busy / step_ms) if rows
+                      else "not measured",
+                      "idle_profiled": (1 - busy / wall) if rows
+                      else "not measured"}
+        emit(phase="train_profile", batch=b, numerics=numerics,
+             step="fused dis+gen", mode=mode,
+             profiled_wall_ms=wall, unprofiled_ms=step_ms,
+             device_busy_ms=busy if rows else "not measured",
+             device_idle_share=prof[mode]["idle"],
+             kernels_per_step=sum(r[2] for r in rows),
+             host_api_ms=dict(sorted(api.items(),
+                                     key=lambda kv: -kv[1]["host_ms"])[:5]),
+             by_group_ms=grouped(rows),
+             top=[{"ms": r[0], "calls_per_step": r[2], "kernel": r[1][:90]}
+                  for r in rows[:15]])
+    tr._capture = False
+    in_step = check_norm_kernels(prof["eager"]["rows"], conf, b, numerics)
+    in_graph = check_norm_kernels(prof["captured"]["rows"], conf, b,
+                                  numerics, "captured")
+    seg = segmenter_split(tr, batch, b, reps, eager["fused_step_ms"],
+                          prof["eager"]["busy"], numerics)
+    tr._capture = True
+    return {"ms_per_iteration": captured["ms_per_iteration"],
+            "images_per_s": captured["images_per_s_bench"],
+            "eager_ms_per_iteration": eager["ms_per_iteration"],
+            "eager_images_per_s": eager["images_per_s_bench"],
+            "cls_ms": captured["classifier_sr_step_ms"], "segmenter": seg,
+            "norm_kernels": in_step, "norm_kernels_captured": in_graph,
+            "fused_idle_share": prof["captured"]["idle"],
+            "fused_idle_share_profiled": prof["captured"]["idle_profiled"],
+            "eager_fused_idle_share": prof["eager"]["idle"],
+            "eager_fused_idle_share_profiled": prof["eager"]["idle_profiled"]}
 
 
 # The kernel each design launches first, forward and backward: one per call
@@ -1398,12 +1492,13 @@ FIRST_KERNELS = {"cluster": ("norm_cluster_fwd", "norm_cluster_bwd"),
                  "split": ("norm_partials", "norm_bwd_partials")}
 
 
-def check_norm_kernels(rows, conf, b, numerics):
-    """In a fused step's profile: one cluster kernel per AdaIN call and per
-    IN call at the smallest resolution, each way; one grid kernel per other
-    IN call and per LN call (step_launches' counts), each way; no split
-    kernel. That is one one-launch norm kernel per norm call each way.
-    Returns each kernel's device ms per fused step and per call."""
+def check_norm_kernels(rows, conf, b, numerics, mode="eager"):
+    """In a fused step's profile (eager, or its graph's replay): one
+    cluster kernel per AdaIN call and per IN call at the smallest
+    resolution, each way; one grid kernel per other IN call and per LN
+    call (step_launches' counts), each way; no split kernel. That is one
+    one-launch norm kernel per norm call each way. Returns each kernel's
+    device ms per fused step and per call."""
     g = conf["gen"]
     fused = step_launches(conf)["fused"]
     enc = 1 + g["n_downsample"] + 2 * g["n_res"]
@@ -1418,14 +1513,14 @@ def check_norm_kernels(rows, conf, b, numerics):
             got[kernel] = sum(r[2] for r in rows if kernel in r[1])
             ms[kernel] = sum(r[0] for r in rows if kernel in r[1])
             check(got[kernel] == want[design],
-                  f"batch {b} fused step: {got[kernel]} {kernel} launches, "
-                  f"want {want[design]}")
+                  f"batch {b} {mode} fused step: {got[kernel]} {kernel} "
+                  f"launches, want {want[design]}")
     calls = fused["instance_norm"] + fused["adain"] + fused["whole_layer_norm"]
     check(want["cluster"] + want["grid"] == calls,
           f"batch {b}: {calls} norm calls a fused step, {want} one-launch")
     per_call = {k: ms[k] / got[k] for k in got if got[k]}
     emit(phase="train_norm_kernels", batch=b, numerics=numerics,
-         per_fused_step=got, expected=want, one_launch_kernels_each_way=calls,
+         mode=mode, per_fused_step=got, expected=want, one_launch_kernels_each_way=calls,
          ms_per_fused_step=ms, ms_per_call=per_call)
     return {"launches": got, "ms": ms, "ms_per_call": per_call}
 
@@ -1467,6 +1562,263 @@ def segmenter_split(tr, batch, b, reps, fused_ms, fused_busy_ms, numerics):
               "over 2B translations and its backward to them")
     check(not wgrad, f"the frozen segmenter launched wgrad kernels: {wgrad}")
     return out
+
+
+# ---------------------------------------------------------- captured steps
+
+# (wrapper, shape) of each kernel design on the training path, captured
+# alone: cluster at (B, 64, 64, 256), grid elsewhere and for every LN
+CAPTURE_CASES = (("instance_norm", (1, 64, 64, 256), "cluster"),
+                 ("adain", (2, 64, 64, 256), "cluster"),
+                 ("instance_norm", (1, 128, 128, 128), "grid"),
+                 ("instance_norm", (1, 256, 256, 64), "grid"),
+                 ("whole_layer_norm", (1, 128, 128, 128), "grid"),
+                 ("whole_layer_norm", (2, 256, 256, 64), "grid"))
+CAPTURE_CALLS = 4   # through StepGraphs: eager, capture + replay, 2 replays
+
+
+def captured_norm(norms, name, relu=True):
+    """A norm's forward and its backward to x and the affine, as one step
+    body of ``StepGraphs.run``."""
+    def body(x, g, b, dy):
+        a = {"x": x, "g2": g, "b2": b, "g1": g, "b1": b}
+        y, inputs = kernel_graph(norms, name, a, relu)
+        grads = torch.autograd.grad(y, inputs, dy)
+        return {"y": y, **{f"d{i}": t for i, t in enumerate(grads)}}
+    return body
+
+
+def captured_moments(moments):
+    def body(x, mean, inv, g, b):
+        return {"sums": moments.sample_sums(x),
+                "dots": moments.sample_sums(x, x),
+                "y": moments.sample_affine(x, mean, inv, g, b, True)}
+    return body
+
+
+def bitwise(got, want):
+    return all(g.keys() == w.keys() and all(
+        g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]) for k in w)
+        for g, w in zip(got, want))
+
+
+def capture_phase(norms, moments, graphs):
+    """Each norm kernel design alone (cluster, grid; forward and backward,
+    f32 and bf16) and the moments kernels, run CAPTURE_CALLS times through
+    ``train/graphs.py``'s StepGraphs (the first call eager on a side
+    stream, the second captured and replayed, then replays, the last on
+    other inputs): every output bit for bit equal to an eager call on the
+    same inputs, and the launch counts by design those of as many eager
+    calls."""
+    rows = []
+    for name, shape, design in CAPTURE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+            fixed = gap_inputs(*shape, dtype, gen)
+            other = gap_inputs(*shape, dtype, gen)
+            g, b = ((fixed["g2"], fixed["b2"]) if name == "adain"
+                    else (fixed["g1"], fixed["b1"]))
+            runs = [[fixed["x"], g, b, fixed["dy"]]] * (CAPTURE_CALLS - 1)
+            runs.append([other["x"], *((other["g2"], other["b2"])
+                                       if name == "adain" else
+                                       (other["g1"], other["b1"])),
+                         other["dy"]])
+            body = captured_norm(norms, name)
+            want = [body(*r) for r in runs]
+            norms.reset_launches()
+            steps = graphs.StepGraphs("cuda")
+            got = [steps.run(("norm",), body, r) for r in runs]
+            torch.cuda.synchronize()
+            counts = {w: dict(norms.design_launches[w])
+                      for w in (name, name + "_bwd")}
+            want_counts = {w: {d: CAPTURE_CALLS * (d == design)
+                               for d in norms.DESIGNS} for w in counts}
+            row = {"wrapper": name, "shape": list(shape),
+                   "dtype": dtype_name(dtype), "design": design,
+                   "graphs": len(steps), "bitwise": bitwise(got, want),
+                   "launches_by_design": counts}
+            rows.append(row)
+            emit(phase="capture_kernel", **row)
+            check(row["bitwise"] and len(steps) == 1,
+                  f"captured {name} {shape} {dtype}: not bitwise equal to "
+                  f"eager")
+            check(counts == want_counts, f"captured {name} {shape} {dtype}: "
+                  f"launches {counts}, want {want_counts}")
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+        shape = (2, *PROBE_SHAPES[0][1:])
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        mean, inv = (torch.rand(2, generator=gen, device="cuda")
+                     for _ in range(2))
+        g, b = (torch.randn(shape[-1], generator=gen, device="cuda")
+                for _ in range(2))
+        runs = [[x, mean, inv, g, b]] * (CAPTURE_CALLS - 1) + [
+            [x * 2, mean, inv, g, b]]
+        body = captured_moments(moments)
+        want = [body(*r) for r in runs]
+        moments.reset_launches()
+        steps = graphs.StepGraphs("cuda")
+        got = [steps.run(("moments",), body, r) for r in runs]
+        torch.cuda.synchronize()
+        counts = dict(moments.launches)
+        want_counts = {"sample_sums": 2 * CAPTURE_CALLS,
+                       "sample_affine": CAPTURE_CALLS}
+        row = {"wrapper": "moments", "shape": list(shape),
+               "dtype": dtype_name(dtype), "graphs": len(steps),
+               "bitwise": bitwise(got, want), "launches": counts}
+        rows.append(row)
+        emit(phase="capture_kernel", **row)
+        check(row["bitwise"], f"captured moments {dtype}: not bitwise")
+        check(counts == want_counts,
+              f"captured moments launches {counts}, want {want_counts}")
+    norms.reset_launches()
+    moments.reset_launches()
+    return rows
+
+
+def pad_backward_repeats(reps=8):
+    """Distinct results of one reflect pad's backward (3 pixels, as the
+    generator's 7x7 convs pad) run ``reps`` times on one input: its CUDA
+    kernel adds the reflected gradients with atomics."""
+    from munit_tpu_torch.core import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    x = torch.randn((1, 256, 256, 64), generator=gen, device="cuda")
+    dy = torch.randn((1, 262, 262, 64), generator=gen, device="cuda")
+    distinct = []
+    for _ in range(reps):
+        xg = x.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(ops.pad2d(xg, 3, "reflect"), xg, dy)
+        if not any(torch.equal(grad, d) for d in distinct):
+            distinct.append(grad)
+    return len(distinct)
+
+
+# The losses of an iteration that it takes after one of its own updates:
+# the fused step's adversarial terms and total (after its D update), and the
+# classifier_sr step's loss when it follows a fused step (after the
+# generator's update). Against another implementation of the same step the
+# repo holds losses at rtol 1e-4 (tests/test_torch_train_cli.py).
+POST_UPDATE = ("loss_gen_adv_a", "loss_gen_adv_b", "loss_gen_total")
+POST_UPDATE_RTOL = 1e-4
+
+
+def post_update(conf, cadence_steps, it):
+    kinds = [k for k, _ in cadence_steps(conf, it)]
+    if "dis_gen" not in kinds:
+        return set()
+    return set(POST_UPDATE) | ({"loss_classifier_sr"}
+                               if "classifier_sr" in kinds else set())
+
+
+def capture_parity_phase(MUNITTrainer, cadence_iteration, cadence_steps,
+                         conf):
+    """TRAIN_ITERS iterations of bench.py's cadence at batch 1 in parity
+    numerics (TF32 off, cuDNN deterministic), in lockstep from one seeded
+    state: before each iteration a second eager trainer and a captured
+    one (each step kind eager at its first call, captured at its second,
+    replayed after) take the first eager trainer's state in place, then
+    all three run the iteration, so no difference carries into the next
+    one. Every loss that an iteration takes before any of its own updates
+    must be equal bit for bit. The reflect pad's backward adds with
+    atomics (run repeatedly here, it shows how many results one input
+    gives), so the updates may differ: the captured trainer's state must
+    be bit for bit the first eager one's where the two eager trainers'
+    are, and otherwise its mean |difference| over every element of the
+    state, summed over the iterations, within twice theirs (the largest
+    leaf's difference, a maximum over a few elements that the atomics
+    pick at random, is printed); the losses taken after an update of the
+    same iteration (POST_UPDATE) within POST_UPDATE_RTOL. The captured
+    trainer keeps its graphs across the loads."""
+    set_numerics("tf32_off")
+    torch.backends.cudnn.deterministic = True
+    batch = train_inputs(1, SEED + 1)
+    from munit_tpu_torch.kernels import norms
+    trainers = {}
+    for name, capture in (("eager", False), ("eager_again", False),
+                          ("captured", True)):
+        tr = MUNITTrainer(conf, "cuda", _capture=capture)
+        tr.init(torch.Generator().manual_seed(SEED))
+        trainers[name] = tr
+    eager = trainers["eager"]
+    stats = {k: {"max_abs_leaf_diff": 0.0, "mean_abs_diff_sum": 0.0,
+                 "bitwise_leaf_iterations": 0,
+                 "pre_update_losses": 0, "pre_update_losses_differing": 0,
+                 "post_update_max_rel_diff": 0.0, "losses_differing": []}
+             for k in ("captured", "eager_again")}
+    launches = {}
+    for it in range(TRAIN_ITERS):
+        for name in ("captured", "eager_again"):
+            trainers[name].load_state_dict(eager.state_dict())
+        out = {}
+        for name, tr in trainers.items():
+            tr.iterations = it
+            norms.reset_launches()
+            out[name] = cadence_iteration(tr, conf, it, *batch)
+            launches.setdefault(name, Counter()).update(norms.launches)
+        torch.cuda.synchronize()
+        ref = state_leaves(eager)
+        late = post_update(conf, cadence_steps, it)
+        for name in ("captured", "eager_again"):
+            st, m, w = stats[name], out[name], out["eager"]
+            state = state_leaves(trainers[name])
+            leaf = largest_difference(state, ref)
+            st["max_abs_leaf_diff"] = max(st["max_abs_leaf_diff"], leaf)
+            st["mean_abs_diff_sum"] += (
+                sum((v - ref[0][k]).abs().sum().item()
+                    for k, v in state[0].items())
+                / sum(v.numel() for v in ref[0].values()))
+            st["bitwise_leaf_iterations"] += leaf == 0
+            for k in w:
+                if k == "lr":
+                    continue
+                if not torch.equal(m[k], w[k]):
+                    st["losses_differing"].append(
+                        (it, k, float(m[k]), float(w[k])))
+                if k in late:
+                    st["post_update_max_rel_diff"] = max(
+                        st["post_update_max_rel_diff"],
+                        abs(float(m[k]) - float(w[k])) / abs(float(w[k])))
+                else:
+                    st["pre_update_losses"] += 1
+                    st["pre_update_losses_differing"] += not torch.equal(
+                        m[k], w[k])
+    graphs = len(trainers["captured"]._graphs)
+    distinct = pad_backward_repeats()
+    got, noise = stats["captured"], stats["eager_again"]
+    emit(phase="capture_parity", batch=1, numerics="tf32_off",
+         cudnn_deterministic=True, iterations=TRAIN_ITERS,
+         mode="lockstep: each iteration from the first eager trainer's state",
+         graphs=graphs, captured_vs_eager=got, eager_vs_eager=noise,
+         post_update_losses=list(POST_UPDATE) + ["loss_classifier_sr after "
+                                                 "a fused step"],
+         post_update_rtol=POST_UPDATE_RTOL,
+         launches_equal=launches["captured"] == launches["eager"],
+         reflect_pad_backward_distinct_results_of_8=distinct,
+         note="pre-update losses bit for bit; the state bit for bit where "
+              "eager_vs_eager is, else mean_abs_diff_sum (the state's mean "
+              "|diff| over all its elements, summed over the iterations) "
+              "within twice eager_vs_eager's; post-update losses within "
+              "post_update_rtol")
+    check(launches["captured"] == launches["eager"],
+          f"captured launches {launches['captured']}, eager "
+          f"{launches['eager']}")
+    check(graphs == 2, f"{graphs} graphs after {TRAIN_ITERS} iterations of "
+          f"loads: load_state_dict dropped the captured steps")
+    check(got["pre_update_losses_differing"] == 0,
+          f"losses before any update differ from eager's: {got}")
+    check(got["post_update_max_rel_diff"] <= POST_UPDATE_RTOL,
+          f"losses after an update differ from eager's: {got}")
+    if noise["bitwise_leaf_iterations"] == TRAIN_ITERS:
+        check(got["bitwise_leaf_iterations"] == TRAIN_ITERS,
+              f"captured state differs from eager where eager is bitwise: "
+              f"{got}")
+    else:
+        check(got["mean_abs_diff_sum"] <= 2 * noise["mean_abs_diff_sum"],
+              f"captured {got} against eager-to-eager {noise}")
+    torch.backends.cudnn.deterministic = False
+    del eager, trainers
+    torch.cuda.empty_cache()
+    return got, noise
 
 
 # ---------------------------------------------------------- bench_torch
@@ -1709,8 +2061,12 @@ finally:
                    "launches_on_bf16_x": norms.bf16_launches,
                    "image_paths": dict(transforms.paths)}, f)
 """
+CLI_PROFILE = 2     # --profile: iterations 2-3, replays of the dis step
 RESUME_ITERS, RESUME_SPLIT = 20, 11   # an odd split: mid-extrapolation
-FEED_WARM, FEED_ITERS = 10, 40        # the loop's first window dropped
+RESUME_WARM = 10    # iterations a trainer runs (and captures) before resume
+# the loop's first 30 iterations dropped: each step kind's first call runs
+# eagerly and its second captures (the classifier_sr step's at 14 and 29)
+FEED_WARM, FEED_ITERS = 30, 60
 
 
 def write_train_data(root: Path) -> dict:
@@ -1760,6 +2116,14 @@ def sample_calls(conf, iters):
                for it in range(iters))
 
 
+def replayed_norm_kernels(trace: Path) -> dict:
+    """Kernel events of each norm forward design in a chrome trace."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names)
+            for k in ("norm_cluster_fwd", "norm_grid_fwd")}
+
+
 def cli_phase(norms, get_config, tmp: Path):
     """12(a): `python -m munit_tpu_torch train` on a copy of config_256
     (bf16, semantic_w 3, full width) over seeded JPEGs in a subprocess,
@@ -1772,7 +2136,8 @@ def cli_phase(norms, get_config, tmp: Path):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", CLI_RUNNER, str(counts_file), "train",
-         "--config", str(cfg), "--output_path", str(tmp / "cli")],
+         "--config", str(cfg), "--output_path", str(tmp / "cli"),
+         "--profile", str(CLI_PROFILE)],
         cwd=ROOT, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0,
@@ -1798,6 +2163,20 @@ def cli_phase(norms, get_config, tmp: Path):
         norms, conf, {k: v for k, v in steps.items() if k != "sample"})
     want_design = designs_of_calls(norms, want, PATH_DESIGN_SHARE)
     ips = [m["images_per_sec"] for m in lines if "images_per_sec" in m]
+    traced = replayed_norm_kernels(run / "trace" / "trace.json")
+    want_traced = designs_of_calls(
+        norms, {k: CLI_PROFILE * n
+                for k, n in step_launches(conf)["dis"].items()},
+        PATH_DESIGN_SHARE)
+    want_traced = {f"norm_{d}_fwd": sum(v[d] for v in want_traced.values())
+                   for d in ("cluster", "grid")}
+    emit(phase="train_cli_profile", iterations=[2, 1 + CLI_PROFILE],
+         norm_kernels=traced, expected=want_traced,
+         note="--profile: the trace of iterations 2-3, two replays of the "
+              "dis step graph (captured at iteration 1); its norm forward "
+              "kernels by name")
+    check(traced == want_traced,
+          f"--profile saw {traced} in replays, want {want_traced}")
     emit(phase="train_cli", seconds_incl_start=wall, iterations=CLI_ITERS,
          steps=steps, logged_steps=sorted(losses), finite=finite,
          loss_sem_seg=sem, images=images, snapshots=snapshots,
@@ -1903,8 +2282,10 @@ def restored_exactly(a, b):
 
 
 def resume_phase(MUNITTrainer, train_steps, conf, tmp: Path):
-    """12(b): at batch 1 in bf16, two uninterrupted runs of 20 iterations,
-    then 11, a checkpoint, a fresh trainer, resume and 9 more. The fresh
+    """12(b): at batch 1 in bf16, captured as the trainer runs on a card,
+    two uninterrupted runs of 20 iterations, then 11, a checkpoint, a
+    trainer of other weights that has run (and captured) 10 iterations,
+    resume into it in place, its graphs kept, and 9 more. The fresh
     trainer's state must equal the saved one bit for bit (counters and the
     anchor flag too). Conv and pad backward kernels may use atomics on the
     card, so after the 9 iterations the resumed run is held against the
@@ -1954,16 +2335,25 @@ def resume_phase(MUNITTrainer, train_steps, conf, tmp: Path):
     noise = part_differences(full[1], full[0])
     out = {}
     for name in ("resumed", "anchor_dropped"):
+        # a trainer that has captured its steps on other weights, so that
+        # the resume runs on graphs captured before load_state_dict
         tr = trainer(SEED + 1)
+        run(tr, 0, RESUME_WARM)
+        graphs_before = len(tr._graphs)
         start = checkpoint.resume(tr, ckpt)
         if name == "anchor_dropped":
             tr.dis_opt.has_copy = False     # the planted fault
         not_restored = restored_exactly(state_leaves(tr), saved)
+        graphs_kept = len(tr._graphs)
         run(tr, start, RESUME_ITERS)
         final = state_leaves(tr)
+        graphs_after = len(tr._graphs)
         del tr
         parts = part_differences(final, full[0])
         out[name] = {"resumed_from": start, "not_restored": not_restored,
+                     "graphs_before_resume": graphs_before,
+                     "graphs_after_resume": graphs_kept,
+                     "graphs_at_the_end": graphs_after,
                      "max_abs_diff": largest_difference(final, full[0]),
                      "mean_abs_diff_by_part": parts,
                      "parts_over_bound": [k for k in parts
@@ -1994,6 +2384,8 @@ def resume_phase(MUNITTrainer, train_steps, conf, tmp: Path):
     check(bad["not_restored"] == ["opt/dis/has_copy"],
           f"the planted fault (anchor flag dropped) read as not restored: "
           f"{bad['not_restored'][:5]}")
+    check(ok["graphs_before_resume"] == ok["graphs_after_resume"] > 0,
+          f"load_state_dict dropped the captured steps: {ok}")
     torch.cuda.empty_cache()
 
 
@@ -2031,13 +2423,15 @@ class MemoryLoader:
 
 
 def feed_phase(norms, MUNITTrainer, get_config, data, fixed, tmp: Path):
-    """12(c): the loop's images/s at batch 1 and 8 in bf16 (40 iterations
-    of train_loop with the CLI's loaders, the first window of 10
-    dropped) beside phase 8b's ms per iteration on tensors already on the
-    card, and beside 30 more iterations fed from batches decoded once (the
-    feed's host-to-device stage without the decode threads); the device
-    idle share of a fused step inside the loop at batch 8 (its second,
-    profiled as it runs); then the loader alone at batch 8."""
+    """12(c): the loop's images/s at batch 1 and 8 in bf16 (60 iterations
+    of train_loop with the CLI's loaders, the first 30 dropped, so that
+    every step kind replays its graph) and the host's seconds in each
+    stage of an iteration, beside phase 8b's ms per iteration on tensors
+    already on the card (captured and eager), beside 30 more iterations fed
+    from batches decoded once (the feed's host-to-device stage without the
+    decode threads) and 30 more with eager steps; the device idle share of
+    a fused step inside the loop at batch 8 (its third, a replay, profiled
+    as it runs); then the loader alone at batch 8."""
     from munit_tpu_torch.cli.train import build_loaders, load_segmenter
     from munit_tpu_torch.data import transforms
     from munit_tpu_torch.data.datasets import ImageFilelist, ImageMaskDataset
@@ -2055,28 +2449,33 @@ def feed_phase(norms, MUNITTrainer, get_config, data, fixed, tmp: Path):
         load_segmenter(tr, conf)
         loaders = build_loaders(conf, seed=SEED)
         prof = {}
-        if b == 8:
-            orig, calls = tr.dis_gen_update, []
+        orig, calls = tr.dis_gen_update, []
 
-            def fused(*a, **k):
-                calls.append(1)
-                if len(calls) != 2:
-                    return orig(*a, **k)
-                res = []
-                rows, wall = device_profile(
-                    lambda: res.append(orig(*a, **k)), 1)
-                busy = sum(r[0] for r in rows)
-                prof.update(profiled_wall_ms=wall, device_busy_ms=busy,
-                            device_idle_share=1 - busy / wall,
-                            by_group_ms=grouped(rows))
-                return res[0]
-            tr.dis_gen_update = fused
+        def fused(*a, **k):
+            calls.append(1)
+            if len(calls) != 3:
+                return orig(*a, **k)
+            res, api = [], {}
+            rows, wall = device_profile(
+                lambda: res.append(orig(*a, **k)), 1, api)
+            busy = sum(r[0] for r in rows)
+            prof.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                        device_idle_share=1 - busy / wall,
+                        by_group_ms=grouped(rows),
+                        host_api_ms=dict(sorted(
+                            api.items(), key=lambda kv: -kv[1]["host_ms"])[:8]))
+            return res[0]
+        tr.dis_gen_update = fused
         train_loop(tr, conf, loaders, str(tmp / f"feed{b}" / "warm"),
                    max_iter=FEED_WARM, device="cuda")
         steady = tmp / f"feed{b}" / "steady"
+        host = {}
         train_loop(tr, conf, loaders, str(steady), start_iteration=FEED_WARM,
-                   max_iter=FEED_ITERS, device="cuda")
+                   max_iter=FEED_ITERS, device="cuda", host_seconds=host)
         span = FEED_ITERS - FEED_WARM
+        check(host["iterations"] == span, f"batch {b}: host stages {host}")
+        host_ms_per_it = {k: v * 1e3 / span for k, v in host.items()
+                          if k != "iterations"}
 
         def loop_rate(name, loop_conf, feed, start):
             """The loop's images_per_sec over ``span`` iterations."""
@@ -2096,13 +2495,21 @@ def feed_phase(norms, MUNITTrainer, get_config, data, fixed, tmp: Path):
         mem_ips = [loop_rate("memory", conf, {k: MemoryLoader(v) for k, v
                                               in loaders.items()},
                              FEED_ITERS)]
+        tr._capture = False
+        eager_ips = loop_rate("eager", conf, loaders, FEED_ITERS + span)
+        tr._capture = True
         fixed_ms = fixed[b]["ms_per_iteration"]
         out[b] = {"loop_images_per_sec": ips[0],
                   "loop_ms_per_iteration": b * 1e3 / ips[0],
+                  "loop_host_ms_per_iteration": host_ms_per_it,
                   "memory_fed_loop_images_per_sec": mem_ips[0],
                   "memory_fed_loop_ms_per_iteration": b * 1e3 / mem_ips[0],
+                  "eager_loop_images_per_sec": eager_ips,
+                  "eager_loop_ms_per_iteration": b * 1e3 / eager_ips,
                   "fixed_tensor_ms_per_iteration": fixed_ms,
                   "fixed_tensor_images_per_s": fixed[b]["images_per_s"],
+                  "eager_fixed_tensor_ms_per_iteration":
+                      fixed[b]["eager_ms_per_iteration"],
                   "feed_share": 1 - fixed_ms / (b * 1e3 / ips[0])}
         if prof:
             prof["fixed_tensor_fused_step_idle_share"] = \
@@ -2113,8 +2520,13 @@ def feed_phase(norms, MUNITTrainer, get_config, data, fixed, tmp: Path):
         emit(phase="feed_loop", batch=b, numerics="bf16",
              iterations=FEED_ITERS - FEED_WARM, **out[b],
              note="images_per_sec: the loop's metrics.jsonl over iterations "
-                  "10-39 (bench.py's cadence, the classifier_sr step twice); "
-                  "memory fed: iterations 40-69 from 2 batches decoded once; "
+                  "30-59 (bench.py's cadence, the classifier_sr step twice, "
+                  "every step a replay); host ms: the loop's own stages "
+                  "over those iterations (next_batch: waiting on the feed; "
+                  "step: issuing the steps; bookkeeping: the rest, with the "
+                  "metric flush that waits for the card); memory fed: "
+                  "iterations 60-89 from 2 batches decoded once; eager: "
+                  "iterations 90-119, the CLI's loaders, eager steps; "
                   "fixed tensor: phase 8b's 5-iteration cycle, batch "
                   "already on the card; feed_share: the loop's time per "
                   "iteration beyond that; the in-loop fused step's idle "
@@ -2308,7 +2720,10 @@ def main() -> int:
     from munit_tpu_torch.nn.generator import GenBundle
     from munit_tpu_torch.nn.resnet import ResNet34_8s, seg_preprocess
     from munit_tpu_torch.tools import normprobe
-    from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
+    from munit_tpu_torch.train import graphs
+    from munit_tpu_torch.train.trainer import (MUNITTrainer,
+                                               cadence_iteration,
+                                               cadence_steps, train_steps)
 
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -2342,6 +2757,7 @@ def main() -> int:
     parity_mode(True)
     bwd_err, bwd_times = backward_phase(norms)
     ln_f64_phase(norms)
+    capture_phase(norms, moments, graphs)
 
     segmenter_phase(ResNet34_8s, seg_preprocess)
 
@@ -2358,6 +2774,8 @@ def main() -> int:
                 fixed[b] = res
             del tr, batch
             torch.cuda.empty_cache()
+    capture_parity_phase(MUNITTrainer, cadence_iteration, cadence_steps,
+                         train_conf)
     grads_phase(MUNITTrainer, train_conf, removed_by_norm)
     bench_phase()
 

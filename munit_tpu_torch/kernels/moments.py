@@ -41,6 +41,12 @@ NAMES = ("sample_sums", "sample_affine")
 launches = {n: 0 for n in NAMES}
 
 
+def counter_dicts() -> tuple:
+    """The dicts of counts: ``train/graphs.py`` adds a captured step's to
+    them on every replay, as in ``norms.counter_dicts``."""
+    return (launches,)
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0

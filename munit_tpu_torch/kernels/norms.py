@@ -69,9 +69,15 @@ bf16_launches = {k: 0 for k in launches}
 dy_copies = {n: 0 for n in NAMES}
 
 
+def counter_dicts() -> tuple:
+    """Every dict of counts above. A CUDA graph replays launches without
+    running this module, so ``train/graphs.py`` adds each captured step's
+    counts to them on every replay."""
+    return (launches, bf16_launches, dy_copies, *design_launches.values())
+
+
 def reset_launches() -> None:
-    for d in (launches, bf16_launches, dy_copies,
-              *design_launches.values()):
+    for d in counter_dicts():
         for k in d:
             d[k] = 0
 

@@ -24,6 +24,8 @@ with the seg-head step (ROADMAP queue 1, item 11).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -166,13 +168,21 @@ class ResNet34_8s(nn.Module):
                 m.running_var.fill_(1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(dtype: torch.dtype, device: torch.device):
+    """The normalization's mean and std on ``device``, made once: a step
+    captured as a CUDA graph (``train/graphs.py``) may copy nothing from
+    the host."""
+    return (torch.tensor(_IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(_IMAGENET_STD, dtype=dtype, device=device))
+
+
 def imagenet_normalize(img01: torch.Tensor) -> torch.Tensor:
     """[0, 1] NHWC → ImageNet normalization (utils.py:159-174). The
     constants are at least f32, as the JAX package's ``jnp.asarray`` ones
     are, so a bf16 image becomes an f32 segmenter input."""
-    dtype = torch.promote_types(img01.dtype, torch.float32)
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=dtype, device=img01.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=dtype, device=img01.device)
+    mean, std = _imagenet_stats(
+        torch.promote_types(img01.dtype, torch.float32), img01.device)
     return (img01 - mean) / std
 
 

@@ -21,6 +21,13 @@ Semantics of the reference (extraadam.py:14-168, driven by trainer.py:
 ``adam`` is the same update that never extrapolates (``optimizer: adam``).
 The update runs in place on the parameters and the state, with PyTorch's
 multi-tensor (``torch._foreach_*``) ops, one launch per op for all leaves.
+
+A half-step is split as the trainer's captured steps need it:
+``extra_adam_apply`` is its device work, with lr and the bias correction
+given as floats or as 0-dim tensors on the device (a CUDA graph replays
+whatever those tensors hold, where a float would be baked into it);
+``extra_adam_advance`` moves the host's ``count`` and ``has_copy``, once
+per real step. ``extra_adam_update`` is both.
 """
 
 from __future__ import annotations
@@ -48,14 +55,23 @@ def extra_adam_init(params: Dict[str, torch.Tensor]) -> ExtraAdamState:
     return ExtraAdamState(0, zeros(), zeros(), zeros(), False)
 
 
+def bias_correction(count: int, b1: float = 0.5, b2: float = 0.999) -> float:
+    """sqrt(1 - b2^t) / (1 - b1^t) of the t-th half-step: its step size for
+    an lr of 1."""
+    return math.sqrt(1.0 - b2 ** count) / (1.0 - b1 ** count)
+
+
 @torch.no_grad()
-def extra_adam_update(grads: Dict[str, torch.Tensor], state: ExtraAdamState,
-                      params: Dict[str, torch.Tensor], lr: float,
-                      extrapolate: bool, b1: float = 0.5, b2: float = 0.999,
-                      eps: float = 1e-8,
-                      weight_decay: float = 0.0) -> ExtraAdamState:
-    """One half-step, in place on ``params`` and ``state``; returns the
-    state. ``grads`` and ``params`` have the same names."""
+def extra_adam_apply(grads: Dict[str, torch.Tensor], state: ExtraAdamState,
+                     params: Dict[str, torch.Tensor], lr, correction,
+                     extrapolate: bool, b1: float = 0.5, b2: float = 0.999,
+                     eps: float = 1e-8, weight_decay: float = 0.0) -> None:
+    """The device work of one half-step, in place on ``params`` and the
+    state's tensors, with the step size lr * correction (``correction``:
+    ``bias_correction(state.count + 1)``). lr and correction are floats or
+    0-dim float32 tensors on the parameters' device. Reads
+    ``state.has_copy`` and changes no host value. ``grads`` and ``params``
+    have the same names."""
     names = list(params)
     p: List[torch.Tensor] = [params[k] for k in names]
     g: List[torch.Tensor] = [grads[k] for k in names]
@@ -67,8 +83,7 @@ def extra_adam_update(grads: Dict[str, torch.Tensor], state: ExtraAdamState,
     m = [state.mu[k] for k in names]
     v = [state.nu[k] for k in names]
     pc = [state.params_copy[k] for k in names]
-    count = state.count + 1
-    step_size = lr * math.sqrt(1.0 - b2 ** count) / (1.0 - b1 ** count)
+    neg_step = -(lr * correction)
     if weight_decay:
         g = torch._foreach_add(g, p, alpha=weight_decay)
     torch._foreach_mul_(m, b1)
@@ -82,10 +97,30 @@ def extra_adam_update(grads: Dict[str, torch.Tensor], state: ExtraAdamState,
             torch._foreach_copy_(pc, p)
     elif state.has_copy:
         torch._foreach_copy_(p, pc)
-    torch._foreach_addcdiv_(p, m, denom, value=-step_size)
-    state.count = count
+    # p + (-step * m) / denom, the JAX package's order of operations
+    torch._foreach_addcdiv_(p, torch._foreach_mul(m, neg_step), denom)
+
+
+def extra_adam_advance(state: ExtraAdamState,
+                       extrapolate: bool) -> ExtraAdamState:
+    """The host's part of one half-step: the count, and whether an anchor
+    is held."""
+    state.count += 1
     state.has_copy = bool(extrapolate)
     return state
+
+
+def extra_adam_update(grads: Dict[str, torch.Tensor], state: ExtraAdamState,
+                      params: Dict[str, torch.Tensor], lr,
+                      extrapolate: bool, b1: float = 0.5, b2: float = 0.999,
+                      eps: float = 1e-8,
+                      weight_decay: float = 0.0) -> ExtraAdamState:
+    """One half-step, in place on ``params`` and ``state``; returns the
+    state. lr: a float or a 0-dim tensor."""
+    extra_adam_apply(grads, state, params, lr,
+                     bias_correction(state.count + 1, b1, b2), extrapolate,
+                     b1, b2, eps, weight_decay)
+    return extra_adam_advance(state, extrapolate)
 
 
 def adam(grads, state: ExtraAdamState, params, lr: float, b1: float = 0.5,

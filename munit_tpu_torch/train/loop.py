@@ -13,6 +13,10 @@ Per iteration (config_256 in parens):
 - sample grids at image_save_iter / image_display_iter, a checkpoint at
   snapshot_save_iter; the stop event snapshots and returns.
 
+On a card the trainer's steps run as CUDA graphs (``train/graphs.py``):
+each step kind's first call runs eagerly, its second captures, later ones
+replay.
+
 A non-finite logged loss raises ``TrainingDiverged`` when its window is
 written, which happens before any checkpoint is committed, so the last
 checkpoint is never a poisoned one. The DANN, output-level DA,
@@ -33,6 +37,7 @@ from munit_tpu_torch.core.ops import conv_compute_dtype
 from munit_tpu_torch.data.loader import device_prefetch
 from munit_tpu_torch.eval.sample import write_2images
 from munit_tpu_torch.io.checkpoint import CheckpointWriter
+from munit_tpu_torch.train.trainer import cadence_iteration
 from munit_tpu_torch.utils.html import write_html
 from munit_tpu_torch.utils.logging import MetricLogger
 
@@ -120,7 +125,8 @@ def train_loop(trainer, conf, loaders, output_directory: str,
                display_batches=None,
                profile: Optional[tuple] = None,
                stop=None,
-               device=None) -> int:
+               device=None,
+               host_seconds: Optional[dict] = None) -> int:
     """Train from ``start_iteration`` to ``max_iter`` (the config's when
     None); returns the iteration reached.
 
@@ -129,14 +135,17 @@ def train_loop(trainer, conf, loaders, output_directory: str,
     test_b) tensors for the sample grids. profile: (first iteration,
     iterations). stop: a threading.Event; when set, the loop snapshots the
     whole state and returns. device: where the batches go (the trainer's
-    when None)."""
+    when None). host_seconds: a dict to which the host's seconds in each
+    stage of an iteration are added: "next_batch" (waiting on the feed),
+    "step" (issuing the steps), "bookkeeping" (the rest: metrics, their
+    flush, which waits for the card, grids, checkpoints), and
+    "iterations"."""
     check_loop_ported(conf, loaders)
     device = torch.device(device if device is not None else trainer.device)
     logger = logger or MetricLogger(output_directory)
     ckpt_dir = os.path.join(output_directory, "checkpoints")
     img_dir = os.path.join(output_directory, "images")
     max_iter = max_iter or conf["max_iter"]
-    ad = conf["adaptation"]
     display = int(conf["display_size"])
     # bf16 conv operands take bf16 images, as the JAX loop feeds them
     act_dt = conv_compute_dtype()
@@ -173,19 +182,15 @@ def train_loop(trainer, conf, loaders, output_directory: str,
         while iterations < max_iter:
             if prof is not None:
                 prof.at(iterations)
+            t_batch = time.perf_counter()
             ba, bb = next(it_a), next(it_b)
+            t_step = time.perf_counter()
             trainer.iterations = iterations
             x_a, mask_a = ba["image"], ba["mask"]
             x_b, mask_b = bb["image"], bb["mask"]
-            if (iterations + 1) % conf["ratio_disc_gen"] == 0:
-                metrics = dict(trainer.dis_gen_update(x_a, x_b,
-                                                      mask_a, mask_b))
-            else:
-                metrics = dict(trainer.dis_update(x_a, x_b))
-            if trainer.use_classifier_sr and \
-                    (iterations + 1) % ad["classif_frequency"] == 0:
-                metrics.update(trainer.domain_classifier_sr_update(
-                    x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
+            metrics = cadence_iteration(trainer, conf, iterations, x_a, x_b,
+                                        mask_a, mask_b)
+            t_rest = time.perf_counter()
 
             tput_imgs += int(x_a.shape[0])
             if (iterations + 1) % conf["log_iter"] == 0:
@@ -222,6 +227,12 @@ def train_loop(trainer, conf, loaders, output_directory: str,
                 writer().save(trainer.state_dict(), iterations + 1)
 
             iterations += 1
+            if host_seconds is not None:
+                for k, v in (("next_batch", t_step - t_batch),
+                             ("step", t_rest - t_step),
+                             ("bookkeeping", time.perf_counter() - t_rest),
+                             ("iterations", 1)):
+                    host_seconds[k] = host_seconds.get(k, 0) + v
             if stop is not None and stop.is_set():
                 flush()
                 writer().save(trainer.state_dict(), iterations)

@@ -28,6 +28,15 @@ is left; the optimizers update the parameters in place. With guided
 styles no random style reaches a loss (trainer.py:850-853, 1137-1139), so
 none is drawn.
 
+Each of the four update steps is host bookkeeping around a device body,
+as the JAX trainer's jitted ``_*_step_impl`` are: the host reads the lr
+and the ExtraAdam phase, writes the lr and each optimizer's bias correction
+into device scalars, runs the body, then advances the optimizers' counts
+and anchor flags. The body reads no Python value that changes between
+iterations. On a CUDA device the bodies run as CUDA graphs, captured once
+per key and replayed (``train/graphs.py``); on the CPU they run eagerly.
+``dis_gen_grads`` and ``sample`` always run eagerly.
+
 Not ported yet, and refused when its weight is on: VGG (``vgg_w``), DANN
 (``domain_adv_w``), synthetic pairs (``recon_synth_w``) and with them the
 ground-truth semantic targets (``has_sem_gt``, ``merge_class_matrix``),
@@ -38,6 +47,8 @@ seg head (``sem_seg_lambda``), ``grad_accum > 1`` and ``guided: 0``
 
 from __future__ import annotations
 
+import math
+from collections import Counter
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -51,9 +62,12 @@ from munit_tpu_torch.nn import classifiers, discriminator
 from munit_tpu_torch.nn.generator import GenBundle
 from munit_tpu_torch.nn.resnet import NUM_CLASSES, ResNet34_8s, seg_preprocess
 from munit_tpu_torch.optim.extra_adam import (ExtraAdamState,
-                                              extra_adam_init,
-                                              extra_adam_update)
+                                              bias_correction,
+                                              extra_adam_advance,
+                                              extra_adam_apply,
+                                              extra_adam_init)
 from munit_tpu_torch.optim.schedule import from_config as schedule_from_config
+from munit_tpu_torch.train import graphs
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -98,7 +112,9 @@ class MUNITTrainer:
     """The config's nets, optimizer states and training steps on one
     device. Seed the weights with ``init(generator)`` or load them."""
 
-    def __init__(self, conf: Dict, device="cuda"):
+    def __init__(self, conf: Dict, device="cuda", _capture: bool = True):
+        """``_capture=False`` runs the steps eagerly on a card too: only for
+        comparing the two on the same state."""
         check_ported(conf)
         if dis_pyramid_floor(conf) < 1:
             raise ValueError(pyramid_message(conf))
@@ -138,6 +154,13 @@ class MUNITTrainer:
         self.dis_opt = extra_adam_init(self.dis_params())
         self.classif_sr_opt = (extra_adam_init(self.classifier_params())
                                if self.classifier_sr_a is not None else None)
+        # the lr, then each optimizer's bias correction, as the steps read
+        # them on the device; written before every step
+        self._slot = {k: i + 1 for i, k in enumerate(self._opts())}
+        self._scalars = torch.zeros(1 + len(self._slot), device=self.device)
+        self._scalar_views = self._scalars.unbind()
+        self._capture = _capture and self.device.type == "cuda"
+        self._graphs = graphs.StepGraphs(self.device)
 
     # ---------------------------------------------------------- parameters
 
@@ -163,6 +186,7 @@ class MUNITTrainer:
             nets.append(self.segmenter)
         for net in nets:
             net.init(generator)
+        self._graphs.clear()
 
     def load_segmenter(self, state_dict: Tensors) -> None:
         """The frozen segmenter's weights, reference ``resnet34_8s.*``
@@ -170,6 +194,7 @@ class MUNITTrainer:
         if self.segmenter is None:
             raise ValueError("no segmenter: semantic_w is 0")
         self.segmenter.load_state_dict(state_dict)
+        self._graphs.clear()
 
     # --------------------------------------------------------------- state
 
@@ -202,8 +227,8 @@ class MUNITTrainer:
 
     def load_state_dict(self, state: Dict) -> None:
         """Copy a ``state_dict()`` into this trainer's tensors, in place
-        (device and memory format stay); the nets and their names must
-        match."""
+        (device and memory format stay, and so do the captured steps); the
+        nets and their names must match."""
         nets, opts = self._nets(), self._opts()
         if set(state["nets"]) != set(nets) or set(state["opt"]) != set(opts):
             raise ValueError(
@@ -397,38 +422,78 @@ class MUNITTrainer:
     def _lr(self) -> float:
         return float(self.lr_schedule(self.iterations))
 
-    def _update(self, grads, opt, params, lr):
+    def _update(self, grads, name, params, extrapolate):
+        """An optimizer's half-step on the device, with the lr and its bias
+        correction read from the device scalars."""
         c = self.conf
-        return extra_adam_update(grads, opt, params, lr, self._phase(),
-                                 b1=c["beta1"], b2=c["beta2"], eps=1e-8,
-                                 weight_decay=c["weight_decay"])
+        extra_adam_apply(grads, self._opts()[name], params,
+                         self._scalar_views[0],
+                         self._scalar_views[self._slot[name]], extrapolate,
+                         b1=c["beta1"], b2=c["beta2"], eps=1e-8,
+                         weight_decay=c["weight_decay"])
+
+    def _write_scalars(self, lr: float) -> None:
+        """One fill each: a kernel that carries its value, so that the host
+        neither waits for the card nor keeps a buffer for it."""
+        c = self.conf
+        vals = [lr] + [bias_correction(o.count + 1, c["beta1"], c["beta2"])
+                       for o in self._opts().values()]
+        for t, v in zip(self._scalar_views, vals):
+            t.fill_(v)
+
+    def _step(self, kind, body, tensors, opts, static=(), lr_metric=False):
+        """One update step: the host's bookkeeping around ``body(
+        extrapolate, *static, *tensors)``, its device work, which updates
+        the optimizers ``opts``. Returns the body's metrics, detached."""
+        lr, extrapolate = self._lr(), self._phase()
+        self._write_scalars(lr)
+        states = [self._opts()[k] for k in opts]
+
+        def run(*ts):
+            return body(extrapolate, *static, *ts)
+        if self._capture:
+            key = graphs.step_key(kind, extrapolate,
+                                  [o.has_copy for o in states], tensors,
+                                  static)
+            m = self._graphs.run(key, run, tensors)
+        else:
+            m = {k: v.detach() for k, v in run(*tensors).items()}
+        for o in states:
+            extra_adam_advance(o, extrapolate)
+        if lr_metric:
+            m["lr"] = lr
+        return m
 
     # --------------------------------------------------------------- steps
 
     def dis_update(self, x_a, x_b) -> Tensors:
         """One discriminator step against detached fakes."""
-        lr = self._lr()
+        return self._step("dis", self._dis_body, (x_a, x_b), ("dis",),
+                          lr_metric=True)
+
+    def _dis_body(self, extrapolate, x_a, x_b) -> Tensors:
         with torch.no_grad():
             *_, x_ba, x_ab = self._cross_decode(x_a, x_b)
         params = self.dis_params()
         total, m = self._dis_loss(x_ba, x_ab, x_a, x_b)
-        self.dis_opt = self._update(self._grads(total, params), self.dis_opt,
-                                    params, lr)
-        return _detached(m, lr=lr)
+        self._update(self._grads(total, params), "dis", params, extrapolate)
+        return m
 
     def gen_update(self, x_a, x_b, mask_a=None, mask_b=None, sem_gt_a=None,
                    sem_gt_b=None) -> Tensors:
         """One generator step against the current discriminators."""
         self._no_sem_gt(sem_gt_a, sem_gt_b)
-        lr = self._lr()
+        return self._step("gen", self._gen_body, (x_a, x_b, mask_a, mask_b),
+                          ("gen",))
+
+    def _gen_body(self, extrapolate, x_a, x_b, mask_a, mask_b) -> Tensors:
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
         targets = self._semantic_targets(x_a, x_b)
         params = self.gen_params()
         total, m = self._gen_loss(self._gen_forward(x_a, x_b), x_a, x_b,
                                   mask_a, mask_b, targets)
-        self.gen_opt = self._update(self._grads(total, params), self.gen_opt,
-                                    params, lr)
-        return _detached(m)
+        self._update(self._grads(total, params), "gen", params, extrapolate)
+        return m
 
     def dis_gen_update(self, x_a, x_b, mask_a=None, mask_b=None,
                        sem_gt_a=None, sem_gt_b=None) -> Tensors:
@@ -436,21 +501,25 @@ class MUNITTrainer:
         its detached cross decodes, then the generator's losses are taken
         against the updated D."""
         self._no_sem_gt(sem_gt_a, sem_gt_b)
-        lr = self._lr()
+        return self._step("dis_gen", self._dis_gen_body,
+                          (x_a, x_b, mask_a, mask_b), ("dis", "gen"),
+                          lr_metric=True)
+
+    def _dis_gen_body(self, extrapolate, x_a, x_b, mask_a, mask_b) -> Tensors:
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
         targets = self._semantic_targets(x_a, x_b)
         fw = self._gen_forward(x_a, x_b)
         dis_params = self.dis_params()
         total_d, m_dis = self._dis_loss(fw["x_ba"].detach(),
                                         fw["x_ab"].detach(), x_a, x_b)
-        self.dis_opt = self._update(self._grads(total_d, dis_params),
-                                    self.dis_opt, dis_params, lr)
+        self._update(self._grads(total_d, dis_params), "dis", dis_params,
+                     extrapolate)
         gen_params = self.gen_params()
         total_g, m_gen = self._gen_loss(fw, x_a, x_b, mask_a, mask_b,
                                         targets)
-        self.gen_opt = self._update(self._grads(total_g, gen_params),
-                                    self.gen_opt, gen_params, lr)
-        return _detached({**m_dis, **m_gen}, lr=lr)
+        self._update(self._grads(total_g, gen_params), "gen", gen_params,
+                     extrapolate)
+        return {**m_dis, **m_gen}
 
     def dis_gen_grads(self, x_a, x_b, mask_a=None,
                       mask_b=None) -> Tuple[Tensors, Tensors]:
@@ -469,7 +538,12 @@ class MUNITTrainer:
                                     lamb: float) -> Tensors:
         """One step of the sim/real classifiers on detached content codes;
         each keeps its own batch-statistics update."""
-        lr = self._lr()
+        return self._step("classifier_sr", self._classifier_sr_body,
+                          (x_a, x_b), ("classif_sr",),
+                          static=(bool(domain_synth), float(lamb)))
+
+    def _classifier_sr_body(self, extrapolate, domain_synth, lamb, x_a,
+                            x_b) -> Tensors:
         with torch.no_grad():
             c_a = self.gen.encode_content(x_a, 1)
             c_b = self.gen.encode_content(x_b, 2)
@@ -478,9 +552,9 @@ class MUNITTrainer:
             self.classifier_sr_a(c_a, update_stats=True),
             self.classifier_sr_b(c_b, update_stats=True),
             domain_synth=domain_synth, fool=False)
-        self.classif_sr_opt = self._update(self._grads(loss, params),
-                                           self.classif_sr_opt, params, lr)
-        return _detached({"loss_classifier_sr": loss})
+        self._update(self._grads(loss, params), "classif_sr", params,
+                     extrapolate)
+        return {"loss_classifier_sr": loss}
 
     # ------------------------------------------------------------ sampling
 
@@ -511,27 +585,59 @@ class MUNITTrainer:
                 x_b, x_b_recon, overlay(x_b), x_ba, overlay(x_ba), x_ba)
 
 
-def _detached(m: Dict[str, torch.Tensor], **extra) -> Dict:
-    out = {k: v.detach() for k, v in m.items()}
-    out.update(extra)
-    return out
+def cadence_steps(conf: Dict, iteration: int) -> List[Tuple[str, bool]]:
+    """The steps that ``bench.py``'s cadence runs at ``iteration``, each as
+    (kind, extrapolate): a dis step, or the fused dis+gen step on every
+    ``ratio_disc_gen``-th iteration, then the sim/real classifier step on
+    every ``classif_frequency``-th; ExtraAdam extrapolates on even
+    iterations."""
+    ad = conf["adaptation"]
+    phase = "extra" in conf["optimizer"] and iteration % 2 == 0
+    kinds = ["dis_gen" if (iteration + 1) % conf["ratio_disc_gen"] == 0
+             else "dis"]
+    if ad["dfeat_lambda"] > 0 and (iteration + 1) % ad["classif_frequency"] == 0:
+        kinds.append("classifier_sr")
+    return [(k, phase) for k in kinds]
+
+
+def capture_warmup(conf: Dict) -> int:
+    """Iterations from 0 after which every step variant of the cadence has
+    run twice, once eagerly and once captured: from then on a card only
+    replays."""
+    ad = conf["adaptation"]
+    period = math.lcm(2, conf["ratio_disc_gen"], ad["classif_frequency"])
+    want = {v for it in range(period) for v in cadence_steps(conf, it)}
+    seen: Counter = Counter()
+    it = 0
+    while any(seen[v] < 2 for v in want):
+        seen.update(cadence_steps(conf, it))
+        it += 1
+    return it
+
+
+def cadence_iteration(trainer, conf: Dict, iteration: int, x_a, x_b,
+                      mask_a, mask_b) -> Dict:
+    """The steps of one iteration of the cadence (``cadence_steps``) on the
+    trainer, their metrics merged."""
+    ad = conf["adaptation"]
+    m = {}
+    for kind, _ in cadence_steps(conf, iteration):
+        if kind == "dis":
+            m.update(trainer.dis_update(x_a, x_b))
+        elif kind == "dis_gen":
+            m.update(trainer.dis_gen_update(x_a, x_b, mask_a, mask_b))
+        else:
+            m.update(trainer.domain_classifier_sr_update(
+                x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
+    return m
 
 
 def train_steps(trainer: MUNITTrainer, x_a, x_b, mask_a, mask_b,
                 iterations: List[int]) -> List[Dict]:
-    """``bench.py``'s cadence over the given iterations: a dis step every
-    iteration, fused with the gen step on every ``ratio_disc_gen``-th, and
-    the sim/real classifier step on every ``classif_frequency``-th."""
-    conf, ad = trainer.conf, trainer.conf["adaptation"]
+    """``bench.py``'s cadence over the given iterations on fixed tensors."""
     out = []
     for it in iterations:
         trainer.iterations = it
-        if (it + 1) % conf["ratio_disc_gen"] == 0:
-            m = trainer.dis_gen_update(x_a, x_b, mask_a, mask_b)
-        else:
-            m = trainer.dis_update(x_a, x_b)
-        if trainer.use_classifier_sr and (it + 1) % ad["classif_frequency"] == 0:
-            m = dict(m, **trainer.domain_classifier_sr_update(
-                x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
-        out.append(m)
+        out.append(cadence_iteration(trainer, trainer.conf, it, x_a, x_b,
+                                     mask_a, mask_b))
     return out

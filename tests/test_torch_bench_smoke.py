@@ -9,11 +9,14 @@ plus the run's numerics, in bf16 and in f32. Left at its default
 import importlib
 import json
 import os
+from collections import Counter
 
 import pytest
 import torch
 
+from munit_tpu_torch.config import validate
 from munit_tpu_torch.core import ops
+from munit_tpu_torch.train.trainer import cadence_steps, capture_warmup
 from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,3 +66,26 @@ def test_bench_torch_needs_a_card_by_default(bench, monkeypatch, capsys):
 def test_bench_torch_refuses_what_is_not_ported(bench, env, match):
     with pytest.raises(NotImplementedError, match=match):
         bench(BENCH_DEVICE="cpu", **env).main()
+
+
+@pytest.mark.parametrize("optimizer,iterations", [("adam", 30),
+                                                  ("extra_adam", 60)])
+def test_bench_warmup_reaches_every_step_variant(bench, optimizer,
+                                                 iterations):
+    """bench_torch.py's warm-up (``capture_warmup`` of its spec) calls each
+    step variant of the timed iterations twice, once eagerly and once to
+    capture it on a card, and one iteration fewer would not: the clock
+    times replays only. Python over the iteration numbers."""
+    conf = validate({**bench().spec(), "optimizer": optimizer})
+    warm = capture_warmup(conf)
+    assert warm == iterations
+
+    def calls(n):
+        return Counter(v for it in range(n) for v in cadence_steps(conf, it))
+    timed = {v for it in range(warm, warm + 150)
+             for v in cadence_steps(conf, it)}
+    assert all(calls(warm)[v] >= 2 for v in timed)
+    assert any(calls(warm - 1)[v] < 2 for v in timed)
+    assert {k for k, _ in timed} == {"dis", "dis_gen", "classifier_sr"}
+    assert {p for _, p in timed} == ({False} if optimizer == "adam"
+                                     else {False, True})
