@@ -105,7 +105,20 @@ Phases, each raising on failure (exit code 1):
    batch 1 and 8 (captured steps; and eager) with its host stages, beside
    phase 8b's fixed-tensor time, the device idle share of a replayed fused
    step inside the loop, and the loader alone at batch 8 (decode cache, no
-   cache, and the native image ops, which must run).
+   cache, and the native image ops, which must run);
+13. the sim→real path (ROADMAP item 11): the train CLI in bf16 on
+   configs/final_test/FeatureDA.yaml, Output_DA.yaml and FeatureDA with
+   the DANN and the seg head, 20 iterations each, the data keys and
+   max_iter replaced (16 seeded 286x286 synthetic JPEG pairs whose B
+   equals A outside a band, PNG masks, semantic PNGs in the table's gray
+   values): every logged loss finite, the flavor's new losses logged,
+   every step variant that ran twice captured and replayed as the cadence
+   says, the norm launches by design; then each step of an iteration with
+   every sim→real step, card (TF32 off) against CPU at full width from
+   one state, every loss within 1e-3 relative; a resume at iteration 10
+   restored bit for bit with every new net; and ms per iteration (captured
+   and eager), per step kind, peak memory and graphs of each flavor at
+   batch 1 in bf16.
 Earlier lines are JSON objects. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
 checkout of the repo, it exits non-zero and prints no result.
@@ -115,6 +128,10 @@ checkout of the repo, it exits non-zero and prints no result.
 times translation (phase 5) in each given checkout of the repo, one fresh
 process after another, with that checkout's own code: the same-call
 comparison of two trees (parent, change, change, parent).
+
+    python3 chip_smoke.py --sim2real
+
+builds the kernels and runs phase 13 alone.
 """
 
 from __future__ import annotations
@@ -266,7 +283,12 @@ def bound(name, a):
 # also at 2B (the wide decodes, and the phase-6 backward shapes). Every
 # other norm call (IN at 128^2 and 256^2, every LN) runs the grid design.
 CLUSTER_SHAPE = (64, 64, 256)
-PLAN_BATCHES = (1, 2, 8, 16)
+# The batches of the norm calls on the driven paths: 1 and 8 (phases 8
+# and 12) and 2 (Output_DA's batch in phase 13), and twice each (the wide
+# decodes): the forward kernels are held against plain at each of them.
+PLAN_BATCHES = (1, 2, 4, 8, 16)
+# The backward's per-call batches, times BWD_CALLS' multiplier
+BWD_BATCHES = (1, 2, 8)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -949,7 +971,7 @@ def backward_phase(norms):
     times = {}
     for name, calls in BWD_CALLS.items():
         for mult, h, w, c in calls:
-            for b in (mult * bb for bb in BATCHES):
+            for b in (mult * bb for bb in BWD_BATCHES):
                 for dtype in (torch.float32, torch.bfloat16):
                     dname = str(dtype).split(".")[1]
                     a = gap_inputs(b, h, w, c, dtype, gen)
@@ -2563,6 +2585,429 @@ def feed_phase(norms, MUNITTrainer, get_config, data, fixed, tmp: Path):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+SIM_DIR = ROOT / "configs" / "final_test"
+# FeatureDA with the DANN and the seg head, which no shipped config turns on
+SIM_EXTRA = {"domain_adv_w": 1, "adaptation": {"sem_seg_lambda": 1}}
+# (name, flavor, keys merged into it) of the phase's train CLI runs
+SIM_RUNS = (("FeatureDA", "FeatureDA", None), ("Output_DA", "Output_DA", None),
+            ("FeatureDA_dann_seg", "FeatureDA", SIM_EXTRA))
+# every sim→real term in one trainer: the card-against-CPU check, the resume
+SIM_ALL = {"domain_adv_w": 1,
+           "adaptation": {"sem_seg_lambda": 1, "output_classifier_lambda": 1,
+                          "output_adv_lambda": 1}}
+SIM_ITERS = 20
+SIM_BAND = (96, 176)    # rows where B differs from A, on JPEG's 16-px blocks
+# data/transforms.py::_SEM_VALUE_TABLE's gray values (any other raises)
+SEM_GRAYS = (0, 29, 55, 76, 133, 149, 178, 200, 255)
+# Card (TF32 off) against CPU, relative, per loss of one step from one
+# state: float32 sums in another order through ~40 layers
+SIM_LOSS_RTOL = 1e-3
+SIM_RESUME_AT = 10
+SIM_TIME_ITERS = 10     # timed iterations after the warm-up, both modes
+# The norm launches of each step kind: the DANN and seg-head steps encode
+# both domains' content as the classifier_sr step does; the output-level
+# classifier step runs no generator.
+SIM_STEP_NORMS = {"dis": "dis", "dis_gen": "fused", "dis_gen_synth": "fused",
+                  "dann": "classifier_sr", "classifier_sr": "classifier_sr",
+                  "classifier_sr_synth": "classifier_sr",
+                  "seg_head": "classifier_sr", "output_classifier_sr": None}
+# `python -m munit_tpu_torch <args>` in this process, as CLI_RUNNER; then
+# the norm launches and the trainer's captured steps (kind as the cadence
+# names it, extrapolate, anchor flags, replays) into a JSON file
+SIM_RUNNER = """
+import json, runpy, sys
+from munit_tpu_torch.cli import train as cli
+from munit_tpu_torch.kernels import norms
+out, sys.argv = sys.argv[1], ["munit_tpu_torch", *sys.argv[2:]]
+seen = {}
+loop = cli.train_loop
+def spy(trainer, *a, **k):
+    seen["trainer"] = trainer
+    return loop(trainer, *a, **k)
+cli.train_loop = spy
+def kind(key):
+    synth = key[0] in ("dis_gen", "classifier_sr") and key[4][0]
+    return key[0] + ("_synth" if synth else "")
+try:
+    runpy.run_module("munit_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    g = seen["trainer"]._graphs if seen else None
+    with open(out, "w") as f:
+        json.dump({"launches": norms.launches,
+                   "launches_by_design": norms.design_launches,
+                   "graphs": [[kind(k), k[1], list(k[2]), n]
+                              for k, n in g.replays.items()] if g else []},
+                  f)
+"""
+
+
+def write_synth_data(root: Path) -> dict:
+    """16 seeded 286x286 synthetic pairs: JPEGs whose B equals A outside a
+    band of rows (on JPEG's 16-pixel blocks, so the aligned mask is
+    neither empty nor full), the band as the PNG mask, and semantic PNGs
+    in the table's gray values; returns the config's synthetic data keys
+    (absolute paths)."""
+    from PIL import Image
+    rng = np.random.RandomState(SEED + 13)
+    root.mkdir(parents=True)
+    lists = {k: [] for k in ("a", "b", "mask", "sem_a", "sem_b")}
+    lo, hi = SIM_BAND
+    grays = np.asarray(SEM_GRAYS, np.uint8)
+    for i in range(DATA_IMAGES):
+        a = rng.randint(0, 256, (DATA_SIZE, DATA_SIZE, 3), np.uint8)
+        b = a.copy()
+        b[lo:hi] = rng.randint(0, 256, (hi - lo, DATA_SIZE, 3), np.uint8)
+        mask = np.zeros((DATA_SIZE, DATA_SIZE), np.uint8)
+        mask[lo:hi] = 255
+        arrays = {"a": a, "b": b, "mask": mask,
+                  "sem_a": grays[rng.randint(0, 9, (DATA_SIZE, DATA_SIZE))],
+                  "sem_b": grays[rng.randint(0, 9, (DATA_SIZE, DATA_SIZE))]}
+        for k, arr in arrays.items():
+            ext = "jpg" if k in ("a", "b") else "png"
+            path = root / f"{k}{i:02d}.{ext}"
+            Image.fromarray(arr).save(path, **({"quality": 90}
+                                               if ext == "jpg" else {}))
+            lists[k].append(str(path))
+    names = {"a": "data_list_train_a_synth", "b": "data_list_train_b_synth",
+             "mask": "data_list_train_b_seg_synth", "sem_a": "seg_list_a",
+             "sem_b": "seg_list_b"}
+    keys = {}
+    for k, paths in lists.items():
+        (root / f"{k}.txt").write_text("\n".join(paths) + "\n")
+        keys[names[k]] = str(root / f"{k}.txt")
+    return keys
+
+
+def sim_raw(flavor, over=None) -> dict:
+    """configs/final_test/<flavor>.yaml as it is, ``over`` merged in."""
+    import yaml
+    raw = yaml.safe_load((SIM_DIR / f"{flavor}.yaml").read_text())
+    for k, v in (over or {}).items():
+        raw[k] = {**raw[k], **v} if isinstance(v, dict) else v
+    return raw
+
+
+def sim_inputs(b, seed, numerics):
+    """A real batch (train_inputs) and a synthetic one on the card: B equal
+    to A outside a band of rows, the band as the mask, class ids 0-8."""
+    g = torch.Generator().manual_seed(seed)
+    x_a = torch.rand((b, 256, 256, 3), generator=g) * 2 - 1
+    x_b = x_a.clone()
+    x_b[:, 96:160] = torch.rand((b, 64, 256, 3), generator=g) * 2 - 1
+    mask = torch.zeros((b, 256, 256, 1))
+    mask[:, 96:160] = 1.0
+    sem = [torch.randint(0, 9, (b, 256, 256), generator=g,
+                         dtype=torch.int32) for _ in range(2)]
+    synth = {"image_a": x_a, "image_b": x_b, "mask": mask, "sem_a": sem[0],
+             "sem_b": sem[1]}
+    if numerics == "bf16":
+        synth["image_a"], synth["image_b"] = x_a.bfloat16(), x_b.bfloat16()
+    batch = numerics_inputs(train_inputs(b, seed), numerics)
+    return batch, {k: v.cuda() for k, v in synth.items()}
+
+
+def sim_trainer(MUNITTrainer, conf, device, seed=SEED):
+    from munit_tpu_torch.cli.train import load_segmenter
+    tr = MUNITTrainer(conf, device)
+    tr.init(torch.Generator().manual_seed(seed))
+    load_segmenter(tr, conf)        # as the CLI makes it
+    return tr
+
+
+def variant_label(kind, extrapolate, has_copy):
+    return (f"{kind} {'extrapolate' if extrapolate else 'step'} anchors="
+            + "".join("1" if h else "0" for h in has_copy))
+
+
+def sim_cli_phase(norms, get_config, step_variants, data, tmp: Path):
+    """13(a): `python -m munit_tpu_torch train` in three subprocesses run
+    side by side, bf16, 20 iterations each, on
+    configs/final_test/FeatureDA.yaml, Output_DA.yaml and FeatureDA with
+    the DANN and the seg head, with the data keys and max_iter
+    overridden: the config's own log_iter, batch and cadence (a real and a
+    synthetic fused step every iteration). Every logged loss finite, the
+    flavor's new losses logged, every step variant that ran twice
+    captured and replayed as often as the cadence says, the norm launches
+    by design."""
+    import yaml
+    synth = write_synth_data(tmp / "sim_data")
+    runs = {}
+    t0 = time.perf_counter()
+    for name, flavor, over in SIM_RUNS:
+        raw = {**sim_raw(flavor, over), **data, **synth,
+               "max_iter": SIM_ITERS}
+        cfg = tmp / "sim" / f"{name}.yaml"
+        cfg.parent.mkdir(parents=True, exist_ok=True)
+        cfg.write_text(yaml.safe_dump(raw))
+        counts_file = tmp / f"{name}_counts.json"
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SIM_RUNNER, str(counts_file), "train",
+             "--config", str(cfg), "--output_path", str(tmp / "sim")],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        runs[name] = (cfg, counts_file, proc)
+    total = {}
+    for name, (cfg, counts_file, proc) in runs.items():
+        _, err = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"{name}: train CLI exit {proc.returncode}: {err[-3000:]}")
+        conf = get_config(str(cfg))
+        counts = json.loads(counts_file.read_text())
+        run = tmp / "sim" / "outputs" / name
+        lines = [json.loads(ln) for ln in (run / "metrics.jsonl").open()]
+        losses = {m["step"]: m for m in lines if "loss_dis_total" in m}
+        finite = all(np.isfinite(v) for m in losses.values()
+                     for k, v in m.items() if k != "step")
+        variants = Counter(step_variants(conf, range(SIM_ITERS), synth=True))
+        kinds, norm_steps = Counter(), Counter()
+        for (kind, *_), n in variants.items():
+            kinds[kind] += n
+            if SIM_STEP_NORMS[kind]:
+                norm_steps[SIM_STEP_NORMS[kind]] += n
+        want = expected_launches(norms, conf, norm_steps)
+        want_design = designs_of_calls(norms, want, PATH_DESIGN_SHARE)
+        want_graphs = {variant_label(*v): n - 1 for v, n in variants.items()
+                       if n >= 2}
+        got_graphs = {variant_label(k, e, h): n
+                      for k, e, h, n in counts["graphs"]}
+        ad = conf["adaptation"]
+        new_keys = ["loss_gen_recon_synth", "loss_sem_seg"]
+        if ad["output_classifier_lambda"] > 0:
+            new_keys += ["loss_output_classifier_sr",
+                         "loss_output_classifier_adv_sr"]
+        if conf["domain_adv_w"] > 0:
+            new_keys += ["domain_class_loss", "domain_adv_loss_gen"]
+        if ad["sem_seg_lambda"] > 0:
+            new_keys.append("loss_semantic_head")
+        last = losses.get(SIM_ITERS, {})
+        emit(phase="sim2real_cli", config=name, batch=conf["batch_size"],
+             numerics="bf16", seconds_incl_start=wall, iterations=SIM_ITERS,
+             steps=dict(kinds), logged_steps=sorted(losses), finite=finite,
+             new_losses_last={k: last.get(k) for k in new_keys},
+             graphs=got_graphs, expected_graphs=want_graphs,
+             launches=counts["launches"], expected=want,
+             launches_by_design=counts["launches_by_design"],
+             expected_by_design=want_design, losses_last=last,
+             note="configs/final_test/<flavor>.yaml with the data keys and "
+                  "max_iter: 20 replaced; the three runs side by side, "
+                  "seconds from their common start; graphs: replays of each "
+                  "captured step variant (kind, phase, the updated "
+                  "optimizers' anchor flags), the one after its capture "
+                  "included; a variant that runs once runs eagerly "
+                  "(classifier_sr at iteration 14)")
+        check(sorted(losses) == list(range(conf["log_iter"], SIM_ITERS + 1,
+                                           conf["log_iter"])),
+              f"{name}: logged steps {sorted(losses)}")
+        check(finite, f"{name}: a logged loss is not finite")
+        check(all(last.get(k) is not None and last[k] > 0
+                  for k in new_keys),
+              f"{name}: new losses {[(k, last.get(k)) for k in new_keys]}")
+        check(got_graphs == want_graphs,
+              f"{name}: graphs {got_graphs}, want {want_graphs}")
+        check(counts["launches"] == want,
+              f"{name}: launches {counts['launches']}, want {want}")
+        check(counts["launches_by_design"] == want_design,
+              f"{name}: launches by design {counts['launches_by_design']}, "
+              f"want {want_design}")
+        for k, v in counts["launches_by_design"].items():
+            for d, n in v.items():
+                total.setdefault(k, Counter())[d] += n
+    return {k: dict(v) for k, v in total.items()}
+
+
+def sim_parity_phase(MUNITTrainer, cadence_step, cadence_steps, get_config,
+                     tmp: Path):
+    """13(b): at full width, batch 1, parity numerics (TF32 off, cuDNN
+    deterministic), each step of an iteration that runs every sim→real
+    step (FeatureDA with the DANN, the output-level classifiers and the seg
+    head), on the card and on the CPU from one state (the CPU trainer's,
+    loaded into the card's before each step) and one batch: every loss
+    within SIM_LOSS_RTOL relative."""
+    import yaml
+    cfg = tmp / "sim_all.yaml"
+    cfg.write_text(yaml.safe_dump(sim_raw("FeatureDA", SIM_ALL)))
+    conf = get_config(str(cfg))
+    set_numerics("tf32_off")
+    torch.backends.cudnn.deterministic = True
+    try:
+        trs = {d: sim_trainer(MUNITTrainer, conf, d) for d in ("cpu", "cuda")}
+        batch, synth = sim_inputs(1, SEED + 131, "tf32_off")
+        inputs = {"cuda": (batch, synth),
+                  "cpu": ([t.cpu() for t in batch],
+                          {k: v.cpu() for k, v in synth.items()})}
+        it = conf["adaptation"]["classif_frequency"] - 1
+        rows, worst, cpu_s = [], 0.0, 0.0
+        for kind, _ in cadence_steps(conf, it, synth=True):
+            trs["cuda"].load_state_dict(trs["cpu"].state_dict())
+            out = {}
+            for dev, tr in trs.items():
+                tr.iterations = it
+                t0 = time.perf_counter()
+                out[dev] = {k: float(v) for k, v in cadence_step(
+                    tr, conf, kind, *inputs[dev][0], inputs[dev][1]).items()
+                    if k != "lr"}
+                if dev == "cpu":
+                    cpu_s += time.perf_counter() - t0
+            errs = {k: abs(out["cuda"][k] - w) / abs(w) if w else
+                    abs(out["cuda"][k]) for k, w in out["cpu"].items()}
+            key = max(errs, key=errs.get)
+            worst = max(worst, errs[key])
+            rows.append({"step": kind, "losses": len(errs),
+                         "worst": key, "rel_err": errs[key],
+                         "cpu": out["cpu"][key], "card": out["cuda"][key]})
+        emit(phase="sim2real_card_vs_cpu", batch=1, width="full (256, "
+             "gen dim 64, 3-scale discriminators)", numerics="tf32_off",
+             iteration=it, steps=rows, worst_rel_err=worst,
+             tol=SIM_LOSS_RTOL, cpu_seconds=cpu_s,
+             note="each step from the CPU trainer's state, loaded into the "
+                  "card's before it; every loss the step logs, relative to "
+                  "the CPU's (absolute where the CPU's is 0)")
+        check(worst <= SIM_LOSS_RTOL,
+              f"sim2real card against CPU: {worst} > {SIM_LOSS_RTOL}: {rows}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        del trs
+        torch.cuda.empty_cache()
+    return conf
+
+
+def sim_resume_phase(MUNITTrainer, train_steps, conf, tmp: Path):
+    """13(c): bf16, batch 1, captured, every sim→real net: 10 iterations, a
+    checkpoint, and a trainer of other weights that has run (and
+    captured) 10 iterations restored from it in place: its whole state,
+    the new nets and their optimizers too, equal to the saved one bit for
+    bit, its graphs kept."""
+    from munit_tpu_torch.io import checkpoint
+    set_numerics("bf16")
+    batch, synth = sim_inputs(1, SEED + 132, "bf16")
+    tr = sim_trainer(MUNITTrainer, conf, "cuda")
+    train_steps(tr, *batch, range(SIM_RESUME_AT), synth)
+    saved = state_leaves(tr)
+    ckpt = str(tmp / "sim_checkpoints")
+    checkpoint.save_checkpoint(ckpt, tr.state_dict(), SIM_RESUME_AT)
+    nets = sorted(tr.state_dict()["nets"])
+    del tr
+    other = sim_trainer(MUNITTrainer, conf, "cuda", SEED + 1)
+    train_steps(other, *batch, range(SIM_RESUME_AT), synth)
+    graphs_before = len(other._graphs)
+    start = checkpoint.resume(other, ckpt)
+    not_restored = restored_exactly(state_leaves(other), saved)
+    emit(phase="sim2real_resume", batch=1, numerics="bf16",
+         resumed_from=start, nets=nets, leaves=len(saved[0]),
+         not_restored=not_restored, graphs_before_resume=graphs_before,
+         graphs_after_resume=len(other._graphs))
+    check(start == SIM_RESUME_AT, f"resumed from {start}")
+    check({"dann", "output_classifier_sr_a", "seg_head"} <= set(nets),
+          f"nets {nets}")
+    check(not not_restored, f"resume did not restore {not_restored[:5]}")
+    check(graphs_before == len(other._graphs) > 0,
+          "load_state_dict dropped the captured steps")
+    del other
+    torch.cuda.empty_cache()
+
+
+def sim_time_phase(MUNITTrainer, train_steps, cadence_step, cadence_steps,
+                   capture_warmup, validate):
+    """13(d): FeatureDA, Output_DA and FeatureDA with the DANN and the seg
+    head, at batch 1 in bf16 on tensors already on the card:
+    capture_warmup iterations (every variant captured), then
+    ms per iteration captured (median of 3 rounds of 10 iterations) and
+    eager (1 round of the same 10, on the same trainer), ms per step kind
+    captured (median of 5), peak memory and the graphs per key."""
+    set_numerics("bf16")
+    for name, flavor, over in SIM_RUNS:
+        conf = validate({**sim_raw(flavor, over), "batch_size": 1})
+        tr = sim_trainer(MUNITTrainer, conf, "cuda")
+        batch, synth = sim_inputs(1, SEED + 133, "bf16")
+        warm = capture_warmup(conf, synth=True)
+        t0 = time.perf_counter()
+        train_steps(tr, *batch, range(warm), synth)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        graphs = len(tr._graphs)
+        timed = range(warm, warm + SIM_TIME_ITERS)
+
+        def iterations():
+            train_steps(tr, *batch, timed, synth)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        captured_ms, rounds = host_ms(iterations, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(len(tr._graphs) == graphs, f"{name}: a step was captured "
+              "on the clock")
+        captured, tr._capture = tr._capture, False
+        eager_ms, _ = host_ms(iterations, 1)
+        tr._capture = captured
+        it = conf["adaptation"]["classif_frequency"] - 1
+        steps = {}
+        for kind, _ in cadence_steps(conf, it, synth=True):
+            tr.iterations = it
+            steps[kind], _ = host_ms(lambda: cadence_step(
+                tr, conf, kind, *batch, synth), 5)
+        check(len(tr._graphs) == graphs, f"{name}: the step timing "
+              "captured a step")
+        keys = [{"kind": k[0], "extrapolate": k[1],
+                 "static": [str(s) for s in k[4]],
+                 "replays": tr._graphs.replays[k],
+                 "capture_s": tr._graphs.capture_seconds[k]}
+                for k in tr._graphs.capture_seconds]
+        emit(phase="sim2real_time", config=name, batch=1, numerics="bf16",
+             ms_per_iteration_captured=captured_ms / SIM_TIME_ITERS,
+             ms_per_iteration_eager=eager_ms / SIM_TIME_ITERS,
+             captured_rounds_ms=[r / SIM_TIME_ITERS for r in rounds],
+             step_ms_captured=steps, peak_memory_gb=peak,
+             graph_pool_gb=tr._graphs.pool_bytes() / 2**30, graphs=graphs,
+             graph_keys=keys, warmup_iterations=warm, warmup_seconds=warm_s,
+             note="host clock, each round ending in a synchronise; "
+                  "captured: replays only (no capture on the clock); eager: "
+                  "the same iterations on the same trainer; step_ms: one "
+                  "step of each kind of iteration 14, replayed; "
+                  "peak_memory_gb: the most allocated during the captured "
+                  "rounds")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sim2real_phase(norms, get_config, validate, data, tmp: Path):
+    """Phase 13: the sim→real training path (the train CLI on the
+    final_test flavors, card against CPU, resume, timing); returns the CLI
+    runs' norm launches by design."""
+    from munit_tpu_torch.train.trainer import (MUNITTrainer, cadence_step,
+                                               cadence_steps, capture_warmup,
+                                               step_variants, train_steps)
+    t0 = time.perf_counter()
+    launches = sim_cli_phase(norms, get_config, step_variants, data, tmp)
+    conf = sim_parity_phase(MUNITTrainer, cadence_step, cadence_steps,
+                            get_config, tmp)
+    sim_resume_phase(MUNITTrainer, train_steps, conf, tmp)
+    sim_time_phase(MUNITTrainer, train_steps, cadence_step, cadence_steps,
+                   capture_warmup, validate)
+    emit(phase="sim2real_seconds", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def sim2real_alone() -> int:
+    """``python3 chip_smoke.py --sim2real``: the build and phase 13 alone,
+    for working on it; the kernel line and status line are the full
+    run's."""
+    from munit_tpu_torch.config import get_config, validate
+    from munit_tpu_torch.kernels import build, norms
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_train_data(Path(tmp) / "data")
+        sim2real_phase(norms, get_config, validate, data, Path(tmp))
+    return 0
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2589,7 +3034,8 @@ PROBE_KERNELS = (
 
 
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
-                 mom_err, mom_times, probe_launches, cli_launches):
+                 mom_err, mom_times, probe_launches, cli_launches,
+                 sim_launches):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
     backward, then the moments kernels of the probes."""
@@ -2631,6 +3077,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_train=train_launches["tf32"][name][design],
                 launches_train_bf16=train_launches["bf16"][name][design],
                 launches_cli=cli_launches[name][design],
+                launches_sim2real=sim_launches[name][design],
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
@@ -2639,7 +3086,8 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "(phase 4), launches_train(_bf16): 15 training "
                     "iterations at batch 1 with TF32 (in bf16; phase 8), "
                     "launches_cli: the train CLI's 20 iterations and 8 "
-                    "sample grids (phase 12)"))
+                    "sample grids (phase 12), launches_sim2real: the train "
+                    "CLI's 3 final_test runs of 20 iterations (phase 13)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -2651,12 +3099,14 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches=train_launches["tf32"][name + "_bwd"][design],
                 launches_bf16=train_launches["bf16"][name + "_bwd"][design],
                 launches_cli=cli_launches[name + "_bwd"][design],
+                launches_sim2real=sim_launches[name + "_bwd"][design],
                 per="one fused dis+gen step's backward calls of this design "
                     "at batch 1, float32; split_ms: the split design's "
                     "time for the same calls; launches(_bf16): 15 training "
                     "iterations at batch 1 with TF32 (in bf16; phase 8), "
                     "launches_cli: the train CLI's 20 iterations (phase "
-                    "12)"))
+                    "12), launches_sim2real: its 3 final_test runs (phase "
+                    "13)"))
     for row, name, probe, dname, replaces in PROBE_KERNELS:
         t = mom_times[(name, PROBE_SHAPES[0], dname)]
         kernels.append({
@@ -2712,6 +3162,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ab"]:
         return ab(sys.argv[2:])
+    if sys.argv[1:] == ["--sim2real"]:
+        return sim2real_alone()
     # a checkout of the repo: the port and its sources must be here
     from munit_tpu_torch.cli import translate
     from munit_tpu_torch.config import get_config, validate
@@ -2788,10 +3240,12 @@ def main() -> int:
         cli_launches, data = cli_phase(norms, get_config, Path(tmp))
         resume_phase(MUNITTrainer, train_steps, train_conf, Path(tmp))
         feed_phase(norms, MUNITTrainer, get_config, data, fixed, Path(tmp))
+        sim_launches = sim2real_phase(norms, get_config, validate, data,
+                                      Path(tmp))
 
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
-        mom_times, probe_launches, cli_launches)}), flush=True)
+        mom_times, probe_launches, cli_launches, sim_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,8 @@
   python -m munit_tpu_torch train --config configs/config_256.yaml \\
       [--output_path out] [--resume] [--seed N] [--device cuda|cpu]
 
-Builds the masked A/B loaders, copies the config into the run directory
+Builds the masked A/B loaders and, when the config's synthetic list exists,
+the synthetic-pair loader, copies the config into the run directory
 ``<output_path>/outputs/<config name>/``, and runs the loop
 (``train/loop.py``): ``metrics.jsonl``, ``images/`` grids, ``index.html``
 and ``checkpoints/``. ``--resume`` continues exactly from the latest
@@ -29,7 +30,8 @@ from munit_tpu_torch.cli.translate import resolve_device
 from munit_tpu_torch.config import flatten_opts, get_config
 from munit_tpu_torch.core import ops
 from munit_tpu_torch.data.api import (get_all_data_loaders,
-                                      get_data_loader_mask_and_im)
+                                      get_data_loader_mask_and_im,
+                                      get_synthetic_data_loader)
 from munit_tpu_torch.io import checkpoint
 from munit_tpu_torch.io.weights import load_segmenter_checkpoint
 from munit_tpu_torch.train.loop import train_loop
@@ -43,28 +45,29 @@ SEGMENTER_SEED = 1
 
 def build_loaders(conf, seed=0):
     """The A and B image-and-mask training loaders, with seeds seed and
-    seed + 1 so their shuffles are independent. A synthetic list that
-    exists with synthetic_frequency > 0 is refused: its loader and steps
-    are not ported."""
-    synth = conf.get("data_list_train_a_synth")
-    if conf["synthetic_frequency"] > 0 and synth and \
-            os.path.exists(str(synth)):
-        raise NotImplementedError(
-            "synthetic_frequency > 0 with a synthetic list (the "
-            "synthetic-pair loader and steps) is not ported; ROADMAP queue "
-            "1 item 11")
+    seed + 1, and the synthetic-pair loader with seed + 2 when
+    ``data_list_train_a_synth`` names a file that exists, so the three
+    shuffles are independent (``munit_tpu/cli/train.py:33-51``)."""
     kw = dict(new_size=conf["new_size"], height=conf["crop_image_height"],
               width=conf["crop_image_width"], num_workers=conf["num_workers"])
     use_masks = conf["semantic_w"] > 0
     mask_a = conf.get("data_list_train_a_seg") if use_masks else None
     mask_b = conf.get("data_list_train_b_seg") if use_masks else None
-    return {
+    loaders = {
         "a": get_data_loader_mask_and_im(conf["data_list_train_a"], mask_a,
                                          conf["batch_size"], True, seed=seed,
                                          **kw),
         "b": get_data_loader_mask_and_im(conf["data_list_train_b"], mask_b,
                                          conf["batch_size"], True,
                                          seed=seed + 1, **kw)}
+    synth = conf.get("data_list_train_a_synth")
+    if synth and os.path.exists(str(synth)):
+        loaders["synth"] = get_synthetic_data_loader(
+            synth, conf["data_list_train_b_synth"],
+            conf["data_list_train_b_seg_synth"], conf["seg_list_a"],
+            conf["seg_list_b"], conf["batch_size"], True, seed=seed + 2,
+            **kw)
+    return loaders
 
 
 def display_batch(loader, display: int, device) -> torch.Tensor:

@@ -187,6 +187,14 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     return _nhwc(F.max_pool2d(_nchw(x), window, stride, padding))
 
 
+def box_avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """AvgPool2d(window, stride=1, padding=window // 2) on NHWC, the pad
+    counted (divides by window²): the seg head's smoothing, the JAX
+    package's ``reduce_window`` sum over a zero-padded window / window²."""
+    return _nhwc(F.avg_pool2d(_nchw(x), window, 1, window // 2,
+                              count_include_pad=True))
+
+
 def window_avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     """The domain classifier's AvgPool2d(window), the window clamped to the
     map's extent (``munit_tpu/nn/classifiers.py``, "clamp the window"): at

@@ -1,7 +1,8 @@
 """Loader factories: the port's copy of ``munit_tpu/data/api.py`` for the
-list, folder and image-and-mask loaders (reference get_all_data_loaders
-utils.py:50-156; get_data_loader_list :192-250;
-get_data_loader_mask_and_im :638-677; get_data_loader_folder :680-740).
+list, folder, image-and-mask and synthetic-pair loaders (reference
+get_all_data_loaders utils.py:50-156; get_data_loader_list :192-250;
+get_data_loader_mask_and_im :638-677; get_synthetic_data_loader :552-635;
+get_data_loader_folder :680-740).
 
 The threaded ``DataLoader`` is the only backend: ``MUNIT_LOADER=grain``,
 the JAX package's Grain-backed loader, is not ported and raises.
@@ -12,7 +13,8 @@ from __future__ import annotations
 import os
 
 from munit_tpu_torch.data.datasets import (ImageFilelist, ImageFolder,
-                                           ImageMaskDataset)
+                                           ImageMaskDataset,
+                                           SyntheticPairDataset)
 from munit_tpu_torch.data.loader import DataLoader as _ThreadedDataLoader
 
 
@@ -45,6 +47,16 @@ def get_data_loader_mask_and_im(file_list, mask_list, batch_size, train,
                                 new_size=None, height=256, width=256,
                                 num_workers=4, crop=True, seed=0, **shard):
     ds = ImageMaskDataset(file_list, mask_list, new_size, height, width)
+    return DataLoader(ds, batch_size, shuffle=train, num_workers=num_workers,
+                      seed=seed, **shard)
+
+
+def get_synthetic_data_loader(file_list_a, file_list_b, mask_list, sem_list_a,
+                              sem_list_b, batch_size, train, new_size=256,
+                              height=256, width=256, num_workers=4, crop=True,
+                              seed=0, **shard):
+    ds = SyntheticPairDataset(file_list_a, file_list_b, mask_list, sem_list_a,
+                              sem_list_b, new_size, height, width)
     return DataLoader(ds, batch_size, shuffle=train, num_workers=num_workers,
                       seed=seed, **shard)
 

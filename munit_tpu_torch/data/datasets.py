@@ -1,6 +1,6 @@
 """Datasets (index → sample): the port's copy of
-``munit_tpu/data/datasets.py`` for the list, folder and image-and-mask
-datasets.
+``munit_tpu/data/datasets.py`` for the list, folder, image-and-mask and
+synthetic-pair datasets.
 
 A dataset is a sized object whose ``get(index, rng)`` returns a dict of
 numpy arrays: NHWC images, float32 in [-1, 1] or uint8 (see
@@ -209,3 +209,35 @@ class ImageMaskDataset:
             x = np.round((x + 1.0) * 127.5).astype(np.uint8)
             m = (m > 0.5).astype(np.uint8)
         return {"image": x, "mask": m}
+
+
+class SyntheticPairDataset:
+    """Synthetic 5-tuples (image_a, image_b, mask, sem_a, sem_b)
+    (MyDatasetSynthetic, utils.py:458-635): a rendered scene and its
+    flooded twin, the flood mask, and both semantic maps, through one
+    shared flip and crop (``transforms.synthetic_transform``). Images are
+    float32 in [-1, 1], the mask float32 {0, 1}, the semantics int32 class
+    ids; nothing is cached."""
+
+    def __init__(self, list_a: str, list_b: str, mask_list: str,
+                 sem_list_a: str, sem_list_b: str, new_size: int,
+                 height: int, width: int):
+        self.a = read_filelist(list_a)
+        self.b = read_filelist(list_b)
+        self.masks = read_filelist(mask_list)
+        self.sem_a = read_filelist(sem_list_a)
+        self.sem_b = read_filelist(sem_list_b)
+        self.new_size, self.h, self.w = new_size, height, width
+
+    def __len__(self):
+        return len(self.a)
+
+    def get(self, index, rng):
+        a, b, m, sa, sb = T.synthetic_transform(
+            rng, _open_rgb(self.a[index]), _open_rgb(self.b[index]),
+            Image.open(self.masks[index]).convert("L"),
+            Image.open(self.sem_a[index]).convert("L"),
+            Image.open(self.sem_b[index]).convert("L"),
+            self.new_size, self.h, self.w)
+        return {"image_a": a, "image_b": b, "mask": m,
+                "sem_a": sa, "sem_b": sb}

@@ -1,10 +1,10 @@
 """Host-side image transforms matching torchvision semantics.
 
-The port's own copy of ``munit_tpu/data/transforms.py`` (all but the
-synthetic-pair transform). The reference pipeline (utils.py:192-250,
-270-363): train: RandomHorizontalFlip → Resize(shorter side) →
-RandomCrop(h, w) → ToTensor → Normalize(.5, .5, .5); masks are flipped and
-cropped jointly with the image and resized with NEAREST. Arrays are
+The port's own copy of ``munit_tpu/data/transforms.py``. The reference
+pipeline (utils.py:192-250, 270-363): train: RandomHorizontalFlip →
+Resize(shorter side) → RandomCrop(h, w) → ToTensor → Normalize(.5, .5,
+.5); masks are flipped and cropped jointly with the image and resized
+with NEAREST. Arrays are
 channel-last, images float32 in [-1, 1] or, in uint8 mode, the uint8 crop
 that the device normalizes (``data/loader.py::device_prefetch``).
 
@@ -233,3 +233,34 @@ def image_mask_transform(rng: np.random.Generator, img: Image.Image,
     mask = mask.resize(img.size, Image.NEAREST)
     m = mask_to_array(crop(mask, i, j, h, w))
     return out, m
+
+
+def synthetic_transform(rng: np.random.Generator, img_a: Image.Image,
+                        img_b: Image.Image, mask: Image.Image,
+                        sem_a: Image.Image, sem_b: Image.Image,
+                        new_size: int, th: int, tw: int):
+    """Joint pipeline of a synthetic pair (MyDatasetSynthetic.transform,
+    utils.py:483-553): one flip and one crop shared by all five inputs; the
+    images resized BILINEAR, the mask and the semantics NEAREST to the
+    resized B image; the mask binarized at 0.5; the semantics mapped to
+    class ids. Returns (a, b, mask, sem_a, sem_b): float32 [-1, 1] HWC
+    images, a float32 {0, 1} HW1 mask and int32 HW class maps."""
+    if rng.random() > 0.5:
+        img_a = img_a.transpose(Image.FLIP_LEFT_RIGHT)
+        img_b = img_b.transpose(Image.FLIP_LEFT_RIGHT)
+        mask = mask.transpose(Image.FLIP_LEFT_RIGHT)
+        sem_a = sem_a.transpose(Image.FLIP_LEFT_RIGHT)
+        sem_b = sem_b.transpose(Image.FLIP_LEFT_RIGHT)
+    img_a = resize_shorter(img_a, new_size)
+    img_b = resize_shorter(img_b, new_size)
+    mask = mask.resize(img_b.size, Image.NEAREST)
+    sem_a = sem_a.resize(img_b.size, Image.NEAREST)
+    sem_b = sem_b.resize(img_b.size, Image.NEAREST)
+    i, j, h, w = crop_params(rng, img_b, th, tw)
+    a = normalize_pm1(to_array01(crop(img_a, i, j, h, w)))
+    b = normalize_pm1(to_array01(crop(img_b, i, j, h, w)))
+    m = mask_to_array(crop(mask, i, j, h, w))
+    m = (m > 0.5).astype(np.float32)
+    sa = semantic_to_classes(crop(sem_a, i, j, h, w))
+    sb = semantic_to_classes(crop(sem_b, i, j, h, w))
+    return a, b, m, sa, sb

@@ -9,7 +9,8 @@
 - ``from_jax_classifier``: a ``DomainClassifier`` param tree and its
   ``batch_stats`` → the reference ``domainClassifier`` keys (the inverse of
   ``convert_domain_classifier_state_dict``).
-
+- ``from_jax_seg_head``: a ``SegmentationHead`` param tree and its
+  ``batch_stats`` → the port's ``layer4.*``/``fc.*`` keys.
 - ``from_jax_resnet34_8s``: the frozen segmenter's ``{params,
   batch_stats}`` → the reference ``resnet34_8s.*`` keys (the inverse of
   ``convert_resnet34_8s_state_dict``).
@@ -189,6 +190,35 @@ def from_jax_classifier(params, stats=None) -> StateDict:
                 sd[f"{pre}.{key}.running_var"] = np.asarray(st["var"])
     sd["fc.weight"] = np.asarray(params["fc_kernel"]).T
     sd["fc.bias"] = np.asarray(params["fc_bias"])
+    return _tensors(sd)
+
+
+def from_jax_seg_head(params, stats=None) -> StateDict:
+    """SegmentationHead params (``layer4_{i}``, ``out_kernel``,
+    ``out_bias``) and, if given, its ``batch_stats`` → ``layer4.{i}.*``
+    (``down_conv``/``down_bn`` → ``downsample.{0,1}``) and ``fc.*``."""
+    sd: dict = {}
+
+    def oihw(a):
+        return np.transpose(np.asarray(a), (3, 2, 0, 1))
+
+    for i in range(3):
+        p, key = params[f"layer4_{i}"], f"layer4.{i}"
+        sd[f"{key}.conv1.weight"] = oihw(p["conv1"])
+        sd[f"{key}.conv2.weight"] = oihw(p["conv2"])
+        bns = [("bn1", "bn1"), ("bn2", "bn2")]
+        if "down_conv" in p:
+            sd[f"{key}.downsample.0.weight"] = oihw(p["down_conv"])
+            bns.append(("down_bn", "downsample.1"))
+        for name, sub in bns:
+            sd[f"{key}.{sub}.weight"] = np.asarray(p[name]["scale"])
+            sd[f"{key}.{sub}.bias"] = np.asarray(p[name]["bias"])
+            if stats is not None:
+                st = stats[f"layer4_{i}"][name]
+                sd[f"{key}.{sub}.running_mean"] = np.asarray(st["mean"])
+                sd[f"{key}.{sub}.running_var"] = np.asarray(st["var"])
+    sd["fc.weight"] = oihw(params["out_kernel"])
+    sd["fc.bias"] = np.asarray(params["out_bias"])
     return _tensors(sd)
 
 

@@ -1,10 +1,10 @@
 """The training losses, on NHWC tensors: counterparts of
-``munit_tpu/losses/losses.py`` (reference trainer.py:279-305, 638-667,
-706-771, networks.py:79-115). The reconstruction and GAN losses upcast to
-at least float32; the classifier and cross-entropy losses work in their
-input's type, as the JAX package's do (in bf16 training both inputs are
-f32 already: the classifier's batch norm and the segmenter's f32 input
-promote them).
+``munit_tpu/losses/losses.py`` (reference trainer.py:279-305, 638-704,
+706-771, networks.py:79-115, 151-152). The reconstruction and GAN losses
+upcast to at least float32; the classifier and cross-entropy losses work
+in their input's type, as the JAX package's do (in bf16 training both
+inputs are f32 already: the classifier's batch norm and the segmenter's
+f32 input promote them).
 """
 
 from __future__ import annotations
@@ -67,12 +67,44 @@ def gen_gan_loss(outs_fake: Sequence[torch.Tensor],
     return loss
 
 
+def dis_sr_loss(outs_sim: Sequence[torch.Tensor],
+                outs_real: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The output-level sim/real classifier's loss (an ``MsImageDis``):
+    sim → 0, real → 1, lsgan."""
+    return dis_gan_loss(outs_sim, outs_real, "lsgan")
+
+
+def gen_sr_loss(outs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The generator's term against the output-level sim/real classifier:
+    every scale's output toward 0.5 (networks.py:151-152)."""
+    loss = 0.0
+    for o in outs:
+        loss = loss + (upcast_f32(o) - 0.5).square().mean()
+    return loss
+
+
 def classifier_sr_loss(out_a: torch.Tensor, out_b: torch.Tensor,
                        domain_synth: bool, fool: bool) -> torch.Tensor:
     """Sim/real feature-classifier loss (trainer.py:638-667): the target is
     0.5 for the generator's fool term, else 0 (synthetic) or 1 (real)."""
     t = 0.5 if fool else (0.0 if domain_synth else 1.0)
     return (out_a - t).square().mean() + (out_b - t).square().mean()
+
+
+def domain_adv_loss(out_a: torch.Tensor, out_b: torch.Tensor,
+                    minimize: bool) -> torch.Tensor:
+    """The A/B content-domain classifier's (DANN) loss (trainer.py:669-704):
+    A → 1 and B → 0 when ``minimize``, else both → 0.5 (the generator's
+    anonymising term). The MSE over both outputs concatenated: the
+    reference's batch-2 targets taken to any batch, as the JAX package
+    does."""
+    t_a, t_b = (1.0, 0.0) if minimize else (0.5, 0.5)
+    out = torch.cat([out_a.reshape(-1), out_b.reshape(-1)])
+    tgt = torch.cat([torch.full((out_a.numel(),), t_a, dtype=out.dtype,
+                                device=out.device),
+                     torch.full((out_b.numel(),), t_b, dtype=out.dtype,
+                                device=out.device)])
+    return (out - tgt).square().mean()
 
 
 def cross_entropy_loss(logits: torch.Tensor,

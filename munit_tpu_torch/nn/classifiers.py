@@ -66,23 +66,31 @@ class _Downsample(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """conv3x3 → BN → ReLU → conv3x3 → BN, plus a 1x1-conv + BN shortcut,
-    then ReLU. Convs have no bias; zero padding."""
+    """conv3x3 → BN → ReLU → conv3x3 → BN, plus the input or, where the
+    widths differ, a 1x1-conv + BN shortcut, then ReLU. Convs have no bias;
+    zero padding, ``dilation`` of it on each side (the seg head's blocks
+    are dilated)."""
 
-    def __init__(self, in_dim: int, planes: int):
+    def __init__(self, in_dim: int, planes: int, dilation: int = 1):
         super().__init__()
+        self.dilation = dilation
         self.conv1 = nn.Conv2d(in_dim, planes, 3, bias=False)
         self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, bias=False)
         self.bn2 = BatchNorm(planes)
-        self.downsample = _Downsample(in_dim, planes)
+        self.downsample = (_Downsample(in_dim, planes) if in_dim != planes
+                           else None)
+
+    def _conv(self, x, conv):
+        return ops.conv2d(x, conv.weight, dilation=self.dilation,
+                          padding=self.dilation)
 
     def forward(self, x, update_stats):
-        out = ops.conv2d(ops.pad2d(x, 1, "zero"), self.conv1.weight)
-        out = torch.relu(self.bn1(out, update_stats))
-        out = ops.conv2d(ops.pad2d(out, 1, "zero"), self.conv2.weight)
-        out = self.bn2(out, update_stats)
-        return torch.relu(out + self.downsample(x, update_stats))
+        out = torch.relu(self.bn1(self._conv(x, self.conv1), update_stats))
+        out = self.bn2(self._conv(out, self.conv2), update_stats)
+        identity = (x if self.downsample is None
+                    else self.downsample(x, update_stats))
+        return torch.relu(out + identity)
 
 
 class DomainClassifier(nn.Module):

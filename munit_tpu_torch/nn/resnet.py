@@ -18,8 +18,15 @@ Parameter and buffer names are the reference's ``resnet34_8s.*`` keys
 ``layer{i}.0.downsample.{0,1}``, ``fc``): the layout that
 ``convert_resnet34_8s_state_dict`` reads, so a reference ``.pth`` loads with
 ``load_state_dict`` (``io/weights.py::load_segmenter_checkpoint`` drops its
-``num_batches_tracked`` counters). The trainable ``SegmentationHead`` comes
-with the seg-head step (ROADMAP queue 1, item 11).
+``num_batches_tracked`` counters).
+
+``SegmentationHead`` is the trainable head of the seg-head step
+(trainer.py:203-223, ``munit_tpu/nn/resnet.py::SegmentationHead``): the
+trunk's layer4 (three blocks of 512 planes, dilation 4) on content codes,
+built from the domain classifier's train-mode ``BasicBlock``
+(``nn/classifiers.py``, flax's batch-norm convention), then AvgPool2d(7,
+padding 3, stride 1) counting the pad, then a 1x1 conv with a bias to 10
+classes.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from torch import nn
 
 from munit_tpu_torch.core import init as winit
 from munit_tpu_torch.core import ops
+from munit_tpu_torch.nn import classifiers
 
 # (planes, blocks, stride, dilation) per stage for output stride 8: the
 # stride-2 stages past stride 8 become dilation 2, then 4 (resnet.py:197-250)
@@ -166,6 +174,40 @@ class ResNet34_8s(nn.Module):
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+
+
+class SegmentationHead(nn.Module):
+    """Content code (B, H, W, C) → (B, H, W, num_classes) logits at the
+    code's size. Parameter names follow the trunk's: ``layer4.{0,1,2}.*``
+    (``layer4.0.downsample.{0,1}``) and ``fc``."""
+
+    def __init__(self, in_dim: int = 256, num_classes: int = 10):
+        super().__init__()
+        planes, _, _, dilation = LAYERS_8S[-1]
+        self.layer4 = nn.ModuleList(
+            [classifiers.BasicBlock(in_dim if i == 0 else planes, planes,
+                                    dilation)
+             for i in range(3)])
+        self.fc = nn.Conv2d(planes, num_classes, 1)
+
+    def forward(self, c: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        """Train-mode BN always; ``update_stats`` moves the running
+        statistics (the head's own step keeps them)."""
+        for block in self.layer4:
+            c = block(c, update_stats)
+        return ops.conv2d(ops.box_avg_pool(c, 7), self.fc.weight,
+                          self.fc.bias)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Seeded init as the JAX package's: kaiming-normal convs (fan in),
+        a zero logit bias; the BN layers keep scale 1, shift 0, running
+        mean 0 and var 1."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                winit.kaiming_normal(m.weight, generator)
+                if m.bias is not None:
+                    winit.zeros(m.bias)
 
 
 @functools.lru_cache(maxsize=None)

@@ -48,6 +48,7 @@ launches are captured in any mode.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -159,6 +160,8 @@ class StepGraphs:
         # seconds to capture each key: Python, host bookkeeping and the
         # synchronise that opens a capture
         self.capture_seconds: Dict[tuple, float] = {}
+        # replays of each key's graph, the one after its capture included
+        self.replays: Counter = Counter()
 
     def __len__(self) -> int:
         return len(self._steps)
@@ -168,6 +171,7 @@ class StepGraphs:
         self._steps.clear()
         self._warm.clear()
         self.capture_seconds.clear()
+        self.replays.clear()
 
     def _new_graph(self):
         if self._make_graph is not None:
@@ -195,6 +199,7 @@ class StepGraphs:
                 self._warm.add(key)
                 return out
             step = self._capture(key, body, tensors)
+        self.replays[key] += 1
         return step(tensors)
 
     def _eager(self, body, tensors) -> Tensors:

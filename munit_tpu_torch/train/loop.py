@@ -1,11 +1,17 @@
 """The training loop: the reference cadences (train.py:159-330) over the
 trainer's steps, the port's counterpart of ``munit_tpu/train/loop.py``.
 
-Per iteration (config_256 in parens):
+Per iteration (config_256 in parens), through
+``trainer.cadence_iteration`` in the JAX loop's order:
 - the dis step, or the fused dis+gen step (``dis_gen_update``, the JAX
   trainer's default, equal to ``dis_update`` then ``gen_update``) when
   (it+1) % ratio_disc_gen == 0 (5);
+- the DANN step with domain_adv_w > 0;
 - the sim/real classifier step when (it+1) % classif_frequency == 0 (15);
+- with a synthetic loader (``configs/final_test/*``), one synthetic batch
+  per iteration whatever the branch: the output-level classifier step, the
+  fused step on the synthetic pair (ground-truth semantics with
+  synthetic_seg_gt: 1) and its classifier step, the seg-head step;
 - metrics of every log_iter-th iteration buffered and written every
   ``100 // log_iter`` of them (no per-iteration device sync), with
   ``images_per_sec`` over each written window and the card's memory
@@ -19,9 +25,8 @@ replay.
 
 A non-finite logged loss raises ``TrainingDiverged`` when its window is
 written, which happens before any checkpoint is committed, so the last
-checkpoint is never a poisoned one. The DANN, output-level DA,
-synthetic-pair and seg-head steps are not ported: the loop refuses a
-config or loaders that ask for them.
+checkpoint is never a poisoned one. In-training FID (``eval_fid``) is not
+ported: the loop refuses it.
 """
 
 from __future__ import annotations
@@ -47,20 +52,8 @@ class TrainingDiverged(RuntimeError):
     every later step is garbage; stop instead of training on."""
 
 
-def check_loop_ported(conf, loaders) -> None:
+def check_loop_ported(conf) -> None:
     """Raise NotImplementedError for the loop branches the port lacks."""
-    ad = conf["adaptation"]
-    asks = {"domain_adv_w > 0 (the DANN step)": conf["domain_adv_w"] > 0,
-            "a synthetic loader (the synthetic-pair and output-level DA "
-            "steps)": bool(loaders.get("synth")),
-            "adaptation.output_classifier_lambda > 0 (output-level DA)":
-                ad["output_classifier_lambda"] > 0,
-            "adaptation.sem_seg_lambda > 0 (the seg head)":
-                ad["sem_seg_lambda"] > 0}
-    for what, on in asks.items():
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported; ROADMAP queue 1 item 11")
     if conf.get("eval_fid", 0) > 0:
         raise NotImplementedError(
             "eval_fid > 0 (in-training FID) is not ported; ROADMAP queue 1 "
@@ -130,8 +123,9 @@ def train_loop(trainer, conf, loaders, output_directory: str,
     """Train from ``start_iteration`` to ``max_iter`` (the config's when
     None); returns the iteration reached.
 
-    loaders: {"a", "b"}, image-and-mask loaders (``iter_from`` gives exact
-    data order on resume). display_batches: (train_a, train_b, test_a,
+    loaders: {"a", "b"}, image-and-mask loaders, and "synth", the
+    synthetic-pair loader, if any (``iter_from`` gives exact data order on
+    resume). display_batches: (train_a, train_b, test_a,
     test_b) tensors for the sample grids. profile: (first iteration,
     iterations). stop: a threading.Event; when set, the loop snapshots the
     whole state and returns. device: where the batches go (the trainer's
@@ -140,7 +134,7 @@ def train_loop(trainer, conf, loaders, output_directory: str,
     "step" (issuing the steps), "bookkeeping" (the rest: metrics, their
     flush, which waits for the card, grids, checkpoints), and
     "iterations"."""
-    check_loop_ported(conf, loaders)
+    check_loop_ported(conf)
     device = torch.device(device if device is not None else trainer.device)
     logger = logger or MetricLogger(output_directory)
     ckpt_dir = os.path.join(output_directory, "checkpoints")
@@ -156,6 +150,7 @@ def train_loop(trainer, conf, loaders, output_directory: str,
         return device_prefetch(src, device, size=2, image_dtype=act_dt)
 
     it_a, it_b = stream(loaders["a"]), stream(loaders["b"])
+    it_s = stream(loaders["synth"]) if loaders.get("synth") else None
     pending = []
     flush_every = max(1, 100 // max(conf["log_iter"], 1))
     ckpt_writer = None
@@ -184,12 +179,13 @@ def train_loop(trainer, conf, loaders, output_directory: str,
                 prof.at(iterations)
             t_batch = time.perf_counter()
             ba, bb = next(it_a), next(it_b)
+            bs = next(it_s) if it_s is not None else None
             t_step = time.perf_counter()
             trainer.iterations = iterations
             x_a, mask_a = ba["image"], ba["mask"]
             x_b, mask_b = bb["image"], bb["mask"]
             metrics = cadence_iteration(trainer, conf, iterations, x_a, x_b,
-                                        mask_a, mask_b)
+                                        mask_a, mask_b, bs)
             t_rest = time.perf_counter()
 
             tput_imgs += int(x_a.shape[0])
@@ -248,8 +244,9 @@ def train_loop(trainer, conf, loaders, output_directory: str,
     finally:
         # on any exit: stop the feed's threads, end the trace, and commit
         # the queued checkpoints before the error (if any) propagates
-        it_a.close()
-        it_b.close()
+        for it in (it_a, it_b, it_s):
+            if it is not None:
+                it.close()
         if prof is not None:
             prof.stop()
         if ckpt_writer is not None:

@@ -6,7 +6,13 @@ for ``gen_state: 1``, ``guided: 1`` and ``grad_accum: 1``.
 - ``dis_gen_update``  ≙ the fused ``_dis_gen_step_impl`` (:814-883): one
   generator forward; D is updated first against the detached fakes, then
   the generator's losses are taken against the updated D
+- ``domain_classifier_update`` ≙ ``_dann_step_impl`` (:1258-1281), the
+  A/B content-domain classifier (DANN)
 - ``domain_classifier_sr_update`` ≙ ``_classifier_sr_step_impl`` (:1283-1312)
+- ``output_domain_classifier_sr_update`` ≙
+  ``_output_classifier_sr_step_impl`` (:1314-1333), the output-level
+  sim/real classifiers: always a plain step, never an extrapolation
+- ``segmentation_head_update`` ≙ ``_seg_head_step_impl`` (:1335-1366)
 - ``dis_gen_grads``   ≙ ``dis_gen_grads`` (:1025-1070), the fused step's
   gradients against the current D, with no update
 - ``sample``          ≙ ``sample`` (:1474-1515), guided: the display grid's
@@ -14,6 +20,16 @@ for ``gen_state: 1``, ``guided: 1`` and ``grad_accum: 1``.
 - ``state_dict`` / ``load_state_dict``: the whole training state that a
   checkpoint holds (``io/checkpoint.py``), the counterpart of the JAX
   trainer's ``state`` pytree
+
+``gen_update`` and ``dis_gen_update`` take ``synth`` (the synthetic-pair
+alignment loss on the pixels where x_a and x_b agree) and ground-truth
+semantics ``sem_gt_a``/``sem_gt_b``: the targets of the semantic loss
+are then those labels, no pseudo-label pass runs, and the segmenter's 19
+logits are merged into the 10 meta-classes (``merge_class_matrix``). The
+generator's loss carries the DANN anonymising term (``domain_adv_w``) and
+the output-level term (``output_adv_lambda``) beside the feature-level
+fool term, each classifier in train-mode batch norm whose statistics are
+discarded.
 
 Every forward makes the JAX trainer's ``wide: 1`` calls (its default at
 256 px): one style encode of both domains, the two content encoders as a
@@ -28,21 +44,17 @@ is left; the optimizers update the parameters in place. With guided
 styles no random style reaches a loss (trainer.py:850-853, 1137-1139), so
 none is drawn.
 
-Each of the four update steps is host bookkeeping around a device body,
-as the JAX trainer's jitted ``_*_step_impl`` are: the host reads the lr
-and the ExtraAdam phase, writes the lr and each optimizer's bias correction
-into device scalars, runs the body, then advances the optimizers' counts
-and anchor flags. The body reads no Python value that changes between
+Each update step is host bookkeeping around a device body, as the JAX
+trainer's jitted ``_*_step_impl`` are: the host reads the lr and the
+ExtraAdam phase, writes the lr and each optimizer's bias correction into
+device scalars, runs the body, then advances the optimizers' counts and
+anchor flags. The body reads no Python value that changes between
 iterations. On a CUDA device the bodies run as CUDA graphs, captured once
 per key and replayed (``train/graphs.py``); on the CPU they run eagerly.
 ``dis_gen_grads`` and ``sample`` always run eagerly.
 
-Not ported yet, and refused when its weight is on: VGG (``vgg_w``), DANN
-(``domain_adv_w``), synthetic pairs (``recon_synth_w``) and with them the
-ground-truth semantic targets (``has_sem_gt``, ``merge_class_matrix``),
-output-level DA (``output_adv_lambda``, ``output_classifier_lambda``), the
-seg head (``sem_seg_lambda``), ``grad_accum > 1`` and ``guided: 0``
-(ROADMAP.md).
+Not ported yet, and refused: VGG (``vgg_w``), ``grad_accum > 1`` and
+``guided: 0`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,7 +72,8 @@ from munit_tpu_torch.eval.segmap import decode_segmap
 from munit_tpu_torch.losses import losses
 from munit_tpu_torch.nn import classifiers, discriminator
 from munit_tpu_torch.nn.generator import GenBundle
-from munit_tpu_torch.nn.resnet import NUM_CLASSES, ResNet34_8s, seg_preprocess
+from munit_tpu_torch.nn.resnet import (NUM_CLASSES, ResNet34_8s,
+                                       SegmentationHead, seg_preprocess)
 from munit_tpu_torch.optim.extra_adam import (ExtraAdamState,
                                               bias_correction,
                                               extra_adam_advance,
@@ -71,37 +84,34 @@ from munit_tpu_torch.train import graphs
 
 Tensors = Dict[str, torch.Tensor]
 
-# (config key or adaptation key, weight name, the slice that brings it)
-_NOT_PORTED = (
-    ("vgg_w", "the VGG loss", "ROADMAP queue 1 item 12"),
-    ("domain_adv_w", "the DANN loss", "ROADMAP queue 1 item 11"),
-    ("recon_synth_w", "the synthetic-pair loss", "ROADMAP queue 1 item 11"),
-    ("adaptation.output_adv_lambda", "output-level DA",
-     "ROADMAP queue 1 item 11"),
-    ("adaptation.output_classifier_lambda", "output-level DA",
-     "ROADMAP queue 1 item 11"),
-    ("adaptation.sem_seg_lambda", "the seg head", "ROADMAP queue 1 item 11"),
-)
+# 19 Cityscapes classes → 10 meta-classes (merge_classes, utils.py:
+# 1330-1353). Class 0 has no sources: its merged logit is 0, as in the
+# reference.
+_MERGE_GROUPS = {9: [14, 15, 16], 8: [13, 17, 18], 7: [11, 12], 6: [10],
+                 5: [9], 4: [8], 3: [5, 6, 7], 2: [2, 3, 4], 1: [0, 1], 0: []}
+GT_CLASSES = 10
 
 
-def _lookup(conf, key):
-    for part in key.split("."):
-        conf = conf[part]
-    return conf
+def merge_class_matrix() -> np.ndarray:
+    """(19, 10) 0/1 matrix: merged logits = logits @ it."""
+    m = np.zeros((NUM_CLASSES, GT_CLASSES), np.float32)
+    for k, srcs in _MERGE_GROUPS.items():
+        for s in srcs:
+            m[s, k] = 1.0
+    return m
 
 
 def check_ported(conf: Dict) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks."""
+    """Raise NotImplementedError for what the port lacks."""
     if conf["guided"] != 1:
         raise NotImplementedError(
             "guided: 0 (random styles) is not ported; ROADMAP queue 1 item 9")
     if conf["grad_accum"] != 1:
         raise NotImplementedError(
             "grad_accum > 1 is not ported; ROADMAP queue 1 item 13")
-    for key, what, where in _NOT_PORTED:
-        if float(_lookup(conf, key)) > 0:
-            raise NotImplementedError(
-                f"{key} > 0 ({what}) is not ported; {where}")
+    if float(conf["vgg_w"]) > 0:
+        raise NotImplementedError(
+            "vgg_w > 0 (the VGG loss) is not ported; ROADMAP queue 1 item 12")
 
 
 def _named(module: torch.nn.Module) -> Tensors:
@@ -128,12 +138,17 @@ class MUNITTrainer:
         self.full_adaptation = ad["full_adaptation"] == 1
         self.crop = conf["crop_image_height"]
         self.use_classifier_sr = ad["dfeat_lambda"] > 0
+        self.domain_adv_w = float(conf["domain_adv_w"]) > 0
+        self.use_output_classifier_sr = ad["output_classifier_lambda"] > 0
+        self.train_seg = ad["sem_seg_lambda"] > 0
         self.lr_schedule = schedule_from_config(conf)
         self.iterations = 0
         self.hw = {k: float(conf[k]) for k in
                    ("gan_w", "recon_x_w", "recon_s_w", "recon_c_w",
-                    "recon_x_cyc_w", "semantic_w")}
+                    "recon_x_cyc_w", "semantic_w", "domain_adv_w",
+                    "recon_synth_w")}
         self.hw["adv_lambda"] = float(ad["adv_lambda"])
+        self.hw["output_adv_lambda"] = float(ad["output_adv_lambda"])
 
         self.gen = GenBundle(conf, device, trainable=True)
         self.dis_a = discriminator.build(conf, device)
@@ -150,10 +165,33 @@ class MUNITTrainer:
         # frozen: seeded by init() or loaded by load_segmenter()
         self.segmenter = (ResNet34_8s(NUM_CLASSES).frozen_on(device)
                           if self.semantic_w else None)
+        # the 19 → 10 merge of the ground-truth semantic loss, on the device
+        # once: a captured step may copy nothing from the host
+        self._merge = torch.from_numpy(merge_class_matrix()).to(self.device)
+
+        def on_device(net):
+            return net.to(device=device, memory_format=torch.channels_last)
+        self.dann = (on_device(classifiers.DomainClassifier(content_dim))
+                     if self.domain_adv_w else None)
+        # the gen term needs the output classifiers too (trainer.py:
+        # 1227-1233)
+        self.output_classifier_sr_a = self.output_classifier_sr_b = None
+        if self.use_output_classifier_sr or self.hw["output_adv_lambda"] > 0:
+            self.output_classifier_sr_a = discriminator.build(conf, device)
+            self.output_classifier_sr_b = discriminator.build(conf, device)
+        self.seg_head = (on_device(SegmentationHead(content_dim, GT_CLASSES))
+                         if self.train_seg else None)
         self.gen_opt = extra_adam_init(self.gen_params())
         self.dis_opt = extra_adam_init(self.dis_params())
         self.classif_sr_opt = (extra_adam_init(self.classifier_params())
                                if self.classifier_sr_a is not None else None)
+        self.dann_opt = (extra_adam_init(_named(self.dann))
+                         if self.dann is not None else None)
+        self.output_classif_sr_opt = (
+            extra_adam_init(self.output_classifier_params())
+            if self.output_classifier_sr_a is not None else None)
+        self.seg_opt = (extra_adam_init(_named(self.seg_head))
+                        if self.seg_head is not None else None)
         # the lr, then each optimizer's bias correction, as the steps read
         # them on the device; written before every step
         self._slot = {k: i + 1 for i, k in enumerate(self._opts())}
@@ -176,6 +214,13 @@ class MUNITTrainer:
             **{f"a.{k}": v for k, v in _named(self.classifier_sr_a).items()},
             **{f"b.{k}": v for k, v in _named(self.classifier_sr_b).items()}}
 
+    def output_classifier_params(self) -> Tensors:
+        return {
+            **{f"a.{k}": v
+               for k, v in _named(self.output_classifier_sr_a).items()},
+            **{f"b.{k}": v
+               for k, v in _named(self.output_classifier_sr_b).items()}}
+
     def init(self, generator: torch.Generator) -> None:
         """Seeded reference init of every net; the draws are made on the
         CPU from ``generator`` and copied to the device."""
@@ -184,6 +229,9 @@ class MUNITTrainer:
             nets += [self.classifier_sr_a, self.classifier_sr_b]
         if self.segmenter is not None:
             nets.append(self.segmenter)
+        nets += [n for n in (self.dann, self.output_classifier_sr_a,
+                             self.output_classifier_sr_b, self.seg_head)
+                 if n is not None]
         for net in nets:
             net.init(generator)
         self._graphs.clear()
@@ -204,13 +252,21 @@ class MUNITTrainer:
         if self.classifier_sr_a is not None:
             nets.update(classifier_sr_a=self.classifier_sr_a,
                         classifier_sr_b=self.classifier_sr_b)
+        if self.dann is not None:
+            nets["dann"] = self.dann
+        if self.output_classifier_sr_a is not None:
+            nets.update(output_classifier_sr_a=self.output_classifier_sr_a,
+                        output_classifier_sr_b=self.output_classifier_sr_b)
+        if self.seg_head is not None:
+            nets["seg_head"] = self.seg_head
         return nets
 
     def _opts(self) -> Dict[str, ExtraAdamState]:
-        opts = {"gen": self.gen_opt, "dis": self.dis_opt}
-        if self.classif_sr_opt is not None:
-            opts["classif_sr"] = self.classif_sr_opt
-        return opts
+        opts = {"gen": self.gen_opt, "dis": self.dis_opt,
+                "classif_sr": self.classif_sr_opt, "dann": self.dann_opt,
+                "output_classif_sr": self.output_classif_sr_opt,
+                "seg": self.seg_opt}
+        return {k: o for k, o in opts.items() if o is not None}
 
     def state_dict(self) -> Dict:
         """The whole training state, by reference (no copy): every
@@ -304,23 +360,36 @@ class MUNITTrainer:
         bsz = x_a.shape[0]
         return t[:bsz], t[bsz:]
 
-    def _sem_loss_from_logits(self, logits, target, mask):
-        """Masked CE over the 19 classes, the mask resized to the crop;
-        plain CE with ``full_adaptation: 1`` (trainer.py:754-763)."""
+    def _sem_loss_from_logits(self, logits, target, mask, has_gt=False):
+        """Masked CE, the mask resized to the crop; plain CE with
+        ``full_adaptation: 1`` (trainer.py:754-763). Against ground-truth
+        targets the 19 logits are merged into the 10 meta-classes first."""
+        n_cls = NUM_CLASSES
+        if has_gt:
+            logits, n_cls = logits @ self._merge, GT_CLASSES
         if self.full_adaptation:
             return losses.cross_entropy_loss(logits, target)
         m = ops.resize_nearest(mask, (self.crop, self.crop))[..., 0]
-        return losses.semantic_seg_loss_masked(logits, target, m, NUM_CLASSES)
+        return losses.semantic_seg_loss_masked(logits, target, m, n_cls)
 
-    def _semantic_loss_pair(self, x_ab, x_ba, targets, mask_a, mask_b):
+    def _semantic_loss_pair(self, x_ab, x_ba, targets, mask_a, mask_b,
+                            has_gt=False):
         """Both translations through one segmenter pass, held against the
         targets of their sources: x_ab against (t_a, mask_a), x_ba against
         (t_b, mask_b) (trainer.py:771-782, 1199-1202)."""
         bsz = x_ab.shape[0]
         logits = self._segment(torch.cat([x_ab, x_ba]))
         t_a, t_b = targets
-        return (self._sem_loss_from_logits(logits[:bsz], t_a, mask_a)
-                + self._sem_loss_from_logits(logits[bsz:], t_b, mask_b))
+        return (self._sem_loss_from_logits(logits[:bsz], t_a, mask_a, has_gt)
+                + self._sem_loss_from_logits(logits[bsz:], t_b, mask_b,
+                                             has_gt))
+
+    def _targets(self, x_a, x_b, sem_gt_a, sem_gt_b):
+        """The semantic loss's targets: the ground-truth labels when given
+        (no segmenter pass), else the pseudo-labels."""
+        if sem_gt_a is not None:
+            return sem_gt_a.long(), sem_gt_b.long()
+        return self._semantic_targets(x_a, x_b)
 
     def _dis_apply_fr(self, dis, x_fake, x_real):
         """One D pass over [fake | real] → (outs_fake, outs_real)."""
@@ -338,11 +407,14 @@ class MUNITTrainer:
         return total, {"loss_dis_a": la, "loss_dis_b": lb,
                        "loss_dis_total": total}
 
-    def _gen_loss(self, fw, x_a, x_b, mask_a, mask_b, sem_targets):
+    def _gen_loss(self, fw, x_a, x_b, mask_a, mask_b, sem_targets,
+                  synth=False, has_gt=False):
         """The gen step's loss over a generator forward (trainer.py:
-        1117-1254), against the current weights of D and the classifiers;
+        1117-1256), against the current weights of D and the classifiers;
         the classifiers' batch statistics are discarded. ``sem_targets``:
-        the pseudo-labels (t_a, t_b), or None when semantic_w is 0."""
+        (t_a, t_b), the pseudo-labels or the ground truth (``has_gt``), or
+        None when semantic_w is 0. ``synth``: a synthetic pair, whose
+        translations are held to the other image where the two agree."""
         hw, l1 = self.hw, losses.recon_l1
         m = {"loss_gen_recon_x_a": l1(fw["x_a_recon"], x_a),
              "loss_gen_recon_x_b": l1(fw["x_b_recon"], x_b),
@@ -362,22 +434,45 @@ class MUNITTrainer:
                 m["loss_gen_cycrecon_x_b"] = l1(fw["x_bab"], x_b)
         else:
             m["loss_gen_cycrecon_x_a"] = m["loss_gen_cycrecon_x_b"] = zero
+        if synth:
+            # the pixels where the pair agrees exactly, in the inputs' type
+            # (trainer.py:1160-1168)
+            aligned = ((x_a - x_b).abs().sum(dim=-1, keepdim=True)
+                       == 0).to(x_a.dtype)
+            m["loss_gen_recon_synth"] = (
+                losses.recon_l1_masked(fw["x_ab"], x_b, 1.0 - aligned)
+                + losses.recon_l1_masked(fw["x_ba"], x_a, 1.0 - aligned))
+        else:
+            m["loss_gen_recon_synth"] = zero
         m["loss_gen_adv_a"] = losses.gen_gan_loss(self.dis_a(fw["x_ba"]),
                                                   self.gan_type)
         m["loss_gen_adv_b"] = losses.gen_gan_loss(self.dis_b(fw["x_ab"]),
                                                   self.gan_type)
+        if self.semantic_w:
+            m["loss_sem_seg"] = self._semantic_loss_pair(
+                fw["x_ab"], fw["x_ba"], sem_targets, mask_a, mask_b, has_gt)
+        else:
+            m["loss_sem_seg"] = zero
+        if self.domain_adv_w:
+            # anonymise the content codes (trainer.py:1206-1214)
+            m["domain_adv_loss_gen"] = losses.domain_adv_loss(
+                self.dann(fw["c_a"]), self.dann(fw["c_b"]), minimize=False)
+        else:
+            m["domain_adv_loss_gen"] = zero
         if hw["adv_lambda"] > 0:
             m["loss_classifier_adv_sr"] = losses.classifier_sr_loss(
                 self.classifier_sr_a(fw["c_a"]),
-                self.classifier_sr_b(fw["c_b"]), domain_synth=False,
+                self.classifier_sr_b(fw["c_b"]), domain_synth=synth,
                 fool=True)
         else:
             m["loss_classifier_adv_sr"] = zero
-        if self.semantic_w:
-            m["loss_sem_seg"] = self._semantic_loss_pair(
-                fw["x_ab"], fw["x_ba"], sem_targets, mask_a, mask_b)
+        if hw["output_adv_lambda"] > 0:
+            m["loss_output_classifier_adv_sr"] = (
+                losses.gen_sr_loss(self.output_classifier_sr_a(fw["x_ba"]))
+                + losses.gen_sr_loss(self.output_classifier_sr_b(fw["x_ab"])))
         else:
-            m["loss_sem_seg"] = zero
+            m["loss_output_classifier_adv_sr"] = zero
+        # the JAX package's order of the sum (its VGG term is not ported)
         total = (hw["gan_w"] * (m["loss_gen_adv_a"] + m["loss_gen_adv_b"])
                  + hw["recon_x_w"] * (m["loss_gen_recon_x_a"]
                                       + m["loss_gen_recon_x_b"])
@@ -388,17 +483,13 @@ class MUNITTrainer:
                  + hw["recon_x_cyc_w"] * (m["loss_gen_cycrecon_x_a"]
                                           + m["loss_gen_cycrecon_x_b"])
                  + hw["semantic_w"] * m["loss_sem_seg"]
-                 + hw["adv_lambda"] * m["loss_classifier_adv_sr"])
+                 + hw["domain_adv_w"] * m["domain_adv_loss_gen"]
+                 + hw["recon_synth_w"] * m["loss_gen_recon_synth"]
+                 + hw["adv_lambda"] * m["loss_classifier_adv_sr"]
+                 + hw["output_adv_lambda"]
+                 * m["loss_output_classifier_adv_sr"])
         m["loss_gen_total"] = total
         return total, m
-
-    @staticmethod
-    def _no_sem_gt(sem_gt_a, sem_gt_b):
-        if sem_gt_a is not None or sem_gt_b is not None:
-            raise NotImplementedError(
-                "ground-truth semantic targets (has_sem_gt, "
-                "merge_class_matrix: the synthetic-pair step) are not "
-                "ported; ROADMAP queue 1 item 11")
 
     def _masks(self, x_a, mask_a, mask_b):
         z = None
@@ -441,11 +532,14 @@ class MUNITTrainer:
         for t, v in zip(self._scalar_views, vals):
             t.fill_(v)
 
-    def _step(self, kind, body, tensors, opts, static=(), lr_metric=False):
+    def _step(self, kind, body, tensors, opts, static=(), lr_metric=False,
+              phase=None):
         """One update step: the host's bookkeeping around ``body(
         extrapolate, *static, *tensors)``, its device work, which updates
-        the optimizers ``opts``. Returns the body's metrics, detached."""
-        lr, extrapolate = self._lr(), self._phase()
+        the optimizers ``opts``. ``phase`` pins the ExtraAdam phase (the
+        iteration's when None). Returns the body's metrics, detached."""
+        lr = self._lr()
+        extrapolate = self._phase() if phase is None else phase
         self._write_scalars(lr)
         states = [self._opts()[k] for k in opts]
 
@@ -479,35 +573,51 @@ class MUNITTrainer:
         self._update(self._grads(total, params), "dis", params, extrapolate)
         return m
 
-    def gen_update(self, x_a, x_b, mask_a=None, mask_b=None, sem_gt_a=None,
-                   sem_gt_b=None) -> Tensors:
-        """One generator step against the current discriminators."""
-        self._no_sem_gt(sem_gt_a, sem_gt_b)
-        return self._step("gen", self._gen_body, (x_a, x_b, mask_a, mask_b),
-                          ("gen",))
+    @staticmethod
+    def _gen_inputs(x_a, x_b, mask_a, mask_b, synth, sem_gt_a, sem_gt_b):
+        """(tensors, static) of a gen or fused step: whether the pair is
+        synthetic and whether ground truth is given are static, as the JAX
+        steps' ``static_argnames``."""
+        has_gt = sem_gt_a is not None
+        if has_gt != (sem_gt_b is not None):
+            raise ValueError("give both ground-truth maps or neither")
+        tensors = (x_a, x_b, mask_a, mask_b)
+        if has_gt:
+            tensors += (sem_gt_a, sem_gt_b)
+        return tensors, (bool(synth), has_gt)
 
-    def _gen_body(self, extrapolate, x_a, x_b, mask_a, mask_b) -> Tensors:
+    def gen_update(self, x_a, x_b, mask_a=None, mask_b=None, synth=False,
+                   sem_gt_a=None, sem_gt_b=None) -> Tensors:
+        """One generator step against the current discriminators."""
+        tensors, static = self._gen_inputs(x_a, x_b, mask_a, mask_b, synth,
+                                           sem_gt_a, sem_gt_b)
+        return self._step("gen", self._gen_body, tensors, ("gen",),
+                          static=static)
+
+    def _gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a, mask_b,
+                  sem_gt_a=None, sem_gt_b=None) -> Tensors:
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
-        targets = self._semantic_targets(x_a, x_b)
+        targets = self._targets(x_a, x_b, sem_gt_a, sem_gt_b)
         params = self.gen_params()
         total, m = self._gen_loss(self._gen_forward(x_a, x_b), x_a, x_b,
-                                  mask_a, mask_b, targets)
+                                  mask_a, mask_b, targets, synth, has_gt)
         self._update(self._grads(total, params), "gen", params, extrapolate)
         return m
 
     def dis_gen_update(self, x_a, x_b, mask_a=None, mask_b=None,
-                       sem_gt_a=None, sem_gt_b=None) -> Tensors:
+                       synth=False, sem_gt_a=None, sem_gt_b=None) -> Tensors:
         """The fused dis + gen step: one generator forward; D steps first on
         its detached cross decodes, then the generator's losses are taken
         against the updated D."""
-        self._no_sem_gt(sem_gt_a, sem_gt_b)
-        return self._step("dis_gen", self._dis_gen_body,
-                          (x_a, x_b, mask_a, mask_b), ("dis", "gen"),
-                          lr_metric=True)
+        tensors, static = self._gen_inputs(x_a, x_b, mask_a, mask_b, synth,
+                                           sem_gt_a, sem_gt_b)
+        return self._step("dis_gen", self._dis_gen_body, tensors,
+                          ("dis", "gen"), static=static, lr_metric=True)
 
-    def _dis_gen_body(self, extrapolate, x_a, x_b, mask_a, mask_b) -> Tensors:
+    def _dis_gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a,
+                      mask_b, sem_gt_a=None, sem_gt_b=None) -> Tensors:
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
-        targets = self._semantic_targets(x_a, x_b)
+        targets = self._targets(x_a, x_b, sem_gt_a, sem_gt_b)
         fw = self._gen_forward(x_a, x_b)
         dis_params = self.dis_params()
         total_d, m_dis = self._dis_loss(fw["x_ba"].detach(),
@@ -516,7 +626,7 @@ class MUNITTrainer:
                      extrapolate)
         gen_params = self.gen_params()
         total_g, m_gen = self._gen_loss(fw, x_a, x_b, mask_a, mask_b,
-                                        targets)
+                                        targets, synth, has_gt)
         self._update(self._grads(total_g, gen_params), "gen", gen_params,
                      extrapolate)
         return {**m_dis, **m_gen}
@@ -534,6 +644,28 @@ class MUNITTrainer:
         total_g, _ = self._gen_loss(fw, x_a, x_b, mask_a, mask_b, targets)
         return grads_d, self._grads(total_g, self.gen_params())
 
+    @torch.no_grad()
+    def _content_codes(self, x_a, x_b):
+        """Detached content codes of both domains."""
+        return self.gen.encode_content(x_a, 1), self.gen.encode_content(x_b, 2)
+
+    def domain_classifier_update(self, x_a, x_b) -> Tensors:
+        """One step of the A/B content-domain classifier (DANN) on detached
+        content codes: its batch statistics chain, the b pass starting from
+        what the a pass wrote."""
+        return self._step("dann", self._dann_body, (x_a, x_b), ("dann",))
+
+    def _dann_body(self, extrapolate, x_a, x_b) -> Tensors:
+        c_a, c_b = self._content_codes(x_a, x_b)
+        params = _named(self.dann)
+        out_a = self.dann(c_a, update_stats=True)
+        out_b = self.dann(c_b, update_stats=True)
+        loss = losses.domain_adv_loss(out_a, out_b, minimize=True)
+        self._update(self._grads(loss, params), "dann", params, extrapolate)
+        return {"domain_class_loss": loss,
+                "prob_a_as_a": torch.sigmoid(out_a[0, 0]),
+                "prob_b_as_b": torch.sigmoid(out_b[0, 0])}
+
     def domain_classifier_sr_update(self, x_a, x_b, domain_synth: bool,
                                     lamb: float) -> Tensors:
         """One step of the sim/real classifiers on detached content codes;
@@ -544,9 +676,7 @@ class MUNITTrainer:
 
     def _classifier_sr_body(self, extrapolate, domain_synth, lamb, x_a,
                             x_b) -> Tensors:
-        with torch.no_grad():
-            c_a = self.gen.encode_content(x_a, 1)
-            c_b = self.gen.encode_content(x_b, 2)
+        c_a, c_b = self._content_codes(x_a, x_b)
         params = self.classifier_params()
         loss = lamb * losses.classifier_sr_loss(
             self.classifier_sr_a(c_a, update_stats=True),
@@ -555,6 +685,58 @@ class MUNITTrainer:
         self._update(self._grads(loss, params), "classif_sr", params,
                      extrapolate)
         return {"loss_classifier_sr": loss}
+
+    def output_domain_classifier_sr_update(self, x_ar, x_as, x_br,
+                                           x_bs) -> Tensors:
+        """One step of the output-level sim/real classifiers: each domain's
+        MsImageDis takes its synthetic images to 0 and its real ones to 1,
+        scaled by ``output_classifier_lambda``. The reference calls the
+        optimizer's plain ``step()`` (trainer.py:1279): never an
+        extrapolation, whatever the iteration's phase."""
+        lamb = float(self.conf["adaptation"]["output_classifier_lambda"])
+        return self._step("output_classifier_sr",
+                          self._output_classifier_sr_body,
+                          (x_ar, x_as, x_br, x_bs), ("output_classif_sr",),
+                          static=(lamb,), phase=False)
+
+    def _output_classifier_sr_body(self, extrapolate, lamb, x_ar, x_as, x_br,
+                                   x_bs) -> Tensors:
+        params = self.output_classifier_params()
+        sim_b, real_b = self._dis_apply_fr(self.output_classifier_sr_b, x_bs,
+                                           x_br)
+        sim_a, real_a = self._dis_apply_fr(self.output_classifier_sr_a, x_as,
+                                           x_ar)
+        loss = lamb * (losses.dis_sr_loss(sim_b, real_b)
+                       + losses.dis_sr_loss(sim_a, real_a))
+        self._update(self._grads(loss, params), "output_classif_sr", params,
+                     extrapolate)
+        return {"loss_output_classifier_sr": loss}
+
+    def segmentation_head_update(self, x_a, x_b, target_a,
+                                 target_b) -> Tensors:
+        """One step of the seg head on detached content codes against
+        ground-truth labels (B, H, W) at the crop: the head runs on a, then
+        on b from the statistics a wrote; its logits are resized
+        bilinearly to the crop; the loss is ``sem_seg_lambda`` times the sum
+        of the two CEs."""
+        lamb = float(self.conf["adaptation"]["sem_seg_lambda"])
+        return self._step("seg_head", self._seg_head_body,
+                          (x_a, x_b, target_a, target_b), ("seg",),
+                          static=(lamb,))
+
+    def _seg_head_body(self, extrapolate, lamb, x_a, x_b, target_a,
+                       target_b) -> Tensors:
+        c_a, c_b = self._content_codes(x_a, x_b)
+        params = _named(self.seg_head)
+        size = (self.crop, self.crop)
+        out_a = ops.resize_bilinear(self.seg_head(c_a, update_stats=True),
+                                    size)
+        out_b = ops.resize_bilinear(self.seg_head(c_b, update_stats=True),
+                                    size)
+        loss = lamb * (losses.cross_entropy_loss(out_a, target_a)
+                       + losses.cross_entropy_loss(out_b, target_b))
+        self._update(self._grads(loss, params), "seg", params, extrapolate)
+        return {"loss_semantic_head": loss}
 
     # ------------------------------------------------------------ sampling
 
@@ -585,59 +767,144 @@ class MUNITTrainer:
                 x_b, x_b_recon, overlay(x_b), x_ba, overlay(x_ba), x_ba)
 
 
-def cadence_steps(conf: Dict, iteration: int) -> List[Tuple[str, bool]]:
-    """The steps that ``bench.py``'s cadence runs at ``iteration``, each as
-    (kind, extrapolate): a dis step, or the fused dis+gen step on every
-    ``ratio_disc_gen``-th iteration, then the sim/real classifier step on
-    every ``classif_frequency``-th; ExtraAdam extrapolates on even
-    iterations."""
+# The optimizers each step kind of the cadence updates.
+STEP_OPTS = {"dis": ("dis",), "dis_gen": ("dis", "gen"), "dann": ("dann",),
+             "classifier_sr": ("classif_sr",),
+             "output_classifier_sr": ("output_classif_sr",),
+             "dis_gen_synth": ("dis", "gen"),
+             "classifier_sr_synth": ("classif_sr",), "seg_head": ("seg",)}
+
+
+def cadence_steps(conf: Dict, iteration: int,
+                  synth: bool = False) -> List[Tuple[str, bool]]:
+    """The steps that the JAX loop's cadence (``munit_tpu/train/loop.py:
+    183-227``) runs at ``iteration``, in its order, each as (kind,
+    extrapolate): a dis step, or the fused dis+gen step on every
+    ``ratio_disc_gen``-th iteration; the DANN step with ``domain_adv_w >
+    0``; the sim/real classifier step on every ``classif_frequency``-th.
+    With a synthetic batch (``synth``): the output-level classifier step on
+    every ``output_classif_freq``-th (never extrapolating); on every
+    ``synthetic_frequency``-th the fused step on the synthetic pair and, on
+    the classifier's iterations, the classifier step on it; the seg-head
+    step. ExtraAdam extrapolates on even iterations."""
     ad = conf["adaptation"]
     phase = "extra" in conf["optimizer"] and iteration % 2 == 0
     kinds = ["dis_gen" if (iteration + 1) % conf["ratio_disc_gen"] == 0
              else "dis"]
-    if ad["dfeat_lambda"] > 0 and (iteration + 1) % ad["classif_frequency"] == 0:
+    if conf["domain_adv_w"] > 0:
+        kinds.append("dann")
+    classif = (ad["dfeat_lambda"] > 0
+               and (iteration + 1) % ad["classif_frequency"] == 0)
+    if classif:
         kinds.append("classifier_sr")
-    return [(k, phase) for k in kinds]
+    steps = [(k, phase) for k in kinds]
+    if not synth:
+        return steps
+    if ad["output_classifier_lambda"] > 0 and \
+            (iteration + 1) % ad["output_classif_freq"] == 0:
+        steps.append(("output_classifier_sr", False))
+    if conf["synthetic_frequency"] > 0:
+        if iteration % conf["synthetic_frequency"] == 0:
+            steps.append(("dis_gen_synth", phase))
+            if classif:
+                steps.append(("classifier_sr_synth", phase))
+        if ad["sem_seg_lambda"] > 0:
+            steps.append(("seg_head", phase))
+    return steps
 
 
-def capture_warmup(conf: Dict) -> int:
-    """Iterations from 0 after which every step variant of the cadence has
-    run twice, once eagerly and once captured: from then on a card only
-    replays."""
+def step_variants(conf: Dict, iterations, synth: bool = False):
+    """(kind, extrapolate, anchor flags of the optimizers it updates) of
+    each step of the cadence over ``iterations``, which run from 0: what
+    a step's graph key depends on besides its inputs. The flags follow the
+    optimizers as the steps advance them: the synthetic fused step of an
+    even iteration extrapolates from the anchor that the real one set."""
+    has_copy: Dict[str, bool] = {}
+    for it in iterations:
+        for kind, phase in cadence_steps(conf, it, synth):
+            opts = STEP_OPTS[kind]
+            yield kind, phase, tuple(has_copy.get(o, False) for o in opts)
+            for o in opts:
+                has_copy[o] = phase
+
+
+def capture_warmup(conf: Dict, synth: bool = False) -> int:
+    """Iterations from 0 after which every step variant of the cadence's
+    steady state has run twice, once eagerly and once captured: from then
+    on a card only replays."""
     ad = conf["adaptation"]
-    period = math.lcm(2, conf["ratio_disc_gen"], ad["classif_frequency"])
-    want = {v for it in range(period) for v in cadence_steps(conf, it)}
+    period = math.lcm(2, conf["ratio_disc_gen"], ad["classif_frequency"],
+                      ad["output_classif_freq"],
+                      max(conf["synthetic_frequency"], 1))
+    # after one period every optimizer has stepped: the anchor flags repeat,
+    # so every variant of the steady state runs twice within three periods
+    n = 3 * period
+    steps = [len(cadence_steps(conf, it, synth)) for it in range(n)]
+    variants = list(step_variants(conf, range(n), synth))
+    want = set(variants[sum(steps[:period]):])
     seen: Counter = Counter()
-    it = 0
-    while any(seen[v] < 2 for v in want):
-        seen.update(cadence_steps(conf, it))
-        it += 1
-    return it
+    at = 0
+    for it, k in enumerate(steps):
+        if all(seen[v] >= 2 for v in want):
+            return it
+        seen.update(variants[at:at + k])
+        at += k
+    return n
+
+
+def cadence_step(trainer, conf: Dict, kind: str, x_a, x_b, mask_a, mask_b,
+                 synth=None) -> Dict:
+    """One step of the cadence, of a kind that ``cadence_steps`` names, on
+    the iteration's real batch and its synthetic batch ``synth``
+    ({image_a, image_b, mask, sem_a, sem_b}, or None)."""
+    ad = conf["adaptation"]
+    if kind == "dis":
+        return trainer.dis_update(x_a, x_b)
+    if kind == "dis_gen":
+        return trainer.dis_gen_update(x_a, x_b, mask_a, mask_b)
+    if kind == "dann":
+        return trainer.domain_classifier_update(x_a, x_b)
+    if kind == "classifier_sr":
+        return trainer.domain_classifier_sr_update(
+            x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"])
+    x_as, x_bs = synth["image_a"], synth["image_b"]
+    if kind == "output_classifier_sr":
+        return trainer.output_domain_classifier_sr_update(x_a, x_as, x_b,
+                                                          x_bs)
+    if kind == "dis_gen_synth":
+        gt = ((synth["sem_a"], synth["sem_b"]) if conf["synthetic_seg_gt"]
+              else (None, None))
+        return trainer.dis_gen_update(x_as, x_bs, synth["mask"],
+                                      synth["mask"], synth=True,
+                                      sem_gt_a=gt[0], sem_gt_b=gt[1])
+    if kind == "classifier_sr_synth":
+        return trainer.domain_classifier_sr_update(
+            x_as, x_bs, domain_synth=True, lamb=ad["dfeat_lambda"])
+    if kind == "seg_head":
+        return trainer.segmentation_head_update(x_as, x_bs, synth["sem_a"],
+                                                synth["sem_b"])
+    raise ValueError(f"unknown step kind {kind!r}")
 
 
 def cadence_iteration(trainer, conf: Dict, iteration: int, x_a, x_b,
-                      mask_a, mask_b) -> Dict:
+                      mask_a, mask_b, synth=None) -> Dict:
     """The steps of one iteration of the cadence (``cadence_steps``) on the
-    trainer, their metrics merged."""
-    ad = conf["adaptation"]
+    trainer, their metrics merged, a later step's over an earlier one's as
+    the JAX loop merges them. ``synth``: the synthetic batch or None."""
     m = {}
-    for kind, _ in cadence_steps(conf, iteration):
-        if kind == "dis":
-            m.update(trainer.dis_update(x_a, x_b))
-        elif kind == "dis_gen":
-            m.update(trainer.dis_gen_update(x_a, x_b, mask_a, mask_b))
-        else:
-            m.update(trainer.domain_classifier_sr_update(
-                x_a, x_b, domain_synth=False, lamb=ad["dfeat_lambda"]))
+    for kind, _ in cadence_steps(conf, iteration, synth is not None):
+        m.update(cadence_step(trainer, conf, kind, x_a, x_b, mask_a, mask_b,
+                              synth))
     return m
 
 
 def train_steps(trainer: MUNITTrainer, x_a, x_b, mask_a, mask_b,
-                iterations: List[int]) -> List[Dict]:
-    """``bench.py``'s cadence over the given iterations on fixed tensors."""
+                iterations: List[int], synth=None) -> List[Dict]:
+    """The cadence over the given iterations on fixed tensors (bench.py's
+    without ``synth``, the synthetic batch)."""
     out = []
     for it in iterations:
         trainer.iterations = it
         out.append(cadence_iteration(trainer, trainer.conf, it, x_a, x_b,
-                                     mask_a, mask_b))
+                                     mask_a, mask_b, synth))
     return out

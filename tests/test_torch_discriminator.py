@@ -126,7 +126,8 @@ def test_classifier_carrier_inverts_the_reference_converter(classifier):
 LOSSES = ["recon_l1", "recon_l1_masked", "dis_gan_loss:lsgan",
           "dis_gan_loss:nsgan", "gen_gan_loss:lsgan", "gen_gan_loss:nsgan",
           "classifier_sr_loss:fool", "classifier_sr_loss:real",
-          "classifier_sr_loss:synth"]
+          "classifier_sr_loss:synth", "dis_sr_loss", "gen_sr_loss",
+          "domain_adv_loss:minimize", "domain_adv_loss:anonymize"]
 
 
 @pytest.mark.parametrize("name", LOSSES)
@@ -151,6 +152,15 @@ def test_losses_match_jax(name):
     elif fn == "gen_gan_loss":
         got, want = (losses.gen_gan_loss(t(outs), arg),
                      jlosses.gen_gan_loss(j(outs), arg))
+    elif fn == "dis_sr_loss":
+        got = losses.dis_sr_loss(t(outs), t(outs_r))
+        want = jlosses.dis_sr_loss(j(outs), j(outs_r))
+    elif fn == "gen_sr_loss":
+        got, want = losses.gen_sr_loss(t(outs)), jlosses.gen_sr_loss(j(outs))
+    elif fn == "domain_adv_loss":
+        kw = dict(minimize=arg == "minimize")
+        got = losses.domain_adv_loss(*t(logits), **kw)
+        want = jlosses.domain_adv_loss(*j(logits), **kw)
     else:
         kw = dict(domain_synth=arg == "synth", fool=arg == "fool")
         got = losses.classifier_sr_loss(*t(logits), **kw)

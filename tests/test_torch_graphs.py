@@ -33,6 +33,7 @@ from munit_tpu_torch.optim.extra_adam import (ExtraAdamState,
                                               extra_adam_apply)
 from munit_tpu_torch.train import graphs
 from munit_tpu_torch.train.trainer import (MUNITTrainer, cadence_steps,
+                                           capture_warmup, step_variants,
                                            train_steps)
 from tests.torch_port_util import (one_torch_thread,  # noqa: F401
                                    small_train_spec, train_batch)
@@ -205,6 +206,84 @@ def test_device_body_path_equals_the_eager_steps_bitwise():
     want = train_steps(eager, *batch, range(10))
     got = train_steps(captured, *batch, range(10))
     assert len(steps) == 3          # dis, fused, classifier_sr: one phase each
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    _assert_same(_leaves(captured), _leaves(eager))
+
+
+# configs/final_test's cadence at small widths, with ExtraAdam, the DANN,
+# the output-level classifiers and the seg head: a real and a synthetic
+# fused step every iteration, both classifier_sr steps every 2nd
+SIM2REAL = dict(optimizer="extra_adam", ratio_disc_gen=1,
+                synthetic_frequency=1, synthetic_seg_gt=1, recon_synth_w=1,
+                domain_adv_w=1,
+                adaptation={"adv_lambda": 6, "dfeat_lambda": 1,
+                            "classif_frequency": 2,
+                            "output_classifier_lambda": 1,
+                            "output_adv_lambda": 1, "sem_seg_lambda": 1})
+
+
+def _synth_batch():
+    x_a, x_b, m_a, _ = _batch()
+    x_b = x_a.clone()
+    x_b[:, :8] = -x_b[:, :8]
+    labels = torch.randint(0, 9, x_a.shape[:3],
+                           generator=torch.Generator().manual_seed(2))
+    return {"image_a": x_a, "image_b": x_b, "mask": m_a,
+            "sem_a": labels, "sem_b": labels.flip(1)}
+
+
+def _cadence_kind(key):
+    """The cadence's name for the step a key belongs to."""
+    kind, static = key[0], key[4]
+    synth = ((kind == "dis_gen" and static[0])
+             or (kind == "classifier_sr" and static[0]))
+    return kind + "_synth" if synth else kind
+
+
+def test_synthetic_cadence_keys_anchor_and_warmup():
+    """On an even iteration of the sim→real cadence with ExtraAdam, the real
+    fused step extrapolates with no anchor held and the synthetic one with
+    the anchor the real one set: a key config_256's cadence never makes.
+    The keys asked for are ``step_variants``' (the output-level classifier
+    step never extrapolates); ``capture_warmup`` reaches every one of them
+    twice. Eagerly, the second extrapolation keeps the first's anchor (the
+    parameters before the iteration, JAX extra_adam.py:86-91)."""
+    tr = _trainer(**SIM2REAL)
+    rec = _recording(tr)
+    batch, synth = _batch(), _synth_batch()
+    warm = capture_warmup(tr.conf, synth=True)
+    train_steps(tr, *batch, range(warm), synth)
+    got = [(_cadence_kind(k), k[1], k[2]) for k in rec.keys]
+    assert got == list(step_variants(tr.conf, range(warm), synth=True))
+    assert ("dis_gen_synth", True, (True, True)) in got
+    assert ("output_classifier_sr", True, (False,)) not in got
+    seen = {}
+    for key in rec.keys:
+        seen[key] = seen.get(key, 0) + 1
+    steady = set(rec.keys[len(rec.keys) // 2:])
+    assert all(seen[k] >= 2 for k in steady)
+
+    eager = _trainer(**SIM2REAL)
+    before = {k: v.detach().clone() for k, v in eager.gen_params().items()}
+    train_steps(eager, *batch, [0], synth)
+    assert eager.gen_opt.has_copy and eager.gen_opt.count == 2
+    for k, v in before.items():
+        assert torch.equal(eager.gen_opt.params_copy[k], v), k
+
+
+def test_synthetic_cadence_through_the_graphs_equals_eager_bitwise():
+    """4 iterations of the sim→real cadence through the captured path
+    equal the eager steps bit for bit, in every metric and state leaf."""
+    eager = _trainer(**SIM2REAL)
+    eager._capture = False
+    captured = _trainer(**SIM2REAL)
+    steps = _through_graphs(captured)
+    batch, synth = _batch(), _synth_batch()
+    want = train_steps(eager, *batch, range(4), synth)
+    got = train_steps(captured, *batch, range(4), synth)
+    assert len(steps) == len(set(step_variants(captured.conf, range(4),
+                                               synth=True)))
     for g, w in zip(got, want):
         _assert_same(g, w)
     _assert_same(_leaves(captured), _leaves(eager))

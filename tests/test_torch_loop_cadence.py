@@ -4,7 +4,9 @@ update and sample calls at the same iterations over 30 iterations of
 config_256's cadence (a fused step every 5th, the classifier_sr step every
 15th, grids every 5th and 10th, a snapshot every 12th), the same
 metrics.jsonl steps and keys, and the port's divergence and stop paths.
-No net runs: the spy's steps return numbers."""
+Then the final_test configs' sim→real cadence with a synthetic loader:
+the same calls, the synthetic ones (with or without ground truth) told
+apart. No net runs: the spy's steps return numbers."""
 
 import json
 import os
@@ -57,11 +59,24 @@ class SpyTrainer:
     def gen_update(self, *a, **k):
         return self._log("gen", "loss_gen_total")
 
-    def dis_gen_update(self, *a, **k):
-        return self._log("dis_gen", "loss_dis_total", "loss_gen_total")
+    def dis_gen_update(self, *a, synth=False, sem_gt_a=None, **k):
+        name = "dis_gen"
+        if synth:
+            name += " synth" + (" gt" if sem_gt_a is not None else "")
+        return self._log(name, "loss_dis_total", "loss_gen_total")
 
     def domain_classifier_sr_update(self, *a, domain_synth=False, **k):
-        return self._log("sr", "loss_classifier_sr")
+        return self._log("sr synth" if domain_synth else "sr",
+                         "loss_classifier_sr")
+
+    def domain_classifier_update(self, *a, **k):
+        return self._log("dann", "domain_class_loss")
+
+    def output_domain_classifier_sr_update(self, *a, **k):
+        return self._log("output_sr", "loss_output_classifier_sr")
+
+    def segmentation_head_update(self, *a, **k):
+        return self._log("seg_head", "loss_semantic_head")
 
     def sample(self, x_a, x_b):
         self.calls.append((self.iterations, f"sample {x_a[0, 0, 0, 0]}"))
@@ -75,7 +90,18 @@ class FakeLoader:
                    "mask": np.zeros((1, 4, 4, 1), np.float32)}
 
 
+class SynthLoader:
+    def __iter__(self):
+        while True:
+            yield {"image_a": np.zeros((1, 4, 4, 3), np.float32),
+                   "image_b": np.zeros((1, 4, 4, 3), np.float32),
+                   "mask": np.zeros((1, 4, 4, 1), np.float32),
+                   "sem_a": np.zeros((1, 4, 4), np.int32),
+                   "sem_b": np.zeros((1, 4, 4), np.int32)}
+
+
 CONFIG = Path(__file__).resolve().parents[1] / "configs" / "config_256.yaml"
+FINAL_TEST = CONFIG.parent / "final_test"
 
 
 def _conf(validate_fn, **over):
@@ -178,17 +204,73 @@ def test_stop_event_snapshots_and_returns_the_iteration(tmp_path):
     assert _metrics(str(tmp_path))[-1] == {"step": 4, "preempted": 1.0}
 
 
+def _both_loops(conf_of, loaders, tmp_path, iters):
+    """Each loop with a spy on ``conf_of(validate_fn)``: its calls."""
+    calls = {}
+    for name, loop, vfn in (("jax", jax_train_loop, jvalidate),
+                            ("port", train_loop, validate)):
+        conf = conf_of(vfn)
+        tr = SpyTrainer(conf)
+        kw = {"device": "cpu"} if name == "port" else {}
+        assert loop(tr, conf, loaders(), str(tmp_path / name),
+                    max_iter=iters, **kw) == iters
+        calls[name] = tr.calls
+    return calls
+
+
 @pytest.mark.parametrize("key,value,item", [
     ("domain_adv_w", 1.0, "item 11"),
     ("adaptation", {"sem_seg_lambda": 1.0}, "item 11"),
     ("adaptation", {"output_classifier_lambda": 1.0}, "item 11"),
     ("eval_fid", 1, "item 14")])
 def test_loop_refuses_unported_branches(tmp_path, key, value, item):
-    conf = _conf(validate, **{key: value})
-    with pytest.raises(NotImplementedError, match=item):
-        train_loop(SpyTrainer(conf), conf,
-                   {"a": FakeLoader(), "b": FakeLoader()}, str(tmp_path),
-                   max_iter=2, device="cpu")
+    """In-training FID (ROADMAP item 14) is refused before the first step.
+    The DANN, seg-head and output-level branches, refused until ROADMAP
+    item 11 was ported, now run: with a synthetic loader both loops make
+    the same calls, the branch's step among them."""
+    if item == "item 14":
+        conf = _conf(validate, **{key: value})
+        with pytest.raises(NotImplementedError, match=item):
+            train_loop(SpyTrainer(conf), conf,
+                       {"a": FakeLoader(), "b": FakeLoader()},
+                       str(tmp_path), max_iter=2, device="cpu")
+        return
+    calls = _both_loops(
+        lambda vfn: _conf(vfn, synthetic_frequency=1, **{key: value}),
+        lambda: {"a": FakeLoader(), "b": FakeLoader(),
+                 "synth": SynthLoader()}, tmp_path, 3)
+    assert calls["port"] == calls["jax"]
+    step = {"domain_adv_w": "dann", "sem_seg_lambda": "seg_head",
+            "output_classifier_lambda": "output_sr"}[
+        next(iter(value)) if key == "adaptation" else key]
+    assert [it for it, n in calls["port"] if n == step] == [0, 1, 2]
+
+
+@pytest.mark.parametrize("flavor,over", [
+    ("FeatureDA", {"domain_adv_w": 1, "adaptation": {"sem_seg_lambda": 1}}),
+    ("Output_DA", {})])
+def test_final_test_cadence_matches_jax(tmp_path, flavor, over):
+    """A final_test config with a synthetic loader over 30 iterations:
+    both loops make the same calls, real then synthetic steps in each
+    iteration (FeatureDA with the DANN and the seg head added, as no
+    shipped config turns them on)."""
+    def conf_of(vfn):
+        raw = get_config(str(FINAL_TEST / f"{flavor}.yaml"))
+        ad = dict(raw["adaptation"], **over.get("adaptation", {}))
+        return vfn({**raw, **CADENCE, **over, "adaptation": ad})
+    calls = _both_loops(conf_of, lambda: {"a": FakeLoader(),
+                                          "b": FakeLoader(),
+                                          "synth": SynthLoader()},
+                        tmp_path, ITERS)
+    assert calls["port"] == calls["jax"]
+    first = [n for it, n in calls["port"] if it == 0]
+    if flavor == "FeatureDA":
+        assert first == ["dis_gen", "dann", "dis_gen synth gt", "seg_head"]
+        assert [n for it, n in calls["port"] if it == 14] == [
+            "dis_gen", "dann", "sr", "dis_gen synth gt", "sr synth",
+            "seg_head"]
+    else:
+        assert first == ["dis_gen", "output_sr", "dis_gen synth gt"]
 
 
 def test_profile_window_writes_a_trace(tmp_path):

@@ -182,13 +182,36 @@ def test_full_adaptation_takes_the_unmasked_loss(runs):
 
 
 def test_ground_truth_targets_raise(runs):
-    """The synthetic-pair step's ground-truth targets wait for the step."""
-    tr = runs["ports"][0]
+    """Ground-truth targets (the synthetic-pair step's), refused until
+    ROADMAP item 11 was ported, now run: the semantic loss takes the given
+    labels against the 19 logits merged into 10 meta-classes, as JAX's
+    ``has_sem_gt`` does (rtol 1e-5), masked and unmasked; and both update
+    steps take them."""
+    jtr, seg = runs["jtr"], runs["seg"]
+    x_ab, x_ba, m_a, m_b = runs["batch"]
+    rng = np.random.RandomState(3)
+    gt_a, gt_b = (rng.randint(0, 10, x_ab.shape[:3]).astype(np.int32)
+                  for _ in range(2))
+    for fa in (0, 1):
+        jtr.full_adaptation = bool(fa)
+        want = float(jtr._semantic_loss_pair(
+            *map(jnp.asarray, (x_ab, gt_a, m_a, x_ba, gt_b, m_b)), True,
+            jtr.frozen))
+        with torch.no_grad():
+            got = float(_port(jtr.state, seg, full_adaptation=fa)
+                        ._semantic_loss_pair(
+                            *map(torch.from_numpy, (x_ab, x_ba)),
+                            (torch.from_numpy(gt_a), torch.from_numpy(gt_b)),
+                            *map(torch.from_numpy, (m_a, m_b)), has_gt=True))
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=f"fa={fa}")
+    jtr.full_adaptation = False
+    tr = _port(jtr.state, seg)
     x_a, x_b, m_a, m_b = map(torch.from_numpy, runs["batch"])
-    gt = torch.zeros(x_a.shape[:3], dtype=torch.long)
+    gt = torch.from_numpy(gt_a)
     for step in (tr.gen_update, tr.dis_gen_update):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            step(x_a, x_b, m_a, m_b, sem_gt_a=gt, sem_gt_b=gt)
+        loss = step(x_a, x_b, m_a, m_b, sem_gt_a=gt, sem_gt_b=gt)[
+            "loss_sem_seg"]
+        assert torch.isfinite(loss) and loss > 0
 
 
 def _worst_leaf(got, want):

@@ -303,8 +303,10 @@ def test_translate_reads_the_cli_snapshot(cli_runs, data, tmp_path):
 
 def test_cli_refuses_what_it_cannot_run(data, tmp_path, monkeypatch):
     """Another --trainer exits as the reference does; the card by default,
-    with no fallback; the synthetic-pair and FID loaders name their
-    ROADMAP items."""
+    with no fallback; in-training FID names its ROADMAP item. A synthetic
+    list, refused until ROADMAP item 11 was ported, now gets its loader
+    (seed + 2), whose batches hold both images, the mask and both
+    semantic maps."""
     cfg = tmp_path / "c.yaml"
     cfg.write_text(yaml.safe_dump(_loop_spec(data)))
     with pytest.raises(SystemExit, match="Only support MUNIT"):
@@ -313,10 +315,21 @@ def test_cli_refuses_what_it_cannot_run(data, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="CUDA is not available"):
         cli_train.main(["--config", str(cfg), "--output_path",
                         str(tmp_path)])
+    # the masks (gray 0 and 255) serve as semantic maps: both are classes
     synth = {"synthetic_frequency": 2,
-             "data_list_train_a_synth": data["data_list_train_a"]}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_train.build_loaders(validate(_loop_spec(data, **synth)))
+             "data_list_train_a_synth": data["data_list_train_a"],
+             "data_list_train_b_synth": data["data_list_train_b"],
+             "data_list_train_b_seg_synth": data["data_list_train_a_seg"],
+             "seg_list_a": data["data_list_train_a_seg"],
+             "seg_list_b": data["data_list_train_b_seg"]}
+    loaders = cli_train.build_loaders(validate(_loop_spec(data, **synth)))
+    assert sorted(loaders) == ["a", "b", "synth"]
+    assert loaders["synth"].seed == 2
+    batch = next(iter(loaders["synth"]))
+    assert {k: v.shape for k, v in batch.items()} == {
+        "image_a": (2, 32, 32, 3), "image_b": (2, 32, 32, 3),
+        "mask": (2, 32, 32, 1), "sem_a": (2, 32, 32), "sem_b": (2, 32, 32)}
+    assert set(np.unique(batch["sem_a"])) <= {0, 8}
     # in-training FID: the loop refuses it before its first step
     cfg.write_text(yaml.safe_dump(_loop_spec(data, eval_fid=1)))
     try:

@@ -231,13 +231,42 @@ def test_fused_step_matches_unfused_pair(jax_grads):
                                        atol=2.5e-4, err_msg=k)
 
 
+# the options the port refuses, each with the ROADMAP item that brings it
+REFUSED = {"guided": "item 9", "grad_accum": "item 13", "vgg_w": "item 12"}
+
+
 @pytest.mark.parametrize("key,value", [
     ("guided", 0), ("grad_accum", 2),
     ("adaptation", {"adv_lambda": 6, "dfeat_lambda": 1, "sem_seg_lambda": 1}),
     ("vgg_w", 1), ("domain_adv_w", 1), ("recon_synth_w", 1)])
 def test_unported_options_raise(key, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MUNITTrainer(validate(small_train_spec(**{key: value})), "cpu")
+    """guided: 0, grad_accum > 1 and vgg_w are refused, naming their
+    ROADMAP item. The sim→real options, refused until ROADMAP item 11 was
+    ported, now build their net and step: the seg head, the DANN, the
+    synthetic-pair loss."""
+    conf = validate(small_train_spec(**{key: value}))
+    if key in REFUSED:
+        with pytest.raises(NotImplementedError, match=REFUSED[key]):
+            MUNITTrainer(conf, "cpu")
+        return
+    tr = MUNITTrainer(conf, "cpu")
+    tr.init(torch.Generator().manual_seed(0))
+    x_a, x_b, m_a, m_b = map(torch.from_numpy, train_batch(1))
+    if key == "adaptation":
+        assert "seg_head" in tr.state_dict()["nets"]
+        labels = torch.randint(0, 10, x_a.shape[:3],
+                               generator=torch.Generator().manual_seed(1))
+        loss = tr.segmentation_head_update(x_a, x_b, labels, labels)[
+            "loss_semantic_head"]
+    elif key == "domain_adv_w":
+        assert "dann" in tr.state_dict()["nets"]
+        loss = tr.domain_classifier_update(x_a, x_b)["domain_class_loss"]
+        assert tr.dis_gen_update(x_a, x_b, m_a, m_b)[
+            "domain_adv_loss_gen"] > 0
+    else:
+        loss = tr.dis_gen_update(x_a, x_a.clone(), m_a, m_a, synth=True)[
+            "loss_gen_recon_synth"]
+    assert torch.isfinite(loss) and loss > 0
 
 
 def test_collapsed_discriminator_pyramid_raises():
