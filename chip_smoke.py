@@ -6,8 +6,9 @@ Phases, each raising on failure (exit code 1):
 1. the card's name and power limit (nvidia-smi), and the build of every
    CUDA source of the port, one nvcc each, started together;
 2. each norm kernel against its plain PyTorch version on the card, at every
-   norm shape of the config_256 path, batch 1, 2, 8 and 16 (the wide
-   decodes run at 2B), f32 and bf16, ReLU on and off; each path shape's
+   norm shape of the config_256 path, batch 1, 2, 4, 8, 10 and 16 (the
+   wide decodes run at 2B; translate_batch's 10 styles at 10), f32 and
+   bf16, ReLU on and off; each path shape's
    launch plan (cluster design at (B, 64, 64, 256) for IN and AdaIN, the
    grid design at every other shape and for every LN, the split design
    nowhere; the cluster's group, K, rows and resident clusters, the grid's
@@ -118,7 +119,24 @@ Phases, each raising on failure (exit code 1):
    one state, every loss within 1e-3 relative; a resume at iteration 10
    restored bit for bit with every new net; and ms per iteration (captured
    and eager), per step kind, peak memory and graphs of each flavor at
-   batch 1 in bf16.
+   batch 1 in bf16;
+14. vanilla MUNIT (gen_state 0: two AdaINGen auto-encoders; guided 0:
+   random styles; the VGG16 perceptual loss, its weights seeded): the
+   train CLI in bf16 on the package defaults with vgg_w 1 and on
+   config_256 with gen_state 0 and guided 0, 20 iterations each side by
+   side over phase 12's JPEGs (phase 12's loop keys): every logged loss
+   finite, the VGG terms above 0, every step variant that ran twice
+   captured and replayed, the norm launches by design (a guided: 0 fused
+   step: 124 forward, 104 backward); a dis, fused, gen and classifier_sr
+   step, card (TF32 off) against CPU at full width from one state with
+   the same explicit styles, every loss within 1e-3 relative; a resume at
+   iteration 10 bit for bit, the style stream too, and the styles of
+   iteration 11 equal to an uninterrupted run's; translate_batch with 10
+   styles from the step-20 snapshot over the 16 JPEGs on the card, on the
+   CPU over two of them within atol 1e-3, ms per image (the command and
+   the model alone) and its launches; translate from that snapshot; and
+   ms per iteration (captured and eager), per step kind, peak memory and
+   graphs of each flavor at batch 1 in bf16.
 Earlier lines are JSON objects. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
 checkout of the repo, it exits non-zero and prints no result.
@@ -131,7 +149,7 @@ comparison of two trees (parent, change, change, parent).
 
     python3 chip_smoke.py --sim2real
 
-builds the kernels and runs phase 13 alone.
+builds the kernels and runs phase 13 alone; ``--vanilla`` phase 14 alone.
 """
 
 from __future__ import annotations
@@ -285,8 +303,10 @@ def bound(name, a):
 CLUSTER_SHAPE = (64, 64, 256)
 # The batches of the norm calls on the driven paths: 1 and 8 (phases 8
 # and 12) and 2 (Output_DA's batch in phase 13), and twice each (the wide
-# decodes): the forward kernels are held against plain at each of them.
-PLAN_BATCHES = (1, 2, 4, 8, 16)
+# decodes), and 10 (translate_batch's 10-style decodes, phase 14): each
+# one's plans are shown, and the forward kernels are held against plain at
+# each of them, at 10 the AdaIN and LN calls alone (STYLE_BATCH_CALLS).
+PLAN_BATCHES = (1, 2, 4, 8, 10, 16)
 # The backward's per-call batches, times BWD_CALLS' multiplier
 BWD_BATCHES = (1, 2, 8)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -402,10 +422,18 @@ def split_call(norms, name, a, relu):
                          name == "whole_layer_norm", split=True)[0]
 
 
+# translate_batch's decode of one image's 10 styles, the batch-10 calls of
+# the driven paths: an AdaIN at 64², an LN at 128² and 256²
+STYLE_BATCH_CALLS = {(64, 64, 256): ("adain",),
+                     (128, 128, 128): ("whole_layer_norm",),
+                     (256, 256, 64): ("whole_layer_norm",)}
+
+
 def phase2_cases():
     for b in PLAN_BATCHES:
         for hwc in SHAPES:
-            yield b, hwc, tuple(PATH_CALLS)
+            yield b, hwc, (STYLE_BATCH_CALLS[hwc] if b == 10
+                           else tuple(PATH_CALLS))
 
 
 def kernel_phase(norms):
@@ -1117,25 +1145,35 @@ TRAIN_ITERS = 15        # bench.py's cadence: 12 dis, 3 fused, 1 classifier_sr
 
 
 def step_launches(conf):
-    """Forward and backward launches of one step of each kind at wide 1
-    (train/trainer.py): a content encode runs 1 + n_downsample + 2 n_res IN,
-    a decode 2 n_res AdaIN and n_downsample LN. A dis step encodes both
-    domains and decodes one batch per domain; a fused step does that twice
-    (the second encode and decode are the re-encode and the cycle) and runs
-    every norm backward; a classifier_sr step encodes both domains; a
-    sample grid encodes both and decodes four times. At config_256: 22 IN,
-    16 AdaIN, 4 LN; 44, 32, 8 each way; 22 IN; 22, 32, 8."""
+    """Forward and backward launches of one step of each kind
+    (train/trainer.py): a content encode runs 1 + n_downsample + 2 n_res
+    IN, a decode 2 n_res AdaIN and n_downsample LN; the style encoders run
+    no norm. A dis step encodes both domains and decodes one batch per
+    domain. A fused step encodes both, decodes the recon and cross
+    translations (one batch per domain with the dual generator, wide 1; a
+    decode each with gen_state 0, narrow), re-encodes both, decodes the
+    cycle if recon_x_cyc_w > 0 and, with guided 0, decodes D's own fakes
+    without gradient; every other norm runs backward too. A classifier_sr
+    step encodes both domains; a sample grid encodes both and decodes four
+    times (guided) or six (guided 0: the display and the fresh styles). At
+    config_256: 22 IN, 16 AdaIN, 4 LN; 44, 32, 8 each way; 22 IN; 22, 32,
+    8."""
     g = conf["gen"]
     enc = 1 + g["n_downsample"] + 2 * g["n_res"]
     dec = {"adain": 2 * g["n_res"], "whole_layer_norm": g["n_downsample"]}
-    dis = {"instance_norm": 2 * enc, **{k: 2 * v for k, v in dec.items()}}
-    fused = {k: 2 * v for k, v in dis.items()}
-    fused.update({k + "_bwd": v for k, v in fused.items()})
-    # a sample grid (trainer.sample, guided): two content encodes and four
-    # decodes (two recons, two translations), forward only
-    sample = {"instance_norm": 2 * enc, **{k: 4 * v for k, v in dec.items()}}
-    return {"dis": dis, "fused": fused,
-            "classifier_sr": {"instance_norm": 2 * enc}, "sample": sample}
+
+    def calls(encodes, decodes):
+        return {"instance_norm": encodes * enc,
+                **{k: decodes * v for k, v in dec.items()}}
+    cross = 2 if conf["gen_state"] == 1 else 4
+    cyc = 2 if conf["recon_x_cyc_w"] > 0 else 0
+    fakes = 0 if conf["guided"] == 1 else 2
+    fused = calls(4, cross + cyc + fakes)
+    fused.update({k + "_bwd": v
+                  for k, v in calls(4, cross + cyc).items()})
+    return {"dis": calls(2, 2), "fused": fused,
+            "classifier_sr": {"instance_norm": 2 * enc},
+            "sample": calls(2, 4 if conf["guided"] == 1 else 6)}
 
 
 # Card (TF32 off) against CPU, relative L2 error per gradient leaf. At full
@@ -2605,7 +2643,8 @@ SEM_GRAYS = (0, 29, 55, 76, 133, 149, 178, 200, 255)
 # state: float32 sums in another order through ~40 layers
 SIM_LOSS_RTOL = 1e-3
 SIM_RESUME_AT = 10
-SIM_TIME_ITERS = 10     # timed iterations after the warm-up, both modes
+SIM_TIME_ITERS = 10     # timed iterations after the warm-up, captured
+SIM_EAGER_ITERS = 5     # the same trainer's eager iterations after them
 # The norm launches of each step kind: the DANN and seg-head steps encode
 # both domains' content as the classifier_sr step does; the output-level
 # classifier step runs no generator.
@@ -2708,11 +2747,25 @@ def sim_inputs(b, seed, numerics):
     return batch, {k: v.cuda() for k, v in synth.items()}
 
 
-def sim_trainer(MUNITTrainer, conf, device, seed=SEED):
-    from munit_tpu_torch.cli.train import load_segmenter
+def without_styles(state):
+    """A trainer's state without its style stream and display styles: what
+    a trainer on another device type can load (a CPU generator's state is
+    not a CUDA generator's)."""
+    return {k: v for k, v in state.items() if k != "styles"}
+
+
+def cli_trainer(MUNITTrainer, conf, device, seed=SEED):
+    """A trainer as the train CLI makes it: seeded weights and styles, the
+    frozen segmenter and VGG16 seeded (neither checkpoint is in the
+    repo)."""
+    from munit_tpu_torch.cli.train import load_segmenter, load_vgg
     tr = MUNITTrainer(conf, device)
     tr.init(torch.Generator().manual_seed(seed))
-    load_segmenter(tr, conf)        # as the CLI makes it
+    tr.seed_styles(seed)
+    if tr.segmenter is not None:
+        load_segmenter(tr, conf)
+    if tr.vgg is not None:
+        load_vgg(tr, conf)
     return tr
 
 
@@ -2833,7 +2886,7 @@ def sim_parity_phase(MUNITTrainer, cadence_step, cadence_steps, get_config,
     set_numerics("tf32_off")
     torch.backends.cudnn.deterministic = True
     try:
-        trs = {d: sim_trainer(MUNITTrainer, conf, d) for d in ("cpu", "cuda")}
+        trs = {d: cli_trainer(MUNITTrainer, conf, d) for d in ("cpu", "cuda")}
         batch, synth = sim_inputs(1, SEED + 131, "tf32_off")
         inputs = {"cuda": (batch, synth),
                   "cpu": ([t.cpu() for t in batch],
@@ -2841,7 +2894,8 @@ def sim_parity_phase(MUNITTrainer, cadence_step, cadence_steps, get_config,
         it = conf["adaptation"]["classif_frequency"] - 1
         rows, worst, cpu_s = [], 0.0, 0.0
         for kind, _ in cadence_steps(conf, it, synth=True):
-            trs["cuda"].load_state_dict(trs["cpu"].state_dict())
+            trs["cuda"].load_state_dict(
+                without_styles(trs["cpu"].state_dict()))
             out = {}
             for dev, tr in trs.items():
                 tr.iterations = it
@@ -2883,14 +2937,14 @@ def sim_resume_phase(MUNITTrainer, train_steps, conf, tmp: Path):
     from munit_tpu_torch.io import checkpoint
     set_numerics("bf16")
     batch, synth = sim_inputs(1, SEED + 132, "bf16")
-    tr = sim_trainer(MUNITTrainer, conf, "cuda")
+    tr = cli_trainer(MUNITTrainer, conf, "cuda")
     train_steps(tr, *batch, range(SIM_RESUME_AT), synth)
     saved = state_leaves(tr)
     ckpt = str(tmp / "sim_checkpoints")
     checkpoint.save_checkpoint(ckpt, tr.state_dict(), SIM_RESUME_AT)
     nets = sorted(tr.state_dict()["nets"])
     del tr
-    other = sim_trainer(MUNITTrainer, conf, "cuda", SEED + 1)
+    other = cli_trainer(MUNITTrainer, conf, "cuda", SEED + 1)
     train_steps(other, *batch, range(SIM_RESUME_AT), synth)
     graphs_before = len(other._graphs)
     start = checkpoint.resume(other, ckpt)
@@ -2915,12 +2969,12 @@ def sim_time_phase(MUNITTrainer, train_steps, cadence_step, cadence_steps,
     head, at batch 1 in bf16 on tensors already on the card:
     capture_warmup iterations (every variant captured), then
     ms per iteration captured (median of 3 rounds of 10 iterations) and
-    eager (1 round of the same 10, on the same trainer), ms per step kind
+    eager (1 round of the next 5, on the same trainer), ms per step kind
     captured (median of 5), peak memory and the graphs per key."""
     set_numerics("bf16")
     for name, flavor, over in SIM_RUNS:
         conf = validate({**sim_raw(flavor, over), "batch_size": 1})
-        tr = sim_trainer(MUNITTrainer, conf, "cuda")
+        tr = cli_trainer(MUNITTrainer, conf, "cuda")
         batch, synth = sim_inputs(1, SEED + 133, "bf16")
         warm = capture_warmup(conf, synth=True)
         t0 = time.perf_counter()
@@ -2939,7 +2993,7 @@ def sim_time_phase(MUNITTrainer, train_steps, cadence_step, cadence_steps,
         check(len(tr._graphs) == graphs, f"{name}: a step was captured "
               "on the clock")
         captured, tr._capture = tr._capture, False
-        eager_ms, _ = host_ms(iterations, 1)
+        eager_ms = eager_round_ms(tr, batch, timed.stop, synth)
         tr._capture = captured
         it = conf["adaptation"]["classif_frequency"] - 1
         steps = {}
@@ -2956,20 +3010,33 @@ def sim_time_phase(MUNITTrainer, train_steps, cadence_step, cadence_steps,
                 for k in tr._graphs.capture_seconds]
         emit(phase="sim2real_time", config=name, batch=1, numerics="bf16",
              ms_per_iteration_captured=captured_ms / SIM_TIME_ITERS,
-             ms_per_iteration_eager=eager_ms / SIM_TIME_ITERS,
+             ms_per_iteration_eager=eager_ms,
              captured_rounds_ms=[r / SIM_TIME_ITERS for r in rounds],
              step_ms_captured=steps, peak_memory_gb=peak,
              graph_pool_gb=tr._graphs.pool_bytes() / 2**30, graphs=graphs,
              graph_keys=keys, warmup_iterations=warm, warmup_seconds=warm_s,
              note="host clock, each round ending in a synchronise; "
                   "captured: replays only (no capture on the clock); eager: "
-                  "the same iterations on the same trainer; step_ms: one "
+                  "the next 5 iterations on the same trainer, one round, "
+                  "no warm-up; step_ms: one "
                   "step of each kind of iteration 14, replayed; "
                   "peak_memory_gb: the most allocated during the captured "
                   "rounds")
         del tr
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def eager_round_ms(tr, batch, start, synth=None):
+    """Host ms per iteration of SIM_EAGER_ITERS eager iterations from
+    ``start``, one round ending in a synchronise, with no warm-up call: the
+    trainer has just run the same steps captured."""
+    from munit_tpu_torch.train.trainer import train_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_steps(tr, *batch, range(start, start + SIM_EAGER_ITERS), synth)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / SIM_EAGER_ITERS
 
 
 def sim2real_phase(norms, get_config, validate, data, tmp: Path):
@@ -3008,6 +3075,471 @@ def sim2real_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 14
+
+# (name, base config or None for the package defaults, keys merged into
+# it) of the vanilla MUNIT runs: upstream's model (the defaults: gen_state
+# 0, guided 0, batch 1, 256 px, adam, a fused step every iteration) with the
+# VGG loss, and config_256 with upstream's generator and random styles
+VANILLA_RUNS = (("vanilla", None, {"vgg_w": 1}),
+                ("config_256_vanilla", CONFIG, {"gen_state": 0, "guided": 0}))
+# the card-against-CPU check: config_256 with every vanilla term on
+VANILLA_ALL = {"gen_state": 0, "guided": 0, "vgg_w": 1}
+VANILLA_STYLES = 10         # translate_batch --num_style
+VANILLA_CPU_IMAGES = 2      # translate_batch's images on the CPU as well
+# translate_batch, card (TF32 off) against CPU on the same styles: float32
+# sums in another order through one encode and one decode
+VANILLA_TRANSLATE_ATOL = 1e-3
+# the step kinds of the card-against-CPU check and the styles each takes
+VANILLA_STEPS = (("dis", 2), ("dis_gen", 4), ("gen", 2), ("classifier_sr", 0))
+
+
+def vanilla_raw(base, over) -> dict:
+    """The base config (the package defaults when None) with ``over``."""
+    import yaml
+    raw = yaml.safe_load(base.read_text()) if base is not None else {}
+    for k, v in over.items():
+        raw[k] = {**raw[k], **v} if isinstance(v, dict) else v
+    return raw
+
+
+def spy_draws(tr):
+    """Every style batch ``tr`` draws from now on, copied, in order."""
+    calls, draw = [], tr.draw_style
+
+    def spy(bsz, dtype):
+        t = draw(bsz, dtype)
+        calls.append(t.detach().clone())
+        return t
+    tr.draw_style = spy
+    return calls
+
+
+def vanilla_cli_phase(norms, get_config, step_variants, data, tmp: Path):
+    """14(a): `python -m munit_tpu_torch train` in two subprocesses side by
+    side, bf16, 20 iterations each: the vanilla defaults with vgg_w 1, and
+    config_256 with gen_state 0 and guided 0, over phase 12's JPEGs, with
+    phase 12's keys (snapshots and grids at 10 and 20, a train_current grid
+    every 5, display_size 2, 8 workers) and the data keys. Every logged
+    loss finite, the VGG terms above 0 where vgg_w is, every step variant
+    that ran twice captured and replayed as the cadence says, the norm
+    launches by design (the steps' and the guided: 0 grids'). Returns the
+    launches by design and each run's directory and config."""
+    import yaml
+    runs, out = {}, {}
+    t0 = time.perf_counter()
+    for name, base, over in VANILLA_RUNS:
+        raw = {**vanilla_raw(base, over), **data, **CLI_KEYS}
+        cfg = tmp / "vanilla" / f"{name}.yaml"
+        cfg.parent.mkdir(parents=True, exist_ok=True)
+        cfg.write_text(yaml.safe_dump(raw))
+        counts_file = tmp / f"{name}_counts.json"
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SIM_RUNNER, str(counts_file), "train",
+             "--config", str(cfg), "--output_path", str(tmp / "vanilla")],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        runs[name] = (cfg, counts_file, proc)
+    total = {}
+    for name, (cfg, counts_file, proc) in runs.items():
+        _, err = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"{name}: train CLI exit {proc.returncode}: {err[-3000:]}")
+        conf = get_config(str(cfg))
+        counts = json.loads(counts_file.read_text())
+        run = tmp / "vanilla" / "outputs" / name
+        lines = [json.loads(ln) for ln in (run / "metrics.jsonl").open()]
+        losses = {m["step"]: m for m in lines if "loss_dis_total" in m}
+        finite = all(np.isfinite(v) for m in losses.values()
+                     for k, v in m.items() if k != "step")
+        variants = Counter(step_variants(conf, range(CLI_ITERS)))
+        kinds, norm_steps = Counter(), Counter()
+        for (kind, *_), n in variants.items():
+            kinds[kind] += n
+            norm_steps[SIM_STEP_NORMS[kind]] += n
+        norm_steps["sample"] = sample_calls(conf, CLI_ITERS)
+        want = expected_launches(norms, conf, norm_steps)
+        want_design = designs_of_calls(norms, want, PATH_DESIGN_SHARE)
+        want_graphs = {variant_label(*v): n - 1 for v, n in variants.items()
+                       if n >= 2}
+        got_graphs = {variant_label(k, e, h): n
+                      for k, e, h, n in counts["graphs"]}
+        vgg = [m["loss_gen_vgg_a"] for m in losses.values()
+               if "loss_gen_vgg_a" in m]
+        fused_per_step = step_launches(conf)["fused"]
+        images = sorted(p.name for p in (run / "images").iterdir())
+        from munit_tpu_torch.io import checkpoint
+        snapshots = checkpoint.steps(str(run / "checkpoints"))
+        emit(phase="vanilla_cli", config=name, batch=conf["batch_size"],
+             numerics="bf16", seconds_incl_start=wall,
+             iterations=CLI_ITERS, steps=dict(kinds),
+             logged_steps=sorted(losses), finite=finite,
+             loss_gen_vgg_a=vgg, fused_step_norm_launches=fused_per_step,
+             graphs=got_graphs, expected_graphs=want_graphs,
+             launches=counts["launches"], expected=want,
+             launches_by_design=counts["launches_by_design"],
+             expected_by_design=want_design, images=images,
+             snapshots=snapshots, losses_last=losses.get(CLI_ITERS),
+             note="gen_state 0, guided 0; the two runs side by side, "
+                  "seconds from their common start; the launches include "
+                  "the 8 sample grids' (guided 0: six decodes each); "
+                  "fused_step_norm_launches: one fused step's, by design "
+                  "of the code (config_256's guided step: 44 IN, 32 AdaIN, "
+                  "8 LN each way)")
+        check(sorted(losses) == list(range(conf["log_iter"],
+                                           CLI_ITERS + 1,
+                                           conf["log_iter"])),
+              f"{name}: logged steps {sorted(losses)}")
+        check(finite, f"{name}: a logged loss is not finite")
+        if conf["vgg_w"] > 0:
+            check(len(vgg) == len(losses) and all(v > 0 for v in vgg),
+                  f"{name}: loss_gen_vgg_a {vgg}")
+        check(sum(fused_per_step[k] for k in PATH_CALLS) > 84
+              and sum(fused_per_step[k + "_bwd"] for k in PATH_CALLS) > 84,
+              f"{name}: the guided: 0 fused step's launches "
+              f"{fused_per_step} are not above config_256's 84 each way")
+        check(got_graphs == want_graphs,
+              f"{name}: graphs {got_graphs}, want {want_graphs}")
+        check(counts["launches"] == want,
+              f"{name}: launches {counts['launches']}, want {want}")
+        check(counts["launches_by_design"] == want_design,
+              f"{name}: launches by design {counts['launches_by_design']}, "
+              f"want {want_design}")
+        check(snapshots == [10, 20], f"{name}: snapshots {snapshots}")
+        for k, v in counts["launches_by_design"].items():
+            for d, n in v.items():
+                total.setdefault(k, Counter())[d] += n
+        out[name] = (run, cfg)
+    return {k: dict(v) for k, v in total.items()}, out
+
+
+def vanilla_parity_phase(MUNITTrainer, validate):
+    """14(b): at full width, batch 1, parity numerics (TF32 off, cuDNN
+    deterministic), config_256 with gen_state 0, guided 0 and vgg_w 1: a
+    dis, a fused, a gen and a classifier_sr step on the card and on the CPU
+    from one state (the CPU trainer's, its styles aside, loaded into the
+    card's before each step) with the same explicit styles, drawn on the
+    CPU: every loss within SIM_LOSS_RTOL relative."""
+    conf = validate(vanilla_raw(CONFIG, VANILLA_ALL))
+    set_numerics("tf32_off")
+    torch.backends.cudnn.deterministic = True
+    trs = {}
+    try:
+        trs = {d: cli_trainer(MUNITTrainer, conf, d)
+               for d in ("cpu", "cuda")}
+        batch = train_inputs(1, SEED + 141)
+        inputs = {"cuda": batch, "cpu": [t.cpu() for t in batch]}
+        g = torch.Generator().manual_seed(SEED + 142)
+        it = conf["adaptation"]["classif_frequency"] - 1
+        rows, worst, cpu_s = [], 0.0, 0.0
+        for kind, n in VANILLA_STEPS:
+            styles = [torch.randn((1, conf["gen"]["style_dim"]), generator=g)
+                      for _ in range(n)]
+            trs["cuda"].load_state_dict(
+                without_styles(trs["cpu"].state_dict()))
+            out = {}
+            for dev, tr in trs.items():
+                tr.iterations = it
+                x_a, x_b, m_a, m_b = inputs[dev]
+                st = [s.to(dev) for s in styles] or None
+                t0 = time.perf_counter()
+                if kind == "dis":
+                    m = tr.dis_update(x_a, x_b, styles=st)
+                elif kind == "gen":
+                    m = tr.gen_update(x_a, x_b, m_a, m_b, styles=st)
+                elif kind == "dis_gen":
+                    m = tr.dis_gen_update(x_a, x_b, m_a, m_b, styles=st)
+                else:
+                    m = tr.domain_classifier_sr_update(
+                        x_a, x_b, domain_synth=False,
+                        lamb=conf["adaptation"]["dfeat_lambda"])
+                out[dev] = {k: float(v) for k, v in m.items() if k != "lr"}
+                if dev == "cpu":
+                    cpu_s += time.perf_counter() - t0
+            errs = {k: abs(out["cuda"][k] - w) / abs(w) if w else
+                    abs(out["cuda"][k]) for k, w in out["cpu"].items()}
+            key = max(errs, key=errs.get)
+            worst = max(worst, errs[key])
+            rows.append({"step": kind, "styles": n, "losses": len(errs),
+                         "worst": key, "rel_err": errs[key],
+                         "cpu": out["cpu"][key], "card": out["cuda"][key],
+                         "loss_gen_vgg_a": out["cpu"].get("loss_gen_vgg_a")})
+        emit(phase="vanilla_card_vs_cpu", batch=1, width="full (256, gen "
+             "dim 64, 3-scale discriminators, VGG16 to relu5_3)",
+             numerics="tf32_off", iteration=it, steps=rows,
+             worst_rel_err=worst, tol=SIM_LOSS_RTOL, cpu_seconds=cpu_s,
+             note="config_256 with gen_state 0, guided 0, vgg_w 1 (segmenter "
+                  "and VGG seeded); each step from the CPU trainer's state, "
+                  "loaded into the card's before it, with the same explicit "
+                  "styles; every loss the step logs, relative to the CPU's "
+                  "(absolute where the CPU's is 0)")
+        check(worst <= SIM_LOSS_RTOL,
+              f"vanilla card against CPU: {worst} > {SIM_LOSS_RTOL}: {rows}")
+        check(all(r["loss_gen_vgg_a"] > 0 for r in rows
+                  if r["step"] in ("gen", "dis_gen")), f"VGG terms: {rows}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        del trs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def vanilla_resume_phase(MUNITTrainer, validate, tmp: Path):
+    """14(c): the vanilla defaults with vgg_w 1, bf16, batch 1, captured:
+    10 iterations, a checkpoint, and a trainer of other weights and another
+    style seed that has run (and captured) 10 iterations restored from it
+    in place: its whole state, the style stream's state and the display
+    styles too, equal to the saved one bit for bit, its graphs kept; then
+    the 11th iteration's styles equal the uninterrupted run's."""
+    from munit_tpu_torch.io import checkpoint
+    from munit_tpu_torch.train.trainer import train_steps
+    conf = validate(vanilla_raw(None, {"vgg_w": 1}))
+    set_numerics("bf16")
+    batch = numerics_inputs(train_inputs(1, SEED + 143), "bf16")
+    tr = cli_trainer(MUNITTrainer, conf, "cuda")
+    train_steps(tr, *batch, range(SIM_RESUME_AT))
+    saved = state_leaves(tr)
+    ckpt = str(tmp / "vanilla_checkpoints")
+    checkpoint.save_checkpoint(ckpt, tr.state_dict(), SIM_RESUME_AT)
+    want = spy_draws(tr)
+    train_steps(tr, *batch, [SIM_RESUME_AT])
+    del tr
+    other = cli_trainer(MUNITTrainer, conf, "cuda", SEED + 1)
+    train_steps(other, *batch, range(SIM_RESUME_AT))
+    graphs_before = len(other._graphs)
+    start = checkpoint.resume(other, ckpt)
+    not_restored = restored_exactly(state_leaves(other), saved)
+    got = spy_draws(other)
+    train_steps(other, *batch, [SIM_RESUME_AT])
+    torch.cuda.synchronize()
+    same = len(got) == len(want) == 4 and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    emit(phase="vanilla_resume", batch=1, numerics="bf16",
+         resumed_from=start, leaves=len(saved[0]),
+         not_restored=not_restored, graphs_before_resume=graphs_before,
+         graphs_after_resume=len(other._graphs),
+         draws_after_resume=len(got), draws_equal=same,
+         style_dtype=str(got[0].dtype) if got else None)
+    check(start == SIM_RESUME_AT, f"resumed from {start}")
+    check("styles/generator" in saved[0], "the style stream is not saved")
+    check(not not_restored, f"resume did not restore {not_restored[:5]}")
+    check(graphs_before == len(other._graphs) > 0,
+          "load_state_dict dropped the captured steps")
+    check(same, "the styles after the resume differ from the "
+                "uninterrupted run's")
+    check(got[0].dtype == torch.bfloat16, "bf16 styles expected")
+    del other
+    torch.cuda.empty_cache()
+
+
+def translate_batch_model_ms(cfg: Path, ckpts: str) -> dict:
+    """What translate_batch runs on the card for one 256x256 image, the
+    content encode and the batched decode over VANILLA_STYLES styles: host
+    ms (median of 10, each ending in a synchronise), and its device time by
+    kernel group and its largest kernels over 3 profiled runs."""
+    from munit_tpu_torch.cli.translate import load_generator_weights
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.nn.generator import GenBundle
+    conf = get_config(str(cfg))
+    gen = GenBundle(conf, "cuda")
+    gen.load_state_dict(load_generator_weights(ckpts))
+    x = train_inputs(1, SEED + 145)[0]
+    styles = torch.randn((VANILLA_STYLES, conf["gen"]["style_dim"]),
+                         generator=torch.Generator().manual_seed(SEED)).cuda()
+
+    def one():
+        c = gen.encode_content(x, 1)
+        gen.decode(c.repeat(VANILLA_STYLES, 1, 1, 1), styles, 2)
+    with torch.inference_mode():
+        ms, _ = host_ms(one, 10)
+        rows, _ = device_profile(one, 3)
+    return {"model_ms_per_image": ms,
+            "model_device_ms_by_group": grouped(rows),
+            "model_top_kernels": [{"ms": r[0], "calls": r[2],
+                                   "kernel": r[1][:90]} for r in rows[:6]]}
+
+
+def vanilla_translate_phase(norms, run: Path, cfg: Path, data: dict,
+                            tmp: Path):
+    """14(d): from the vanilla run's step-20 snapshot, `translate_batch
+    --num_style 10` over phase 12's 16 domain-A JPEGs on the card (twice:
+    the second run timed), and over the first two on the CPU with the same
+    seed, hence the same styles: every output within
+    VANILLA_TRANSLATE_ATOL; its norm launches (one encode and one decode of
+    10 a image); then `translate` from the same snapshot."""
+    import shutil
+    from munit_tpu_torch.__main__ import main as entry
+    from munit_tpu_torch.cli import translate_batch
+    from PIL import Image
+    paths = Path(data["data_list_train_a"]).read_text().split()
+    folders = {"all": tmp / "tb_in", "cpu": tmp / "tb_in_cpu"}
+    for key, folder in folders.items():
+        folder.mkdir()
+        for p in paths[:VANILLA_CPU_IMAGES] if key == "cpu" else paths:
+            shutil.copy(p, folder)
+    set_numerics("tf32_off")     # as a fresh process runs
+    ckpts = str(run / "checkpoints")
+
+    def tb(folder, out, device):
+        return translate_batch.main([
+            "--config", str(cfg), "--checkpoint", ckpts, "--input_folder",
+            str(folder), "--output_folder", str(out), "--num_style",
+            str(VANILLA_STYLES), "--seed", str(SEED), "--output_only",
+            "--device", device])
+    norms.reset_launches()
+    t0 = time.perf_counter()
+    tb(folders["all"], tmp / "tb_card0", "cuda")
+    cold = time.perf_counter() - t0
+    launches = {k: v for k, v in norms.launches.items() if v}
+    t0 = time.perf_counter()
+    card = tb(folders["all"], tmp / "tb_card", "cuda")
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = tb(folders["cpu"], tmp / "tb_cpu", "cpu")
+    cpu_s = time.perf_counter() - t0
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    model = translate_batch_model_ms(cfg, ckpts)
+    written = [sorted(p.name for p in (tmp / f"tb_card_{j:02d}").iterdir())
+               for j in range(VANILLA_STYLES)]
+    n = len(paths)
+    want = {"instance_norm": 11 * n, "adain": 8 * n, "whole_layer_norm": 2 * n}
+    emit(phase="vanilla_translate_batch", images=n, styles=VANILLA_STYLES,
+         ms_per_image=warm / n * 1e3, ms_per_image_first_run=cold / n * 1e3,
+         **model,
+         cpu_images=len(cpu), cpu_seconds=cpu_s, max_abs_err=err,
+         atol=VANILLA_TRANSLATE_ATOL, launches=launches, expected=want,
+         shapes=sorted({tuple(a.shape) for a in card}),
+         note="ms_per_image: host clock over the whole command (its "
+              "start, the checkpoint's load, decode, 10 JPEG writes an "
+              "image), the second run timed; model_ms_per_image: one "
+              "image's content encode and 10-style decode alone, median of "
+              "10; card (TF32 off) against the CPU on the first images, the "
+              "same seeded styles")
+    check(all(w == sorted(Path(p).name for p in paths) for w in written),
+          "translate_batch did not write every image into every folder")
+    check(all(a.shape == (VANILLA_STYLES, 256, 256, 3) for a in card),
+          f"translate_batch shapes {[a.shape for a in card[:2]]}")
+    check(err <= VANILLA_TRANSLATE_ATOL,
+          f"translate_batch card against CPU: {err}")
+    check(launches == want, f"translate_batch launches {launches}, "
+                            f"want {want}")
+
+    (tmp / "vt_in").mkdir()
+    for i, p in enumerate(paths[:2]):
+        Image.open(p).save(tmp / "vt_in" / f"input{i}.jpg")
+    style = Path(data["data_list_train_b"]).read_text().split()[0]
+    norms.reset_launches()
+    rc = entry(["translate", "--config", str(cfg), "--checkpoint", ckpts,
+                "--input", str(tmp / "vt_in"), "--style", style,
+                "--output_folder", str(tmp / "vt_out")])
+    outs = sorted(p.name for p in (tmp / "vt_out").iterdir())
+    tr_launches = {k: v for k, v in norms.launches.items() if v}
+    emit(phase="vanilla_translate", outputs=outs, launches=tr_launches)
+    check(rc == 0 and outs == ["output000.jpg", "output001.jpg"],
+          f"translate wrote {outs}")
+    check(tr_launches == {"instance_norm": 22, "adain": 16,
+                          "whole_layer_norm": 4},
+          f"translate launches {tr_launches}")
+
+
+def vanilla_time_phase(MUNITTrainer, validate):
+    """14(e): each vanilla flavor at batch 1 in bf16 on tensors already on
+    the card: capture_warmup iterations, then ms per iteration captured
+    (median of 3 rounds of 10) and eager (1 round of the next 5, same
+    trainer), ms per step kind (median of 5), peak memory, the graphs and
+    their capture seconds."""
+    from munit_tpu_torch.train.trainer import (cadence_step, cadence_steps,
+                                               capture_warmup, train_steps)
+    set_numerics("bf16")
+    for name, base, over in VANILLA_RUNS:
+        conf = validate({**vanilla_raw(base, over), "batch_size": 1})
+        tr = cli_trainer(MUNITTrainer, conf, "cuda")
+        batch = numerics_inputs(train_inputs(1, SEED + 144), "bf16")
+        warm = capture_warmup(conf)
+        t0 = time.perf_counter()
+        train_steps(tr, *batch, range(warm))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        graphs = len(tr._graphs)
+        timed = range(warm, warm + SIM_TIME_ITERS)
+
+        def iterations():
+            train_steps(tr, *batch, timed)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        captured_ms, rounds = host_ms(iterations, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(len(tr._graphs) == graphs, f"{name}: a step was captured "
+              "on the clock")
+        captured, tr._capture = tr._capture, False
+        eager_ms = eager_round_ms(tr, batch, timed.stop)
+        tr._capture = captured
+        it = conf["adaptation"]["classif_frequency"] - 1
+        steps = {}
+        for kind, _ in cadence_steps(conf, it):
+            tr.iterations = it
+            steps[kind], _ = host_ms(lambda: cadence_step(
+                tr, conf, kind, *batch), 5)
+        check(len(tr._graphs) == graphs, f"{name}: the step timing "
+              "captured a step")
+        keys = [{"kind": k[0], "extrapolate": k[1],
+                 "replays": tr._graphs.replays[k],
+                 "capture_s": tr._graphs.capture_seconds[k]}
+                for k in tr._graphs.capture_seconds]
+        emit(phase="vanilla_time", config=name, batch=1, numerics="bf16",
+             ms_per_iteration_captured=captured_ms / SIM_TIME_ITERS,
+             ms_per_iteration_eager=eager_ms,
+             captured_rounds_ms=[r / SIM_TIME_ITERS for r in rounds],
+             step_ms_captured=steps, peak_memory_gb=peak,
+             graph_pool_gb=tr._graphs.pool_bytes() / 2**30, graphs=graphs,
+             graph_keys=keys, warmup_iterations=warm, warmup_seconds=warm_s,
+             note="host clock, each round ending in a synchronise; "
+                  "captured: replays only; eager: the next 5 iterations on "
+                  "the same trainer, one round, no warm-up; step_ms: one "
+                  "step of each kind of "
+                  "iteration 14, replayed; peak_memory_gb: the most "
+                  "allocated during the captured rounds")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def vanilla_phase(norms, get_config, validate, data, tmp: Path):
+    """Phase 14: vanilla MUNIT (gen_state 0, guided 0, the VGG loss): the
+    train CLI on two flavors, card against CPU, resume, translate_batch and
+    translate from a snapshot, timing; returns the CLI runs' norm launches
+    by design."""
+    from munit_tpu_torch.train.trainer import MUNITTrainer, step_variants
+    t0 = time.perf_counter()
+    launches, runs = vanilla_cli_phase(norms, get_config, step_variants,
+                                       data, tmp)
+    vanilla_parity_phase(MUNITTrainer, validate)
+    vanilla_resume_phase(MUNITTrainer, validate, tmp)
+    vanilla_translate_phase(norms, *runs["vanilla"], data, tmp)
+    vanilla_time_phase(MUNITTrainer, validate)
+    emit(phase="vanilla_seconds", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def vanilla_alone() -> int:
+    """``python3 chip_smoke.py --vanilla``: the build and phase 14 alone,
+    for working on it; the kernel line and status line are the full
+    run's."""
+    from munit_tpu_torch.config import get_config, validate
+    from munit_tpu_torch.kernels import build, norms
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_train_data(Path(tmp) / "data")
+        vanilla_phase(norms, get_config, validate, data, Path(tmp))
+    return 0
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3035,7 +3567,7 @@ PROBE_KERNELS = (
 
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                  mom_err, mom_times, probe_launches, cli_launches,
-                 sim_launches):
+                 sim_launches, vanilla_launches):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
     backward, then the moments kernels of the probes."""
@@ -3078,6 +3610,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_train_bf16=train_launches["bf16"][name][design],
                 launches_cli=cli_launches[name][design],
                 launches_sim2real=sim_launches[name][design],
+                launches_vanilla=vanilla_launches[name][design],
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
@@ -3087,7 +3620,9 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "iterations at batch 1 with TF32 (in bf16; phase 8), "
                     "launches_cli: the train CLI's 20 iterations and 8 "
                     "sample grids (phase 12), launches_sim2real: the train "
-                    "CLI's 3 final_test runs of 20 iterations (phase 13)"))
+                    "CLI's 3 final_test runs of 20 iterations (phase 13), "
+                    "launches_vanilla: its 2 vanilla runs of 20 iterations "
+                    "and 8 grids each (phase 14)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -3100,13 +3635,14 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_bf16=train_launches["bf16"][name + "_bwd"][design],
                 launches_cli=cli_launches[name + "_bwd"][design],
                 launches_sim2real=sim_launches[name + "_bwd"][design],
+                launches_vanilla=vanilla_launches[name + "_bwd"][design],
                 per="one fused dis+gen step's backward calls of this design "
                     "at batch 1, float32; split_ms: the split design's "
                     "time for the same calls; launches(_bf16): 15 training "
                     "iterations at batch 1 with TF32 (in bf16; phase 8), "
                     "launches_cli: the train CLI's 20 iterations (phase "
                     "12), launches_sim2real: its 3 final_test runs (phase "
-                    "13)"))
+                    "13), launches_vanilla: its 2 vanilla runs (phase 14)"))
     for row, name, probe, dname, replaces in PROBE_KERNELS:
         t = mom_times[(name, PROBE_SHAPES[0], dname)]
         kernels.append({
@@ -3164,6 +3700,8 @@ def main() -> int:
         return ab(sys.argv[2:])
     if sys.argv[1:] == ["--sim2real"]:
         return sim2real_alone()
+    if sys.argv[1:] == ["--vanilla"]:
+        return vanilla_alone()
     # a checkout of the repo: the port and its sources must be here
     from munit_tpu_torch.cli import translate
     from munit_tpu_torch.config import get_config, validate
@@ -3242,10 +3780,13 @@ def main() -> int:
         feed_phase(norms, MUNITTrainer, get_config, data, fixed, Path(tmp))
         sim_launches = sim2real_phase(norms, get_config, validate, data,
                                       Path(tmp))
+        vanilla_launches = vanilla_phase(norms, get_config, validate, data,
+                                         Path(tmp))
 
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
-        mom_times, probe_launches, cli_launches, sim_launches)}), flush=True)
+        mom_times, probe_launches, cli_launches, sim_launches,
+        vanilla_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

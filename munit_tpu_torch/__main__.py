@@ -11,6 +11,9 @@ COMMANDS = {
               "train a config on one device (reference train.py)"),
     "translate": ("munit_tpu_torch.cli.translate",
                   "guided single-style folder inference (reference test.py)"),
+    "translate_batch": ("munit_tpu_torch.cli.translate_batch",
+                        "multi-style batch inference (reference "
+                        "test_batch.py)"),
 }
 
 

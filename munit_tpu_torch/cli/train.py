@@ -13,6 +13,12 @@ checkpoint. The config's ``precision:`` (default bf16, the JAX CLI's
 default) sets the conv numerics: bf16 conv operands and images, or
 ``parity``/``f32`` (f32, TF32 off). Runs on the CUDA card by default and
 raises without one; ``--device cpu`` runs the kernels' plain versions.
+
+``--seed`` seeds the weights, the loaders' shuffles and the random styles'
+stream (``guided: 0``). With ``vgg_w > 0`` the perceptual loss takes the
+VGG16 state dict at ``vgg_model_path`` (torchvision's ``features.*`` or the
+reference ``Vgg16``'s keys); a path that does not exist stops the run, and
+no path means seeded weights, with a warning.
 """
 
 from __future__ import annotations
@@ -34,13 +40,16 @@ from munit_tpu_torch.data.api import (get_all_data_loaders,
                                       get_synthetic_data_loader)
 from munit_tpu_torch.io import checkpoint
 from munit_tpu_torch.io.weights import load_segmenter_checkpoint
+from munit_tpu_torch.nn.vgg import convert_vgg16_state_dict
 from munit_tpu_torch.train.loop import train_loop
 from munit_tpu_torch.train.trainer import MUNITTrainer
 from munit_tpu_torch.utils.logging import MetricLogger
 from munit_tpu_torch.utils.misc import get_git_revision_hash, prepare_sub_folder
 
-# the JAX CLI seeds the frozen segmenter with its own key, whatever --seed
+# the JAX CLI seeds the frozen segmenter and VGG16 with their own keys,
+# whatever --seed
 SEGMENTER_SEED = 1
+VGG_SEED = 2
 
 
 def build_loaders(conf, seed=0):
@@ -131,6 +140,23 @@ def load_segmenter(trainer, conf) -> None:
     trainer.segmenter.init(torch.Generator().manual_seed(SEGMENTER_SEED))
 
 
+def load_vgg(trainer, conf) -> None:
+    """The perceptual loss's VGG16 as the JAX CLI makes it
+    (``munit_tpu/cli/train.py:257-285``)."""
+    path = conf.get("vgg_model_path")
+    if path and not os.path.exists(str(path)):
+        raise SystemExit(
+            f"vgg_w > 0 and vgg_model_path={path!r} does not exist; fix the "
+            "path or unset vgg_model_path to opt into random-weight VGG16")
+    if path:
+        trainer.load_vgg(convert_vgg16_state_dict(torch.load(
+            str(path), map_location="cpu", weights_only=True)))
+        return
+    print("WARNING: vgg_model_path missing — using random VGG16 weights for "
+          "the perceptual loss")
+    trainer.vgg.init(torch.Generator().manual_seed(VGG_SEED))
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m munit_tpu_torch train")
     p.add_argument("--config", required=True)
@@ -171,8 +197,11 @@ def main(argv=None) -> int:
 
     trainer = MUNITTrainer(conf, device)
     trainer.init(torch.Generator().manual_seed(opts.seed))
+    trainer.seed_styles(opts.seed)
     if trainer.segmenter is not None:
         load_segmenter(trainer, conf)
+    if trainer.vgg is not None:
+        load_vgg(trainer, conf)
     start = checkpoint.resume(trainer, ckpt_dir) if opts.resume else 0
 
     loaders = build_loaders(conf, seed=opts.seed)

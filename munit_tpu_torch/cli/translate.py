@@ -2,15 +2,17 @@
 test.py semantics, as ``munit_tpu/cli/translate.py``).
 
 Given a style exemplar (a flooded image) and a folder of street-view images:
-encode the exemplar's style once with the shared style encoder, then per
-image encode content with branch 1, decode with branch 2, and save
-output%03d.jpg.
+encode the exemplar's style once with branch 2's style encoder (the shared
+one of the dual generator), then per image encode content with branch 1,
+decode with branch 2, and save output%03d.jpg.
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain versions
-of the kernels on the CPU. Weights: a reference ``gen_*.pt`` ({"2": sd}),
-an ``.npz`` of ``sd::`` entries or a packed inference ``.npz``, or the
-generator of a training checkpoint of the port (``io/checkpoint.py``): a
-``ckpt_<step>.pt`` file or a directory of them, whose latest is read.
+of the kernels on the CPU. Weights, of the config's ``gen_state``: a
+reference ``gen_*.pt`` ({"2": sd} of the dual generator, {"a": sd, "b": sd}
+of ``gen_state: 0``), an ``.npz`` of ``sd::`` entries or a packed inference
+``.npz``, or the generator of a training checkpoint of the port
+(``io/checkpoint.py``): a ``ckpt_<step>.pt`` file or a directory of them,
+whose latest is read.
 
 Usage:
   python -m munit_tpu_torch translate --config configs/config_256.yaml \\
@@ -102,7 +104,7 @@ def main(argv=None):
     gen.load_state_dict(load_generator_weights(opts.checkpoint))
     new_size = conf["new_size"]
 
-    s_b = gen.encode_style(load_image(opts.style, new_size, device))
+    s_b = gen.encode_style(load_image(opts.style, new_size, device), 2)
     outs = []
     for j, path in enumerate(files):
         x_a = load_image(path, new_size, device)

@@ -1,0 +1,131 @@
+"""Multi-style batch inference, MUNIT's "multimodal" translation: the port's
+counterpart of ``munit_tpu/cli/translate_batch.py`` (reference
+test_batch.py semantics).
+
+Per input image: one content encode, then one batched decode over
+``--num_style`` random styles (or the same ``--synchronized`` ones for
+every image), each written to ``<output_folder>_<j:02d>/<basename>``; the
+input itself to ``<output_folder>/input<i:03d>.jpg`` unless
+``--output_only``. ``--a2b 1`` encodes with branch 1 and decodes with
+branch 2; ``--a2b 0`` the other way. Either generator loads
+(``gen_state: 0`` or 1), from the same files as ``translate``.
+
+The styles are N(0, I), drawn on the CPU from a ``torch.Generator`` seeded
+by ``--seed`` and copied to the device: the synchronized styles first, then
+one batch per image. The JAX command has the same semantics on another
+stream of numbers (``jax.random``), so the two packages draw different
+styles from one seed; the card and the CPU draw the same ones.
+
+Not ported, and refused: ``--trainer UNIT`` (ROADMAP queue 1 item 18),
+``--compute_IS``/``--compute_CIS`` (item 14) and ``--mesh auto`` (item 16).
+
+Usage:
+  python -m munit_tpu_torch translate_batch --config configs/config.yaml \\
+      --checkpoint gen.pt --input_folder in/ --output_folder out/ \\
+      [--num_style 10] [--seed 1] [--synchronized] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from munit_tpu_torch.cli.translate import (load_generator_weights,
+                                           resolve_device, save_image01)
+from munit_tpu_torch.config import get_config
+from munit_tpu_torch.data.datasets import ImageFolder
+from munit_tpu_torch.nn.generator import GenBundle
+
+REFUSED = (("trainer", "UNIT", "--trainer UNIT (VAEGen) is not ported; "
+            "ROADMAP queue 1 item 18"),
+           ("compute_IS", True, "--compute_IS needs InceptionV3, which is "
+            "not ported; ROADMAP queue 1 item 14"),
+           ("compute_CIS", True, "--compute_CIS needs InceptionV3, which is "
+            "not ported; ROADMAP queue 1 item 14"),
+           ("mesh", "auto", "--mesh auto (several cards) is not ported; "
+            "ROADMAP queue 1 item 16"))
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m munit_tpu_torch translate_batch",
+        description="Translate each image of a folder with --num_style "
+                    "random styles. The styles are drawn on the CPU from a "
+                    "torch.Generator seeded by --seed: the JAX command's "
+                    "semantics on another stream of numbers, so its styles "
+                    "for one seed differ from these.")
+    p.add_argument("--config", required=True)
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--input_folder", required=True)
+    p.add_argument("--output_folder", required=True)
+    p.add_argument("--num_style", type=int, default=10)
+    p.add_argument("--a2b", type=int, default=1)
+    p.add_argument("--synchronized", action="store_true",
+                   help="the same styles for every image")
+    p.add_argument("--output_only", action="store_true")
+    p.add_argument("--seed", type=int, default=1,
+                   help="seeds the torch.Generator of the styles")
+    p.add_argument("--compute_IS", action="store_true",
+                   help="not ported (ROADMAP item 14)")
+    p.add_argument("--compute_CIS", action="store_true",
+                   help="not ported (ROADMAP item 14)")
+    p.add_argument("--trainer", default="MUNIT", choices=["MUNIT", "UNIT"],
+                   help="UNIT is not ported (ROADMAP item 18)")
+    p.add_argument("--mesh", choices=["off", "auto"], default="off",
+                   help="auto is not ported (ROADMAP item 16)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return p.parse_args(argv)
+
+
+@torch.inference_mode()
+def main(argv=None):
+    """Translate the folder; returns, per image in file order, its
+    (num_style, H, W, 3) float32 translations in [-1, 1]."""
+    opts = parse_args(argv)
+    for key, value, msg in REFUSED:
+        if getattr(opts, key) == value:
+            raise SystemExit(msg)
+    device = resolve_device(opts.device)
+    conf = get_config(opts.config)
+    style_dim = conf["gen"]["style_dim"]
+    new_size = conf.get("new_size_a") or conf["new_size"]
+    gen = GenBundle(conf, device)
+    gen.load_state_dict(load_generator_weights(opts.checkpoint))
+    enc_dom, dec_dom = (1, 2) if opts.a2b else (2, 1)
+
+    dataset = ImageFolder(opts.input_folder, new_size, new_size, new_size,
+                          train=False, crop=False, return_paths=True)
+    if len(dataset) == 0:
+        raise SystemExit("Image list is empty.")
+    g = torch.Generator().manual_seed(opts.seed)
+    style_fixed = torch.randn((opts.num_style, style_dim), generator=g)
+    outs = []
+    for i in range(len(dataset)):
+        sample = dataset.get(i, np.random.default_rng(0))
+        x = torch.from_numpy(sample["image"])[None].to(device)
+        styles = (style_fixed if opts.synchronized else
+                  torch.randn((opts.num_style, style_dim), generator=g))
+        c = gen.encode_content(x, enc_dom)
+        y = gen.decode(c.repeat(opts.num_style, 1, 1, 1),
+                       styles.to(device), dec_dom).cpu().numpy()
+        basename = os.path.basename(sample["path"])
+        for j in range(opts.num_style):
+            outdir = f"{opts.output_folder}_{j:02d}"
+            os.makedirs(outdir, exist_ok=True)
+            save_image01((y[j] + 1.0) / 2.0, os.path.join(outdir, basename))
+        if not opts.output_only:
+            os.makedirs(opts.output_folder, exist_ok=True)
+            save_image01(sample["image"] / 2.0 + 0.5,
+                         os.path.join(opts.output_folder,
+                                      f"input{i:03d}.jpg"))
+        outs.append(y)
+    print(f"Wrote {len(dataset)} images x {opts.num_style} styles to "
+          f"{opts.output_folder}_NN")
+    return outs
+
+
+if __name__ == "__main__":
+    main()

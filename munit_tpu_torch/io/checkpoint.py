@@ -5,12 +5,13 @@ restore_checkpoint, CheckpointWriter, resume).
 A checkpoint is one file, ``<ckpt_dir>/ckpt_<step:08d>.pt``: a
 ``torch.save`` of ``{"magic", "step", "state"}``, where ``state`` is
 ``MUNITTrainer.state_dict()`` on the host (every trainable net's parameters
-and buffers, the three ExtraAdam states with the extrapolation anchor, and
-``iterations``), so a resume continues exactly, mid-extrapolation too. The
-port's training draws no random numbers (guided styles; the loaders' draws
-are a function of seed, epoch and index), so no RNG state is kept. The
-frozen segmenter is not saved: it is made again from
-``semantic_ckpt_path`` or its seed.
+and buffers, each ExtraAdam state with the extrapolation anchor,
+``iterations``, the display styles and the state of the random styles'
+stream), so a resume continues exactly, mid-extrapolation too, and with
+``guided: 0`` draws the styles that an uninterrupted run would have drawn.
+The loaders' draws are a function of seed, epoch and index, so they keep
+no state. The frozen segmenter and VGG16 are not saved: they are made again
+from ``semantic_ckpt_path`` and ``vgg_model_path`` or their seeds.
 
 A file is written under a temporary name and renamed, so a reader never
 sees a torn one. The JAX package's orbax directories (one numbered

@@ -1,7 +1,8 @@
 """Weights into the port's reference-layout ``state_dict``s.
 
-- ``from_jax_params``: the JAX package's dual-generator param pytree (numpy
-  or JAX arrays) → ``state_dict``. The port's own copy of the logic of
+- ``from_jax_params``: the JAX package's generator param pytree (numpy or
+  JAX arrays), the dual generator's or ``{"a", "b"}`` of ``gen_state: 0``
+  → ``state_dict``. The port's own copy of the logic of
   ``munit_tpu/io/torch_import.py::export_gen_state_dict``, without the
   AdaIN dummy buffers, which the port's modules do not hold.
 - ``from_jax_dis``: an ``MsImageDis`` param tree → ``cnns.{s}.{i}`` keys
@@ -18,8 +19,8 @@
 Every transform is linear (transposes and renames), so the same functions
 carry a JAX gradient tree into the port's names and layout.
 - ``to_jax_params``: the inverse of ``from_jax_params``.
-- ``load_reference_checkpoint``: a reference ``gen_*.pt`` (``{"2": sd}``),
-  an ``.npz`` with ``sd::``-prefixed entries (``tests/fixtures/
+- ``load_reference_checkpoint``: a reference ``gen_*.pt`` (``{"2": sd}``
+  or ``{"a": sd, "b": sd}``), an ``.npz`` with ``sd::``-prefixed entries (``tests/fixtures/
   golden_gen.npz``) or the JAX package's packed inference ``.npz``
   (``load_packed_params``) → ``state_dict``.
 - ``load_segmenter_checkpoint``: the reference segmenter ``.pth`` (a bare
@@ -52,12 +53,22 @@ def _conv(p: dict, key: str, sd: dict, bare: bool = False) -> None:
         sd[f"{key}.norm.beta"] = np.asarray(p["ln_beta"])
 
 
+# The nets of each generator: (content encoders, decoders, MLPs) of the
+# dual generator (gen_state 1) and of one AdaINGen (each half of gen_state 0)
+DUAL_NETS = (("enc1_content", "enc2_content"), ("dec1", "dec2"),
+             ("mlp1", "mlp2"))
+SINGLE_NETS = (("enc_content",), ("dec",), ("mlp",))
+
+
 def _gen_layout(n_style: int, n_down: int, n_res: int, n_up: int,
-                n_mlp: int) -> list:
+                n_mlp: int, nets=DUAL_NETS) -> list:
     """(JAX tree path, port key prefix, conv) of every parameter group of
-    the dual generator: a conv group keeps its kernel and bias under
-    ``<prefix>.conv.*`` (and a LayerNorm's under ``<prefix>.norm.*``), a
-    bare one under ``<prefix>.*``."""
+    the dual generator, or of one AdaINGen with ``nets=SINGLE_NETS``: a
+    conv group keeps its kernel and bias under ``<prefix>.conv.*`` (and a
+    LayerNorm's under ``<prefix>.norm.*``), a bare one under
+    ``<prefix>.*``."""
+    contents, decs, mlps = nets
+
     def res(net, prefix):
         return [((net, "res", f"block_{j}", f"conv_{c}"),
                  f"{prefix}.model.{j}.model.{c}", True)
@@ -68,17 +79,17 @@ def _gen_layout(n_style: int, n_down: int, n_res: int, n_up: int,
     # enc_style.model.{n_style} is the paramless global average pool
     out.append((("enc_style", "out_conv"), f"enc_style.model.{n_style + 1}",
                 False))
-    for net in ("enc1_content", "enc2_content"):
+    for net in contents:
         out += [((net, f"layer_{i}"), f"{net}.model.{i}", True)
                 for i in range(n_down + 1)]
         out += res(net, f"{net}.model.{n_down + 1}")
-    for net in ("dec1", "dec2"):
+    for net in decs:
         out += res(net, f"{net}.model.0")
         # dec.model.{2i + 1} is the paramless upsample
         out += [((net, f"up_{i}"), f"{net}.model.{2 * i + 2}", True)
                 for i in range(n_up)]
         out.append(((net, "out_conv"), f"{net}.model.{2 * n_up + 1}", True))
-    for net in ("mlp1", "mlp2"):
+    for net in mlps:
         out += [((net, f"fc_{i}"), f"{net}.model.{i}.fc", False)
                 for i in range(n_mlp)]
     return out
@@ -105,13 +116,11 @@ def _to_jax(a) -> np.ndarray:
     return np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
 
 
-def from_jax_params(tree) -> StateDict:
-    """Dual-generator (gen_state 1) JAX params → the port's state_dict.
-    Depths (downsamplings, res blocks, MLP blocks) are read off the tree."""
-    layout = _gen_layout(len(tree["enc_style"]) - 1,
-                         len(tree["enc1_content"]) - 2,
-                         len(tree["enc1_content"]["res"]),
-                         len(tree["dec1"]) - 2, len(tree["mlp1"]))
+def _from_jax_gen(tree, nets) -> dict:
+    content, dec, mlp = (names[0] for names in nets)
+    layout = _gen_layout(len(tree["enc_style"]) - 1, len(tree[content]) - 2,
+                         len(tree[content]["res"]), len(tree[dec]) - 2,
+                         len(tree[mlp]), nets)
     sd: dict = {}
     for path, prefix, conv in layout:
         node = tree
@@ -120,6 +129,20 @@ def from_jax_params(tree) -> StateDict:
         for leaf, v in node.items():
             sd[_port_key(prefix, conv, leaf)] = (
                 _to_port(v) if leaf == "kernel" else np.asarray(v))
+    return sd
+
+
+def from_jax_params(tree) -> StateDict:
+    """Generator JAX params → the port's state_dict: the dual generator's
+    tree (gen_state 1), or ``{"a", "b"}``, one AdaINGen tree per domain
+    (gen_state 0), whose keys get the ``a.``/``b.`` prefix of
+    ``AdaINGenPair``. Depths (downsamplings, res blocks, MLP blocks) are
+    read off the tree."""
+    if set(tree) == {"a", "b"}:
+        sd = {f"{half}.{k}": v for half in ("a", "b")
+              for k, v in _from_jax_gen(tree[half], SINGLE_NETS).items()}
+    else:
+        sd = _from_jax_gen(tree, DUAL_NETS)
     return _tensors(sd)
 
 
@@ -320,18 +343,26 @@ def _load_npz(path: str) -> StateDict:
 
 
 def load_reference_checkpoint(path: str) -> StateDict:
-    """A reference ``gen_*.pt`` ({"2": sd}), an ``.npz`` of ``sd::``
-    entries or the JAX package's packed inference ``.npz`` (bf16 or int8
-    weights, dequantized to float32) → the port's state_dict (CPU
-    tensors)."""
+    """A reference ``gen_*.pt``, an ``.npz`` of ``sd::`` entries or the JAX
+    package's packed inference ``.npz`` (bf16 or int8 weights, dequantized
+    to float32) → the port's state_dict (CPU tensors). A ``.pt`` holds the
+    dual generator as {"2": sd} (gen_state 1) or the two auto-encoders as
+    {"a": sd, "b": sd} (gen_state 0), whose keys become ``a.*`` and
+    ``b.*``; a packed file of either generator reads as its tree says."""
     if str(path).endswith(".npz"):
         sd = _load_npz(path)
     else:
         blob = torch.load(path, map_location="cpu", weights_only=True)
-        if "2" not in blob:
-            raise ValueError(f"{path}: expected a dual-generator checkpoint "
-                             "{'2': state_dict} (gen_state: 1)")
-        sd = blob["2"]
+        if "2" in blob:
+            sd = blob["2"]
+        elif {"a", "b"} <= set(blob):
+            sd = {f"{half}.{k}": v for half in ("a", "b")
+                  for k, v in blob[half].items()}
+        else:
+            raise ValueError(
+                f"{path}: expected a dual-generator checkpoint "
+                "{'2': state_dict} (gen_state: 1) or two auto-encoders "
+                "{'a': state_dict, 'b': state_dict} (gen_state: 0)")
     return drop_adain_buffers(sd)
 
 

@@ -1,5 +1,5 @@
 """The training losses, on NHWC tensors: counterparts of
-``munit_tpu/losses/losses.py`` (reference trainer.py:279-305, 638-704,
+``munit_tpu/losses/losses.py`` (reference trainer.py:279-305, 618-704,
 706-771, networks.py:79-115, 151-152). The reconstruction and GAN losses
 upcast to at least float32; the classifier and cross-entropy losses work
 in their input's type, as the JAX package's do (in bf16 training both
@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from munit_tpu_torch.core.ops import upcast_f32
+from munit_tpu_torch.core.ops import instance_norm, upcast_f32
 
 
 def recon_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -131,3 +131,13 @@ def semantic_seg_loss_masked(logits: torch.Tensor, target: torch.Tensor,
     masked = logits * (1.0 - mask)[..., None]
     return cross_entropy_loss(torch.cat([masked, mask[..., None]], dim=-1),
                               relabelled)
+
+
+def vgg_perceptual_loss(feat_img: torch.Tensor,
+                        feat_target: torch.Tensor) -> torch.Tensor:
+    """MSE between the instance-normalised relu5_3 features of two images
+    (trainer.py:618-636). The JAX package takes this IN with its plain
+    ``ops.instance_norm`` and no Pallas kernel, so the port takes it with
+    its plain version too: it is not a norm of the generator's path."""
+    return (instance_norm(feat_img)
+            - instance_norm(feat_target)).square().mean()

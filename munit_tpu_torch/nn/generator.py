@@ -123,6 +123,64 @@ class Decoder(nn.Module):
         return x
 
 
+class AdaINGen(nn.Module):
+    """Upstream MUNIT's single-domain auto-encoder (networks.py:170-254):
+    its own style encoder, content encoder, decoder and MLP. Two of them,
+    one per domain, are the ``gen_state: 0`` generator (``AdaINGenPair``).
+    Keys follow the reference ``enc_style.*``, ``enc_content.*``, ``dec.*``,
+    ``mlp.*`` layout."""
+
+    def __init__(self, input_dim: int, dim: int, style_dim: int,
+                 n_downsample: int, n_res: int, mlp_dim: int,
+                 activ: str = "relu", pad_type: str = "reflect"):
+        super().__init__()
+        self.enc_style = StyleEncoder(4, input_dim, dim, style_dim, activ,
+                                      pad_type)
+        self.enc_content = ContentEncoder(n_downsample, n_res, input_dim, dim,
+                                          activ, pad_type)
+        self.dec = Decoder(n_downsample, n_res, self.enc_content.output_dim,
+                           input_dim, activ, pad_type)
+        self.mlp = MLP(style_dim, self.dec.num_adain_params, mlp_dim, 3, activ)
+
+    def encode(self, images: torch.Tensor):
+        return self.enc_content(images), self.enc_style(images)
+
+    def decode(self, content: torch.Tensor,
+               style: torch.Tensor) -> torch.Tensor:
+        return self.dec(content, self.mlp(style))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.decode(*self.encode(images))
+
+
+class AdaINGenPair(nn.Module):
+    """The ``gen_state: 0`` generator: an ``AdaINGen`` per domain, ``a``
+    (domain 1) and ``b`` (domain 2), with the dual generator's interface.
+    Its ``state_dict`` keys are ``a.*`` and ``b.*``: the reference
+    checkpoint's {"a": sd, "b": sd}, each with the ``.`` joined."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self.a = AdaINGen(*args, **kwargs)
+        self.b = AdaINGen(*args, **kwargs)
+
+    def net(self, domain: int) -> AdaINGen:
+        return self.a if domain == 1 else self.b
+
+    def encode_style(self, images: torch.Tensor, domain: int) -> torch.Tensor:
+        return self.net(domain).enc_style(images)
+
+    def encode_content(self, images: torch.Tensor, domain: int) -> torch.Tensor:
+        return self.net(domain).enc_content(images)
+
+    def encode(self, images: torch.Tensor, domain: int):
+        return self.net(domain).encode(images)
+
+    def decode(self, content: torch.Tensor, style: torch.Tensor,
+               domain: int) -> torch.Tensor:
+        return self.net(domain).decode(content, style)
+
+
 class AdaINGenDual(nn.Module):
     """The fork's default generator (gen_state=1; networks.py:262-388): one
     shared style encoder, per-domain content encoders, decoders and MLPs.
@@ -147,6 +205,10 @@ class AdaINGenDual(nn.Module):
         self.mlp1 = MLP(style_dim, n_adain, mlp_dim, 3, activ)
         self.mlp2 = MLP(style_dim, n_adain, mlp_dim, 3, activ)
 
+    def encode_style(self, images: torch.Tensor, domain=None) -> torch.Tensor:
+        """The shared style encoder, whichever the domain."""
+        return self.enc_style(images)
+
     def encode_content(self, images: torch.Tensor, domain: int) -> torch.Tensor:
         return (self.enc1_content if domain == 1 else self.enc2_content)(images)
 
@@ -168,12 +230,17 @@ class AdaINGenDual(nn.Module):
 
 class GenBundle:
     """The generator of a config, on one device (``train/trainer.py::
-    GenBundle`` of the JAX package). gen_state 1 only so far.
+    GenBundle`` of the JAX package): ``gen_state: 1``, the fork's dual
+    generator (``AdaINGenDual``), or ``gen_state: 0``, upstream MUNIT's two
+    auto-encoders (``AdaINGenPair``).
 
     ``encode(x, domain)`` returns (content, style) as the JAX package does;
     ``encode_content`` and ``encode_style`` run one half, as a jitted JAX
-    caller gets when it drops the other. The JAX trainer's ``wide: 1`` calls
-    (its default at 256 px: ``style_encode`` of both domains at once,
+    caller gets when it drops the other. ``encode_style(x, domain)`` runs
+    the domain's own style encoder with ``gen_state: 0`` and the shared one
+    with ``gen_state: 1``, where ``domain`` may be left out. The JAX
+    trainer's ``wide: 1`` calls (its default at 256 px with the dual
+    generator: ``style_encode`` of both domains at once,
     ``content_encode_pair``, ``decode_domain``) are these methods on
     concatenated batches.
 
@@ -181,13 +248,15 @@ class GenBundle:
     ``trainable=True`` leaves the parameters to the trainer's gradients."""
 
     def __init__(self, conf: Dict, device="cuda", trainable: bool = False):
-        if conf["gen_state"] != 1:
-            raise NotImplementedError(
-                "the PyTorch port has only the dual generator (gen_state: 1)")
+        if conf["gen_state"] not in (0, 1):
+            raise ValueError(f"gen_state must be 0 or 1, got "
+                             f"{conf['gen_state']!r}")
         g = conf["gen"]
+        self.gen_state = conf["gen_state"]
         self.device = torch.device(device)
         self.init_name = conf.get("init", "kaiming")
-        self.module = AdaINGenDual(
+        net = AdaINGenDual if self.gen_state == 1 else AdaINGenPair
+        self.module = net(
             conf["input_dim_a"], g["dim"], g["style_dim"], g["n_downsample"],
             g["n_res"], g["mlp_dim"], g["activ"], g["pad_type"])
         self.module.requires_grad_(trainable).train(trainable)
@@ -211,8 +280,11 @@ class GenBundle:
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return self.module.state_dict()
 
-    def encode_style(self, x: torch.Tensor) -> torch.Tensor:
-        return self.module.enc_style(x)
+    def encode_style(self, x: torch.Tensor, domain=None) -> torch.Tensor:
+        if domain is None and self.gen_state == 0:
+            raise ValueError("gen_state 0 has a style encoder per domain: "
+                             "give the domain")
+        return self.module.encode_style(x, domain)
 
     def encode_content(self, x: torch.Tensor, domain: int) -> torch.Tensor:
         return self.module.encode_content(x, domain)

@@ -1,5 +1,8 @@
 """The MUNIT training steps on one device: ``munit_tpu/train/trainer.py``
-for ``gen_state: 1``, ``guided: 1`` and ``grad_accum: 1``.
+for either generator (``gen_state: 1``, the fork's dual generator, or
+``gen_state: 0``, upstream MUNIT's two auto-encoders), guided or random
+styles (``guided``), with or without the VGG perceptual loss (``vgg_w``),
+and ``grad_accum: 1``.
 
 - ``dis_update``      ≙ ``_dis_step_impl`` (trainer.py:690-732)
 - ``gen_update``      ≙ ``_gen_step_impl`` (:1072-1115)
@@ -15,8 +18,9 @@ for ``gen_state: 1``, ``guided: 1`` and ``grad_accum: 1``.
 - ``segmentation_head_update`` ≙ ``_seg_head_step_impl`` (:1335-1366)
 - ``dis_gen_grads``   ≙ ``dis_gen_grads`` (:1025-1070), the fused step's
   gradients against the current D, with no update
-- ``sample``          ≙ ``sample`` (:1474-1515), guided: the display grid's
-  columns
+- ``sample``          ≙ ``sample`` (:1474-1515): the display grid's columns
+- ``forward``         ≙ ``forward`` (:1443-1454): translations with the fixed
+  display styles
 - ``state_dict`` / ``load_state_dict``: the whole training state that a
   checkpoint holds (``io/checkpoint.py``), the counterpart of the JAX
   trainer's ``state`` pytree
@@ -31,18 +35,38 @@ the output-level term (``output_adv_lambda``) beside the feature-level
 fool term, each classifier in train-mode batch norm whose statistics are
 discarded.
 
-Every forward makes the JAX trainer's ``wide: 1`` calls (its default at
-256 px): one style encode of both domains, the two content encoders as a
-pair, and one decode per domain over [recon | cross]. With ``semantic_w >
+With the dual generator every forward makes the JAX trainer's ``wide: 1``
+calls (its default at 256 px): one style encode of both domains, the two
+content encoders as a pair, and one decode per domain over [recon | cross].
+``gen_state: 0`` forces the JAX trainer to ``wide: 0`` (trainer.py:
+267-268), and the port makes its narrow calls too: each domain's encoders
+on its own batch, and a decode per translation. With ``semantic_w >
 0`` the frozen ResNet34-8s segments [x_a | x_b] once per gen step, outside
 the differentiated part, for its pseudo-label targets (trainer.py:736-752,
 841-843), and [x_ab | x_ba] once inside it for the semantic loss
 (:771-782, 1199-1202); its gradient reaches the translations only.
 Gradients are taken with ``torch.autograd.grad`` with respect to named
 parameter lists, so D collects no generator gradient and no stale ``.grad``
-is left; the optimizers update the parameters in place. With guided
-styles no random style reaches a loss (trainer.py:850-853, 1137-1139), so
-none is drawn.
+is left; the optimizers update the parameters in place.
+
+Random styles (``guided: 0``): the dis, gen and fused steps draw N(0, I)
+styles of shape (B, style_dim) in the images' type, in the JAX trainer's
+order (trainer.py:691-694, 828-833, 1074-1080): s_a then s_b; the fused step
+the dis step's pair, then the gen step's. The fused step's discriminator
+fakes are decodes of its own, without gradient, of the forward's content
+codes with the dis styles (:850-859). Each step takes the styles
+explicitly (``styles=``, in that order), or draws them with
+``draw_style`` from the trainer's ``style_gen``, a ``torch.Generator`` on
+its device, on the host side of the step: a captured step reads them from
+its input buffers like any input, so a replay sees the draws that an eager
+call would. With guided styles no random style reaches a loss
+(trainer.py:850-853, 1137-1139), so none is drawn. The display styles
+(``display_s_a``, ``display_s_b``) are drawn at ``init``
+(trainer.py:374-375), and a checkpoint keeps them with the style stream's
+state.
+
+The VGG16 perceptual loss (``vgg_w > 0``, trainer.py:1184-1197) takes the
+frozen ``nn/vgg.py`` net, seeded by ``init`` or loaded by ``load_vgg``.
 
 Each update step is host bookkeeping around a device body, as the JAX
 trainer's jitted ``_*_step_impl`` are: the host reads the lr and the
@@ -53,8 +77,7 @@ iterations. On a CUDA device the bodies run as CUDA graphs, captured once
 per key and replayed (``train/graphs.py``); on the CPU they run eagerly.
 ``dis_gen_grads`` and ``sample`` always run eagerly.
 
-Not ported yet, and refused: VGG (``vgg_w``), ``grad_accum > 1`` and
-``guided: 0`` (ROADMAP.md).
+Not ported yet, and refused: ``grad_accum > 1`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -74,6 +97,7 @@ from munit_tpu_torch.nn import classifiers, discriminator
 from munit_tpu_torch.nn.generator import GenBundle
 from munit_tpu_torch.nn.resnet import (NUM_CLASSES, ResNet34_8s,
                                        SegmentationHead, seg_preprocess)
+from munit_tpu_torch.nn.vgg import Vgg16
 from munit_tpu_torch.optim.extra_adam import (ExtraAdamState,
                                               bias_correction,
                                               extra_adam_advance,
@@ -103,15 +127,9 @@ def merge_class_matrix() -> np.ndarray:
 
 def check_ported(conf: Dict) -> None:
     """Raise NotImplementedError for what the port lacks."""
-    if conf["guided"] != 1:
-        raise NotImplementedError(
-            "guided: 0 (random styles) is not ported; ROADMAP queue 1 item 9")
     if conf["grad_accum"] != 1:
         raise NotImplementedError(
             "grad_accum > 1 is not ported; ROADMAP queue 1 item 13")
-    if float(conf["vgg_w"]) > 0:
-        raise NotImplementedError(
-            "vgg_w > 0 (the VGG loss) is not ported; ROADMAP queue 1 item 12")
 
 
 def _named(module: torch.nn.Module) -> Tensors:
@@ -141,11 +159,16 @@ class MUNITTrainer:
         self.domain_adv_w = float(conf["domain_adv_w"]) > 0
         self.use_output_classifier_sr = ad["output_classifier_lambda"] > 0
         self.train_seg = ad["sem_seg_lambda"] > 0
+        self.guided = conf["guided"] == 1
+        self.style_dim = conf["gen"]["style_dim"]
+        # the JAX trainer's wide: 1 for the dual generator, wide: 0 for
+        # gen_state 0 (trainer.py:267-268)
+        self.wide = conf["gen_state"] == 1
         self.lr_schedule = schedule_from_config(conf)
         self.iterations = 0
         self.hw = {k: float(conf[k]) for k in
                    ("gan_w", "recon_x_w", "recon_s_w", "recon_c_w",
-                    "recon_x_cyc_w", "semantic_w", "domain_adv_w",
+                    "recon_x_cyc_w", "vgg_w", "semantic_w", "domain_adv_w",
                     "recon_synth_w")}
         self.hw["adv_lambda"] = float(ad["adv_lambda"])
         self.hw["output_adv_lambda"] = float(ad["output_adv_lambda"])
@@ -165,6 +188,16 @@ class MUNITTrainer:
         # frozen: seeded by init() or loaded by load_segmenter()
         self.segmenter = (ResNet34_8s(NUM_CLASSES).frozen_on(device)
                           if self.semantic_w else None)
+        # frozen: seeded by init() or loaded by load_vgg()
+        self.vgg = Vgg16().frozen_on(device) if self.hw["vgg_w"] > 0 else None
+        # the random styles' stream (seed_styles) and the display styles
+        # (drawn by init)
+        self.style_gen = torch.Generator(device=self.device)
+        self.style_gen.manual_seed(0)
+        display = int(conf["display_size"])
+        self.display_s_a = torch.zeros(display, self.style_dim,
+                                       device=self.device)
+        self.display_s_b = torch.zeros_like(self.display_s_a)
         # the 19 → 10 merge of the ground-truth semantic loss, on the device
         # once: a captured step may copy nothing from the host
         self._merge = torch.from_numpy(merge_class_matrix()).to(self.device)
@@ -222,19 +255,34 @@ class MUNITTrainer:
                for k, v in _named(self.output_classifier_sr_b).items()}}
 
     def init(self, generator: torch.Generator) -> None:
-        """Seeded reference init of every net; the draws are made on the
-        CPU from ``generator`` and copied to the device."""
+        """Seeded reference init of every net, the frozen ones too, then the
+        display styles (N(0, I), float32); the draws are made on the CPU
+        from ``generator`` and copied to the device."""
         nets = [self.gen, self.dis_a, self.dis_b]
         if self.classifier_sr_a is not None:
             nets += [self.classifier_sr_a, self.classifier_sr_b]
         if self.segmenter is not None:
             nets.append(self.segmenter)
         nets += [n for n in (self.dann, self.output_classifier_sr_a,
-                             self.output_classifier_sr_b, self.seg_head)
+                             self.output_classifier_sr_b, self.seg_head,
+                             self.vgg)
                  if n is not None]
         for net in nets:
             net.init(generator)
+        with torch.no_grad():
+            for t in (self.display_s_a, self.display_s_b):
+                t.copy_(torch.randn(t.shape, generator=generator))
         self._graphs.clear()
+
+    def seed_styles(self, seed: int) -> None:
+        """Seed the random styles' stream (``guided: 0``)."""
+        self.style_gen.manual_seed(seed)
+
+    def draw_style(self, bsz: int, dtype: torch.dtype) -> torch.Tensor:
+        """One random style batch: N(0, I) of shape (bsz, style_dim) in
+        ``dtype``, from ``style_gen`` on the trainer's device."""
+        return torch.randn((bsz, self.style_dim), generator=self.style_gen,
+                           device=self.device, dtype=dtype)
 
     def load_segmenter(self, state_dict: Tensors) -> None:
         """The frozen segmenter's weights, reference ``resnet34_8s.*``
@@ -242,6 +290,14 @@ class MUNITTrainer:
         if self.segmenter is None:
             raise ValueError("no segmenter: semantic_w is 0")
         self.segmenter.load_state_dict(state_dict)
+        self._graphs.clear()
+
+    def load_vgg(self, state_dict: Tensors) -> None:
+        """The frozen VGG16's weights in this port's (the reference
+        ``Vgg16``'s) keys (``nn/vgg.py::convert_vgg16_state_dict``)."""
+        if self.vgg is None:
+            raise ValueError("no VGG: vgg_w is 0")
+        self.vgg.load_state_dict(state_dict)
         self._graphs.clear()
 
     # --------------------------------------------------------------- state
@@ -271,10 +327,16 @@ class MUNITTrainer:
     def state_dict(self) -> Dict:
         """The whole training state, by reference (no copy): every
         trainable net's parameters and buffers (the classifiers' running
-        statistics too), each optimizer's ``ExtraAdamState`` and
-        ``iterations``. The frozen segmenter is not part of it."""
+        statistics too), each optimizer's ``ExtraAdamState``,
+        ``iterations``, and ``styles``: the display styles and the state of
+        the random styles' stream (a copy). The frozen segmenter and VGG
+        are not part of it."""
         return {
             "iterations": self.iterations,
+            "styles": {"display_s_a": self.display_s_a,
+                       "display_s_b": self.display_s_b,
+                       "device": self.device.type,
+                       "generator": self.style_gen.get_state()},
             "nets": {k: m.state_dict() for k, m in self._nets().items()},
             "opt": {k: {"count": o.count, "mu": o.mu, "nu": o.nu,
                         "params_copy": o.params_copy,
@@ -284,7 +346,9 @@ class MUNITTrainer:
     def load_state_dict(self, state: Dict) -> None:
         """Copy a ``state_dict()`` into this trainer's tensors, in place
         (device and memory format stay, and so do the captured steps); the
-        nets and their names must match."""
+        nets and their names must match. A state without ``styles`` leaves
+        the display styles and the style stream as they are, and one whose
+        stream is of another device type than the trainer's raises."""
         nets, opts = self._nets(), self._opts()
         if set(state["nets"]) != set(nets) or set(state["opt"]) != set(opts):
             raise ValueError(
@@ -305,44 +369,75 @@ class MUNITTrainer:
                         t.copy_(src[name])
                 o.count = int(saved["count"])
                 o.has_copy = bool(saved["has_copy"])
+            if "styles" in state:
+                styles = state["styles"]
+                if styles["device"] != self.device.type:
+                    raise ValueError(
+                        f"the checkpoint's style stream is a "
+                        f"{styles['device']} generator's; this trainer's "
+                        f"is on {self.device.type}")
+                self.display_s_a.copy_(styles["display_s_a"])
+                self.display_s_b.copy_(styles["display_s_b"])
+                self.style_gen.set_state(styles["generator"])
         self.iterations = int(state["iterations"])
 
     # ------------------------------------------------------------- forwards
 
-    def _cross_decode(self, x_a, x_b):
-        """Codes and cross translations (trainer.py:440-467, wide 1)."""
-        gen, bsz = self.gen, x_a.shape[0]
+    def _style_codes(self, x_a, x_b):
+        """Both domains' style codes: one call of the shared encoder over
+        [x_a | x_b] (wide 1), or each domain's own encoder (gen_state 0)."""
+        gen = self.gen
+        if not self.wide:
+            return gen.encode_style(x_a, 1), gen.encode_style(x_b, 2)
         s = gen.encode_style(torch.cat([x_a, x_b]))
-        s_a, s_b = s[:bsz], s[bsz:]
-        c_a, c_b = gen.encode_content(x_a, 1), gen.encode_content(x_b, 2)
-        x_ba = gen.decode(c_b, s_a, 1)
-        x_ab = gen.decode(c_a, s_b, 2)
-        return c_a, s_a, c_b, s_b, x_ba, x_ab
+        return s[:x_a.shape[0]], s[x_a.shape[0]:]
 
-    def _gen_forward(self, x_a, x_b) -> Tensors:
-        """The gen step's generator forward (trainer.py:469-535, wide 1):
-        within-domain recon, cross decode, re-encode, cycle decode."""
-        gen, bsz = self.gen, x_a.shape[0]
-        s = gen.encode_style(torch.cat([x_a, x_b]))
-        s_a, s_b = s[:bsz], s[bsz:]
+    def _cross_decode(self, x_a, x_b, styles=()):
+        """The cross translations (x_ba, x_ab) of the dis step
+        (trainer.py:440-467), with the exemplar styles, or with the random
+        ``styles`` (s_a, s_b) when guided is 0."""
+        gen = self.gen
+        s_a, s_b = styles if styles else self._style_codes(x_a, x_b)
         c_a, c_b = gen.encode_content(x_a, 1), gen.encode_content(x_b, 2)
-        # wave 1: [recon | cross] per domain, guided styles
-        out1 = gen.decode(torch.cat([c_a, c_b]), torch.cat([s_a, s_a]), 1)
-        out2 = gen.decode(torch.cat([c_b, c_a]), torch.cat([s_b, s_b]), 2)
-        x_a_recon, x_ba = out1[:bsz], out1[bsz:]
-        x_b_recon, x_ab = out2[:bsz], out2[bsz:]
+        return gen.decode(c_b, s_a, 1), gen.decode(c_a, s_b, 2)
+
+    def _gen_forward(self, x_a, x_b, styles=()) -> Tensors:
+        """The gen step's generator forward (trainer.py:469-535):
+        within-domain recon, cross decode, re-encode, cycle decode. The
+        cross decodes take the exemplar styles, or the random ``styles``
+        (s_a, s_b) when guided is 0, which are then the style recon's
+        targets (``s_a_t``, ``s_b_t``)."""
+        gen, bsz = self.gen, x_a.shape[0]
+        s_a_p, s_b_p = self._style_codes(x_a, x_b)
+        s_a, s_b = styles if styles else (s_a_p, s_b_p)
+        c_a, c_b = gen.encode_content(x_a, 1), gen.encode_content(x_b, 2)
+        if self.wide:
+            # wave 1: [recon | cross] per domain
+            out1 = gen.decode(torch.cat([c_a, c_b]), torch.cat([s_a_p, s_a]),
+                              1)
+            out2 = gen.decode(torch.cat([c_b, c_a]), torch.cat([s_b_p, s_b]),
+                              2)
+            x_a_recon, x_ba = out1[:bsz], out1[bsz:]
+            x_b_recon, x_ab = out2[:bsz], out2[bsz:]
+        else:
+            x_a_recon, x_b_recon = (gen.decode(c_a, s_a_p, 1),
+                                    gen.decode(c_b, s_b_p, 2))
+            x_ba, x_ab = gen.decode(c_b, s_a, 1), gen.decode(c_a, s_b, 2)
         # wave 2: re-encode the fakes
-        s_r = gen.encode_style(torch.cat([x_ba, x_ab]))
+        s_a_recon, s_b_recon = self._style_codes(x_ba, x_ab)
         c_b_recon = gen.encode_content(x_ba, 1)
         c_a_recon = gen.encode_content(x_ab, 2)
-        fw = dict(c_a=c_a, c_b=c_b, s_a_p=s_a, s_b_p=s_b,
+        fw = dict(c_a=c_a, c_b=c_b, s_a_t=s_a, s_b_t=s_b,
                   x_a_recon=x_a_recon, x_b_recon=x_b_recon, x_ba=x_ba,
                   x_ab=x_ab, c_a_recon=c_a_recon, c_b_recon=c_b_recon,
-                  s_a_recon=s_r[:bsz], s_b_recon=s_r[bsz:])
+                  s_a_recon=s_a_recon, s_b_recon=s_b_recon)
         if self.hw["recon_x_cyc_w"] > 0:
-            fw["x_aba"] = gen.decode(c_a_recon, s_a, 1)
-            fw["x_bab"] = gen.decode(c_b_recon, s_b, 2)
+            fw["x_aba"] = gen.decode(c_a_recon, s_a_p, 1)
+            fw["x_bab"] = gen.decode(c_b_recon, s_b_p, 2)
         return fw
+
+    def _vgg_features(self, img):
+        return self.vgg(self.vgg.preprocess(img))
 
     # ------------------------------------------------------------- semantic
 
@@ -418,8 +513,8 @@ class MUNITTrainer:
         hw, l1 = self.hw, losses.recon_l1
         m = {"loss_gen_recon_x_a": l1(fw["x_a_recon"], x_a),
              "loss_gen_recon_x_b": l1(fw["x_b_recon"], x_b),
-             "loss_gen_recon_s_a": l1(fw["s_a_recon"], fw["s_a_p"]),
-             "loss_gen_recon_s_b": l1(fw["s_b_recon"], fw["s_b_p"]),
+             "loss_gen_recon_s_a": l1(fw["s_a_recon"], fw["s_a_t"]),
+             "loss_gen_recon_s_b": l1(fw["s_b_recon"], fw["s_b_t"]),
              "loss_gen_recon_c_a": l1(fw["c_a_recon"], fw["c_a"]),
              "loss_gen_recon_c_b": l1(fw["c_b_recon"], fw["c_b"])}
         zero = torch.zeros((), device=x_a.device)
@@ -448,6 +543,14 @@ class MUNITTrainer:
                                                   self.gan_type)
         m["loss_gen_adv_b"] = losses.gen_gan_loss(self.dis_b(fw["x_ab"]),
                                                   self.gan_type)
+        if self.vgg is not None:
+            feats = self._vgg_features
+            m["loss_gen_vgg_a"] = losses.vgg_perceptual_loss(
+                feats(fw["x_ba"]), feats(x_b))
+            m["loss_gen_vgg_b"] = losses.vgg_perceptual_loss(
+                feats(fw["x_ab"]), feats(x_a))
+        else:
+            m["loss_gen_vgg_a"] = m["loss_gen_vgg_b"] = zero
         if self.semantic_w:
             m["loss_sem_seg"] = self._semantic_loss_pair(
                 fw["x_ab"], fw["x_ba"], sem_targets, mask_a, mask_b, has_gt)
@@ -472,7 +575,7 @@ class MUNITTrainer:
                 + losses.gen_sr_loss(self.output_classifier_sr_b(fw["x_ab"])))
         else:
             m["loss_output_classifier_adv_sr"] = zero
-        # the JAX package's order of the sum (its VGG term is not ported)
+        # the JAX package's order of the sum
         total = (hw["gan_w"] * (m["loss_gen_adv_a"] + m["loss_gen_adv_b"])
                  + hw["recon_x_w"] * (m["loss_gen_recon_x_a"]
                                       + m["loss_gen_recon_x_b"])
@@ -482,6 +585,7 @@ class MUNITTrainer:
                                       + m["loss_gen_recon_c_b"])
                  + hw["recon_x_cyc_w"] * (m["loss_gen_cycrecon_x_a"]
                                           + m["loss_gen_cycrecon_x_b"])
+                 + hw["vgg_w"] * (m["loss_gen_vgg_a"] + m["loss_gen_vgg_b"])
                  + hw["semantic_w"] * m["loss_sem_seg"]
                  + hw["domain_adv_w"] * m["domain_adv_loss_gen"]
                  + hw["recon_synth_w"] * m["loss_gen_recon_synth"]
@@ -560,22 +664,40 @@ class MUNITTrainer:
 
     # --------------------------------------------------------------- steps
 
-    def dis_update(self, x_a, x_b) -> Tensors:
-        """One discriminator step against detached fakes."""
-        return self._step("dis", self._dis_body, (x_a, x_b), ("dis",),
-                          lr_metric=True)
+    def _styles(self, styles, n: int, x) -> tuple:
+        """A step's random styles (guided 0): ``styles`` as given, or ``n``
+        draws in x's type, in order; none with guided styles."""
+        if self.guided:
+            if styles is not None:
+                raise ValueError("guided: 1 takes no random styles")
+            return ()
+        if styles is None:
+            return tuple(self.draw_style(x.shape[0], x.dtype)
+                         for _ in range(n))
+        if len(styles) != n:
+            raise ValueError(f"this step takes {n} style batches, got "
+                             f"{len(styles)}")
+        return tuple(styles)
 
-    def _dis_body(self, extrapolate, x_a, x_b) -> Tensors:
+    def dis_update(self, x_a, x_b, styles=None) -> Tensors:
+        """One discriminator step against detached fakes. ``styles``:
+        (s_a, s_b) with guided 0, drawn when None."""
+        return self._step("dis", self._dis_body,
+                          (x_a, x_b, *self._styles(styles, 2, x_a)),
+                          ("dis",), lr_metric=True)
+
+    def _dis_body(self, extrapolate, x_a, x_b, *styles) -> Tensors:
         with torch.no_grad():
-            *_, x_ba, x_ab = self._cross_decode(x_a, x_b)
+            x_ba, x_ab = self._cross_decode(x_a, x_b, styles)
         params = self.dis_params()
         total, m = self._dis_loss(x_ba, x_ab, x_a, x_b)
         self._update(self._grads(total, params), "dis", params, extrapolate)
         return m
 
-    @staticmethod
-    def _gen_inputs(x_a, x_b, mask_a, mask_b, synth, sem_gt_a, sem_gt_b):
-        """(tensors, static) of a gen or fused step: whether the pair is
+    def _gen_inputs(self, x_a, x_b, mask_a, mask_b, synth, sem_gt_a,
+                    sem_gt_b, styles, n_styles):
+        """(tensors, static) of a gen or fused step: the images, masks,
+        ground truth if given and random styles; whether the pair is
         synthetic and whether ground truth is given are static, as the JAX
         steps' ``static_argnames``."""
         has_gt = sem_gt_a is not None
@@ -584,44 +706,70 @@ class MUNITTrainer:
         tensors = (x_a, x_b, mask_a, mask_b)
         if has_gt:
             tensors += (sem_gt_a, sem_gt_b)
+        tensors += self._styles(styles, n_styles, x_a)
         return tensors, (bool(synth), has_gt)
 
+    @staticmethod
+    def _split_gen_inputs(has_gt, rest):
+        """(sem_gt_a, sem_gt_b, styles) of a gen or fused body's inputs
+        after the masks."""
+        if has_gt:
+            return rest[0], rest[1], rest[2:]
+        return None, None, rest
+
     def gen_update(self, x_a, x_b, mask_a=None, mask_b=None, synth=False,
-                   sem_gt_a=None, sem_gt_b=None) -> Tensors:
-        """One generator step against the current discriminators."""
+                   sem_gt_a=None, sem_gt_b=None, styles=None) -> Tensors:
+        """One generator step against the current discriminators.
+        ``styles``: (s_a, s_b) with guided 0, drawn when None."""
         tensors, static = self._gen_inputs(x_a, x_b, mask_a, mask_b, synth,
-                                           sem_gt_a, sem_gt_b)
+                                           sem_gt_a, sem_gt_b, styles, 2)
         return self._step("gen", self._gen_body, tensors, ("gen",),
                           static=static)
 
     def _gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a, mask_b,
-                  sem_gt_a=None, sem_gt_b=None) -> Tensors:
+                  *rest) -> Tensors:
+        sem_gt_a, sem_gt_b, styles = self._split_gen_inputs(has_gt, rest)
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
         targets = self._targets(x_a, x_b, sem_gt_a, sem_gt_b)
         params = self.gen_params()
-        total, m = self._gen_loss(self._gen_forward(x_a, x_b), x_a, x_b,
-                                  mask_a, mask_b, targets, synth, has_gt)
+        total, m = self._gen_loss(self._gen_forward(x_a, x_b, styles), x_a,
+                                  x_b, mask_a, mask_b, targets, synth, has_gt)
         self._update(self._grads(total, params), "gen", params, extrapolate)
         return m
 
     def dis_gen_update(self, x_a, x_b, mask_a=None, mask_b=None,
-                       synth=False, sem_gt_a=None, sem_gt_b=None) -> Tensors:
+                       synth=False, sem_gt_a=None, sem_gt_b=None,
+                       styles=None) -> Tensors:
         """The fused dis + gen step: one generator forward; D steps first on
         its detached cross decodes, then the generator's losses are taken
-        against the updated D."""
+        against the updated D. With guided 0, D's fakes are decodes of
+        their own with the dis styles, and ``styles`` is (dis s_a, dis s_b,
+        gen s_a, gen s_b), drawn when None."""
         tensors, static = self._gen_inputs(x_a, x_b, mask_a, mask_b, synth,
-                                           sem_gt_a, sem_gt_b)
+                                           sem_gt_a, sem_gt_b, styles, 4)
         return self._step("dis_gen", self._dis_gen_body, tensors,
                           ("dis", "gen"), static=static, lr_metric=True)
 
+    def _dis_fakes(self, fw, styles):
+        """The fused step's fakes for D: the forward's cross decodes with
+        guided styles; else decodes of the forward's content codes with the
+        dis styles, without gradient (trainer.py:850-859)."""
+        if not styles:
+            return fw["x_ba"].detach(), fw["x_ab"].detach()
+        s_a, s_b = styles
+        with torch.no_grad():
+            return (self.gen.decode(fw["c_b"], s_a, 1),
+                    self.gen.decode(fw["c_a"], s_b, 2))
+
     def _dis_gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a,
-                      mask_b, sem_gt_a=None, sem_gt_b=None) -> Tensors:
+                      mask_b, *rest) -> Tensors:
+        sem_gt_a, sem_gt_b, styles = self._split_gen_inputs(has_gt, rest)
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
         targets = self._targets(x_a, x_b, sem_gt_a, sem_gt_b)
-        fw = self._gen_forward(x_a, x_b)
+        fw = self._gen_forward(x_a, x_b, styles[2:])
         dis_params = self.dis_params()
-        total_d, m_dis = self._dis_loss(fw["x_ba"].detach(),
-                                        fw["x_ab"].detach(), x_a, x_b)
+        total_d, m_dis = self._dis_loss(*self._dis_fakes(fw, styles[:2]),
+                                        x_a, x_b)
         self._update(self._grads(total_d, dis_params), "dis", dis_params,
                      extrapolate)
         gen_params = self.gen_params()
@@ -634,7 +782,10 @@ class MUNITTrainer:
     def dis_gen_grads(self, x_a, x_b, mask_a=None,
                       mask_b=None) -> Tuple[Tensors, Tensors]:
         """(dis grads, gen grads) of one fused step, both against the
-        current D, with no update (trainer.py:1025-1070)."""
+        current D, with no update (trainer.py:1025-1070); guided styles
+        only, as in the JAX package."""
+        if not self.guided:
+            raise ValueError("dis_gen_grads takes guided styles only")
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
         targets = self._semantic_targets(x_a, x_b)
         fw = self._gen_forward(x_a, x_b)
@@ -741,21 +892,43 @@ class MUNITTrainer:
     # ------------------------------------------------------------ sampling
 
     @torch.no_grad()
+    def forward(self, x_a, x_b) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(x_ab, x_ba) with the fixed display styles (MUNIT_Trainer.forward,
+        trainer.py:1443-1454)."""
+        gen, n = self.gen, x_a.shape[0]
+        x_ba = gen.decode(gen.encode_content(x_b, 2), self.display_s_a[:n], 1)
+        x_ab = gen.decode(gen.encode_content(x_a, 1), self.display_s_b[:n], 2)
+        return x_ab, x_ba
+
+    @torch.no_grad()
     def sample(self, x_a, x_b) -> Tuple[torch.Tensor, ...]:
-        """The display grid's columns, guided (trainer.py:1474-1515): per
-        direction (x, recon, x_ab, x_ab), each style taken from the other
-        domain's image. With the segmenter, 12 columns: per direction (x,
-        recon, seg(x), x_ab, seg(x_ab), x_ab), each overlay the Cityscapes
-        colours of the segmenter's labels in [0, 1]."""
-        gen = self.gen
+        """The display grid's columns (trainer.py:1474-1515): per direction
+        (x, recon, x_ab1, x_ab2). Guided, both translations take the other
+        domain's image's style; with guided 0, x_ab1 takes the fixed display
+        style and x_ab2 a draw of a fresh generator seeded 0, made anew on
+        each call (on the CPU, then moved), as the JAX loop calls ``sample``
+        without an rng. With the segmenter, 12 columns: per direction (x,
+        recon, seg(x), x_ab1, seg(x_ab1), x_ab2), each overlay the
+        Cityscapes colours of the segmenter's labels in [0, 1]."""
+        gen, n = self.gen, x_a.shape[0]
         c_a, s_a = gen.encode(x_a, 1)
         c_b, s_b = gen.encode(x_b, 2)
         x_a_recon = gen.decode(c_a, s_a, 1)
         x_b_recon = gen.decode(c_b, s_b, 2)
-        x_ab = gen.decode(c_a, s_b, 2)
-        x_ba = gen.decode(c_b, s_a, 1)
+        if self.guided:
+            x_ab1 = x_ab2 = gen.decode(c_a, s_b, 2)
+            x_ba1 = x_ba2 = gen.decode(c_b, s_a, 1)
+        else:
+            g = torch.Generator().manual_seed(0)
+            s_a2, s_b2 = (torch.randn((n, self.style_dim), generator=g).to(
+                self.device) for _ in range(2))
+            x_ab1 = gen.decode(c_a, self.display_s_b[:n], 2)
+            x_ab2 = gen.decode(c_a, s_b2, 2)
+            x_ba1 = gen.decode(c_b, self.display_s_a[:n], 1)
+            x_ba2 = gen.decode(c_b, s_a2, 1)
         if self.segmenter is None:
-            return (x_a, x_a_recon, x_ab, x_ab, x_b, x_b_recon, x_ba, x_ba)
+            return (x_a, x_a_recon, x_ab1, x_ab2, x_b, x_b_recon, x_ba1,
+                    x_ba2)
 
         def overlay(img):
             labels = self._segment(img).argmax(dim=-1).cpu().numpy()
@@ -763,8 +936,8 @@ class MUNITTrainer:
             return torch.from_numpy(rgb.astype(np.float32) / 255.0).to(
                 img.device)
 
-        return (x_a, x_a_recon, overlay(x_a), x_ab, overlay(x_ab), x_ab,
-                x_b, x_b_recon, overlay(x_b), x_ba, overlay(x_ba), x_ba)
+        return (x_a, x_a_recon, overlay(x_a), x_ab1, overlay(x_ab1), x_ab2,
+                x_b, x_b_recon, overlay(x_b), x_ba1, overlay(x_ba1), x_ba2)
 
 
 # The optimizers each step kind of the cadence updates.

@@ -19,10 +19,12 @@ from munit_tpu.nn.generator import AdaINGenDual as JGen
 from munit_tpu.nn.generator import ContentEncoder as JContent
 from munit_tpu.nn.generator import Decoder as JDecoder
 from munit_tpu.nn.generator import StyleEncoder as JStyle
+from munit_tpu.config import validate as jvalidate
+from munit_tpu.train import GenBundle as JGenBundle
 from munit_tpu_torch.config import validate
 from munit_tpu_torch.io.weights import (from_jax_params,
                                         load_reference_checkpoint)
-from munit_tpu_torch.nn.generator import GenBundle
+from munit_tpu_torch.nn.generator import AdaINGen, AdaINGenPair, GenBundle
 from tests.torch_port_util import SMALL_GEN, ref_layout_weights
 
 G = SMALL_GEN
@@ -133,6 +135,69 @@ def test_seeded_init_is_reproducible():
     assert (g >= 0).all() and (g < 1).all()
 
 
-def test_genbundle_has_only_the_dual_generator():
-    with pytest.raises(NotImplementedError):
-        GenBundle(validate({"gen_state": 0}), "cpu")
+@pytest.fixture(scope="module")
+def pair_setup(tmp_path_factory):
+    """gen_state 0: the JAX package's GenBundle, seeded by its own init,
+    and a port GenBundle loaded from the reference {"a", "b"} .pt that
+    ``export_gen_state_dict(..., dual=False)`` makes of its params."""
+    conf = {"gen_state": 0, "gen": G}
+    jgen = JGenBundle(jvalidate(dict(conf)))
+    params = jgen.init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 64, 3)))
+    path = tmp_path_factory.mktemp("pair") / "gen_00000001.pt"
+    torch.save({half: {k: torch.from_numpy(np.array(v)) for k, v in
+                       export_gen_state_dict(params[half], G,
+                                             dual=False).items()}
+                for half in ("a", "b")}, path)
+    gen = GenBundle(validate(dict(conf)), "cpu")
+    gen.load_state_dict(load_reference_checkpoint(str(path)))
+    return jgen, params, gen
+
+
+def test_genbundle_has_only_the_dual_generator(pair_setup):
+    """The name is the test's first one, from when gen_state 0 was refused.
+    Now ``GenBundle(gen_state=0)`` holds two ``AdaINGen``s, a and b, in the
+    reference layout: a reference {"a", "b"} .pt loads into it, and each
+    domain's encode and decode agree with the JAX package's GenBundle, its
+    own style encoder's too, within the dual generator's atol."""
+    jgen, params, gen = pair_setup
+    assert isinstance(gen.module, AdaINGenPair)
+    assert isinstance(gen.module.a, AdaINGen)
+    rng = np.random.RandomState(6)
+    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    t = torch.from_numpy
+    for domain in (1, 2):
+        other = 3 - domain
+        jc, js = jgen.encode(params, jnp.asarray(x), domain)
+        want = jgen.decode(params, jc, js[::-1], other)
+        with torch.no_grad():
+            c, st = gen.encode(t(x), domain)
+            got = gen.decode(c, st.flip(0), other)
+            s_only = gen.encode_style(t(x), domain)
+        for w, g in ((jc, c), (js, st), (js, s_only), (want, got)):
+            assert tuple(g.shape) == np.asarray(w).shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=ATOL)
+    with pytest.raises(ValueError, match="domain"):
+        gen.encode_style(t(x))
+
+
+def test_pair_state_dict_matches_reference_export(pair_setup, tmp_path):
+    """``from_jax_params`` of the {"a", "b"} tree equals the reference .pt's
+    keys and values, and a packed inference .npz of the pair loads as the
+    JAX package reads it."""
+    from munit_tpu.io.checkpoint import (load_inference_params,
+                                         save_inference_params)
+    _, params, gen = pair_setup
+    sd = from_jax_params(params)
+    assert set(sd) == set(gen.state_dict())
+    assert {k.split(".")[0] for k in sd} == {"a", "b"}
+    for k, v in gen.state_dict().items():
+        np.testing.assert_array_equal(sd[k].numpy(), v.numpy(), err_msg=k)
+    npz = str(tmp_path / "gen.npz")
+    save_inference_params(npz, params)
+    packed = load_reference_checkpoint(npz)
+    want = from_jax_params(load_inference_params(npz))
+    assert set(packed) == set(want) == set(sd)
+    for k, v in want.items():
+        np.testing.assert_array_equal(packed[k].numpy(), v.numpy(),
+                                      err_msg=k)

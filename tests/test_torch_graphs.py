@@ -289,6 +289,44 @@ def test_synthetic_cadence_through_the_graphs_equals_eager_bitwise():
     _assert_same(_leaves(captured), _leaves(eager))
 
 
+# upstream MUNIT at small widths: two auto-encoders, random styles, the VGG
+# loss, ExtraAdam, a fused step every iteration (ratio_disc_gen: 1, the
+# package default) and a classifier_sr step every 2nd
+VANILLA = dict(gen_state=0, guided=0, vgg_w=1, optimizer="extra_adam",
+               ratio_disc_gen=1)
+
+
+def test_vanilla_cadence_keys_warmup_and_draws_through_the_graphs():
+    """With ratio_disc_gen: 1 every iteration is a fused step, its key
+    following the ExtraAdam phase: the keys asked for are
+    ``step_variants``', and ``capture_warmup`` reaches every one of the
+    steady state's twice. Through the stand-in graphs (first call eager,
+    second captured, replays), 6 iterations equal the eager steps bit for
+    bit, metrics and state leaves, the style stream's state included: the
+    random styles are drawn outside the step and reach it as inputs."""
+    tr = _trainer(**VANILLA)
+    rec = _recording(tr)
+    warm = capture_warmup(tr.conf)
+    train_steps(tr, *_batch(), range(warm))
+    got = [(k[0], k[1], k[2]) for k in rec.keys]
+    assert got == list(step_variants(tr.conf, range(warm)))
+    assert [k for k, *_ in got if k != "classifier_sr"] == ["dis_gen"] * warm
+    steady = set(rec.keys[len(rec.keys) // 2:])
+    assert all(rec.keys.count(k) >= 2 for k in steady)
+
+    eager = _trainer(**VANILLA)
+    eager._capture = False
+    captured = _trainer(**VANILLA)
+    steps = _through_graphs(captured)
+    batch = _batch()
+    want = train_steps(eager, *batch, range(6))
+    got = train_steps(captured, *batch, range(6))
+    assert len(steps) == len(set(step_variants(captured.conf, range(6))))
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    _assert_same(_leaves(captured), _leaves(eager))
+
+
 def test_the_replay_reads_the_lr_scalar():
     """After its capture, a replay with twice the lr (and nothing else
     changed: the same key, no new capture) moves the discriminators twice

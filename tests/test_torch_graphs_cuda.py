@@ -169,3 +169,88 @@ def test_profiler_sees_the_kernels_of_a_replay():
             if getattr(ev, "self_device_time_total", 0) > 0}
     assert any("norm_cluster_fwd" in k for k in seen), seen
     assert any("norm_cluster_bwd" in k for k in seen), seen
+
+
+# vanilla MUNIT at small width: two auto-encoders, random styles, VGG
+VANILLA = dict(gen_state=0, guided=0, vgg_w=1)
+
+
+def _vanilla_trainer(conf, capture):
+    tr = MUNITTrainer(conf, "cuda", _capture=capture)
+    tr.init(torch.Generator().manual_seed(0))
+    tr.seed_styles(3)
+    return tr
+
+
+def _spy_draws(tr):
+    calls, draw = [], tr.draw_style
+
+    def spy(bsz, dtype):
+        t = draw(bsz, dtype)
+        calls.append(t.detach().clone())
+        return t
+    tr.draw_style = spy
+    return calls
+
+
+@pytest.mark.cuda
+def test_guided0_replays_see_fresh_draws():
+    """A guided: 0 fused step called three times on a captured trainer
+    (eager, captured, replayed): each call's four draws differ from the
+    last call's, and an eager trainer loaded with the same state before
+    each call (its style stream too) draws the same styles bit for bit and
+    takes the same losses before its updates (D's) bit for bit."""
+    _card()
+    conf = validate(small_train_spec(ratio_disc_gen=1, **VANILLA))
+    ops.set_conv_compute(None)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = [torch.from_numpy(a).cuda() for a in train_batch()]
+        tr, ref = (_vanilla_trainer(conf, c) for c in (True, False))
+        got, want = _spy_draws(tr), _spy_draws(ref)
+        seen = []
+        for _ in range(3):
+            ref.load_state_dict(tr.state_dict())
+            m = tr.dis_gen_update(*batch)
+            w = ref.dis_gen_update(*batch)
+            torch.cuda.synchronize()
+            for k in ("loss_dis_a", "loss_dis_b", "loss_dis_total"):
+                assert float(m[k]) == float(w[k]), k
+            seen.append(torch.stack(got[-4:]))
+            assert torch.equal(seen[-1], torch.stack(want[-4:]))
+        assert len(tr._graphs) == 1
+        assert not torch.equal(seen[1], seen[2])
+        assert not torch.equal(seen[0], seen[1])
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+def test_guided0_captured_lockstep_with_eager():
+    """5 iterations of the vanilla cadence at small width (a dis step, then
+    a fused and a classifier_sr step, in turn), captured and eager in
+    lockstep: before each iteration the captured trainer loads the eager
+    one's state, style stream included; D's losses, which each step takes
+    before its own updates, bit for bit (parity numerics, cuDNN
+    deterministic), as chip_smoke.py's phase 8c holds config_256."""
+    _card()
+    conf = validate(small_train_spec(**VANILLA))
+    ops.set_conv_compute(None)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = [torch.from_numpy(a).cuda() for a in train_batch()]
+        eager, captured = (_vanilla_trainer(conf, c) for c in (False, True))
+        for it in range(5):
+            captured.load_state_dict(eager.state_dict())
+            w = train_steps(eager, *batch, [it])[0]
+            g = train_steps(captured, *batch, [it])[0]
+            torch.cuda.synchronize()
+            keys = [k for k in w if k.startswith("loss_dis")]
+            assert keys
+            for k in keys:
+                assert float(g[k]) == float(w[k]), (it, k)
+        assert len(captured._graphs) > 0
+    finally:
+        torch.backends.cudnn.deterministic = det

@@ -66,9 +66,10 @@ from munit_tpu_torch.nn.resnet import SegmentationHead
 from munit_tpu_torch.train.loop import train_loop
 from munit_tpu_torch.train.trainer import (MUNITTrainer, cadence_step,
                                            cadence_steps, train_steps)
-from tests.torch_port_util import (CROP, one_torch_thread,  # noqa: F401
-                                   seg_ref_weights, small_train_spec,
-                                   train_batch)
+from tests.torch_port_util import (CROP, check_update,  # noqa: F401
+                                   one_torch_thread, seg_ref_weights,
+                                   small_train_spec, train_batch,
+                                   update_errors)
 
 ITERS, LOOP_ITERS = 3, 4
 LR = 1e-4
@@ -259,66 +260,6 @@ UPDATED = {"dis_gen": ("gen", "dis"), "dis_gen_synth": ("gen", "dis"),
            "classifier_sr_synth": ("classifier",),
            "output_classifier_sr": ("output_classifier",),
            "seg_head": ("seg_head",)}
-# An update is held to JAX's within 1e-2 lr. The packages' gradients
-# differ by ~1e-3 relative where float32 rounding moves one ReLU input
-# across the kink (the synthetic fused step: one in each package, against
-# a float64 port), which Adam passes on: at 1e-3 lr, 9 % of the
-# generator's weights are past it there, at 1e-2 lr at most 0.4 % of any
-# net's (the weights whose gradient is rounding noise, moved by ±lr at
-# random). A dropped or reversed update is past it in most weights.
-UPDATE_RTOL = 1e-2       # of lr, per update
-UPDATE_SHARE = 0.01      # weights allowed past it, per net
-MOVED = 0.1              # median |update| of an updated net, in lr
-
-
-def update_errors(before, want, got, lr, updates):
-    """Per net, from its weights before, JAX's after and the port's after
-    (``net_groups``) over ``updates[net]`` updates at ``lr``: ``share``,
-    the fraction of its weights whose update differs from JAX's by more
-    than UPDATE_RTOL lr per update plus one float32 ulp of the weight per
-    update (rounding of the stored sum); ``worst``, the largest difference
-    in lr per update; ``moved``, the median |update| of the port's weights
-    in lr per update; ``still``, the largest |update| of either package;
-    ``stats``, the running statistics' largest error over rtol 1e-4, atol
-    1e-6."""
-    out = {}
-    for net, w in want.items():
-        k = max(updates.get(net, 0), 1)
-        past, moved, worst, still, stats = [], [], 0.0, 0.0, 0.0
-        for key, v in w.items():
-            if "running" in key:
-                d = np.abs(got[net][key] - v)
-                stats = max(stats, float(
-                    (d / (1e-6 + 1e-4 * np.abs(v))).max()))
-                continue
-            b = before[net][key]
-            d_jax, d_port = v - b, got[net][key] - b   # exact (Sterbenz)
-            gap = np.abs(d_port - d_jax)
-            ulp = np.spacing(np.maximum(np.abs(b), np.abs(v)))
-            past.append((gap > k * (UPDATE_RTOL * lr + ulp)).ravel())
-            moved.append(np.abs(d_port).ravel())
-            worst = max(worst, float(gap.max()))
-            still = max(still, float(np.abs(d_port).max()),
-                        float(np.abs(d_jax).max()))
-        moved = float(np.median(np.concatenate(moved)))
-        out[net] = {"share": float(np.concatenate(past).mean()),
-                    "worst": worst / (lr * k), "moved": moved / (lr * k),
-                    "still": still, "stats": stats}
-    return out
-
-
-def check_update(e, updated, label):
-    """One net's ``update_errors``: held to JAX's update if a step
-    ``updated`` it, else not moved at all."""
-    assert e["stats"] <= 1.0, (label, e)
-    if updated:
-        assert e["share"] <= UPDATE_SHARE, (label, e)
-        assert e["worst"] <= 2.0, (label, e)
-        assert e["moved"] >= MOVED, (label, e)
-    else:
-        assert e["still"] == 0.0, (label, e)
-
-
 def lockstep(jtr, jconf, conf, iterations, seg, batches):
     """The cadence's steps over ``iterations`` on fixed batches, the port
     in lockstep: each step from the JAX state before it. Per step (kind,

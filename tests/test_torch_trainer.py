@@ -232,7 +232,7 @@ def test_fused_step_matches_unfused_pair(jax_grads):
 
 
 # the options the port refuses, each with the ROADMAP item that brings it
-REFUSED = {"guided": "item 9", "grad_accum": "item 13", "vgg_w": "item 12"}
+REFUSED = {"grad_accum": "item 13"}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -240,10 +240,11 @@ REFUSED = {"guided": "item 9", "grad_accum": "item 13", "vgg_w": "item 12"}
     ("adaptation", {"adv_lambda": 6, "dfeat_lambda": 1, "sem_seg_lambda": 1}),
     ("vgg_w", 1), ("domain_adv_w", 1), ("recon_synth_w", 1)])
 def test_unported_options_raise(key, value):
-    """guided: 0, grad_accum > 1 and vgg_w are refused, naming their
-    ROADMAP item. The sim→real options, refused until ROADMAP item 11 was
-    ported, now build their net and step: the seg head, the DANN, the
-    synthetic-pair loss."""
+    """grad_accum > 1 is refused, naming its ROADMAP item. The options
+    refused until they were ported now build their net and step: the seg
+    head, the DANN and the synthetic-pair loss (ROADMAP item 11), random
+    styles (guided: 0, item 9) and the VGG perceptual loss (vgg_w, item
+    12)."""
     conf = validate(small_train_spec(**{key: value}))
     if key in REFUSED:
         with pytest.raises(NotImplementedError, match=REFUSED[key]):
@@ -263,6 +264,12 @@ def test_unported_options_raise(key, value):
         loss = tr.domain_classifier_update(x_a, x_b)["domain_class_loss"]
         assert tr.dis_gen_update(x_a, x_b, m_a, m_b)[
             "domain_adv_loss_gen"] > 0
+    elif key == "guided":
+        assert not tr.guided
+        loss = tr.dis_gen_update(x_a, x_b, m_a, m_b)["loss_gen_recon_s_a"]
+    elif key == "vgg_w":
+        assert tr.vgg is not None
+        loss = tr.dis_gen_update(x_a, x_b, m_a, m_b)["loss_gen_vgg_a"]
     else:
         loss = tr.dis_gen_update(x_a, x_a.clone(), m_a, m_a, synth=True)[
             "loss_gen_recon_synth"]
