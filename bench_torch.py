@@ -25,6 +25,9 @@ Knobs (bench.py's, with its defaults):
   run in bf16;
 - BENCH_DEVICE (cuda): without a card the run exits non-zero; ``cpu`` runs
   the kernels' plain versions, for the smoke test only.
+The trainer reads ``MUNIT_GRAD_ACCUM`` (K micro-batches a step, bench.py's
+knob through the JAX trainer), ``MUNIT_ACCUM_SHARED_FWD`` and
+``MUNIT_ACCUM_CHUNK_DIS``, and refuses the JAX trainer's switches it lacks.
 BENCH_MESH=auto and BENCH_REMAT are not ported and raise. On the card the
 trainer captures each step variant of the cadence as a CUDA graph at its
 second call and replays it after (``munit_tpu_torch/train/graphs.py``), so
@@ -87,7 +90,7 @@ def main():
             "item 16")
     if os.environ.get("BENCH_REMAT", ""):
         raise NotImplementedError(
-            "BENCH_REMAT is not ported; ROADMAP queue 1 item 13")
+            "BENCH_REMAT is not ported; ROADMAP queue 1 item 13c")
     if DEVICE not in ("cuda", "cpu"):
         raise SystemExit(f"bench_torch: BENCH_DEVICE must be cuda or cpu, "
                          f"got {DEVICE!r}")
@@ -133,7 +136,7 @@ def main():
 
     log(f"bench_torch: batch {BATCH}, crop {CROP}, conv compute "
         f"{'bf16' if BF16 else 'f32 (TF32 off)'}, activations {act}, "
-        f"device {DEVICE}")
+        f"device {DEVICE}, grad_accum {tr.grad_accum}")
     for kind, it in (("dis", 0), ("dis+gen", conf["ratio_disc_gen"] - 1),
                      ("dis+gen and classifier_sr",
                       ad["classif_frequency"] - 1)):

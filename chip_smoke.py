@@ -136,8 +136,27 @@ Phases, each raising on failure (exit code 1):
    CPU over two of them within atol 1e-3, ms per image (the command and
    the model alone) and its launches; translate from that snapshot; and
    ms per iteration (captured and eager), per step kind, peak memory and
-   graphs of each flavor at batch 1 in bf16.
-Earlier lines are JSON objects. The line before the last is the kernel
+   graphs of each flavor at batch 1 in bf16;
+15. configs/config_HD.yaml (512² crops) and grad_accum (ROADMAP 13, 13b):
+   (a) each norm kernel at every HD path shape ((B, 512, 512, 64), (B,
+   256, 256, 128), (B, 128, 128, 256); B = 1, 2, 4, 8), f32 and bf16: its
+   plan (the grid design everywhere, fitting the card at once), forward
+   and backward against the plain versions (and the split design; two
+   runs bitwise), timed after an L2 flush against the byte bound, the
+   plain version and one library call; (b) config_HD at its shipped batch
+   1 in bf16, captured, narrow (wide 0, its default) and wide (1): the
+   warm-up's norm launches by design and one replayed fused step's
+   against the count from the code, ms per captured iteration and per
+   step kind, peak memory and the graphs' pool; one fused step card (TF32
+   off) against CPU at full width within 1e-3 relative; the train CLI on
+   config_HD for 20 iterations over 16 seeded 600x600 JPEGs per domain
+   (display_size 8 grids, snapshots, launches by design); (c) grad_accum
+   at batch 8, bf16, captured: config_256 with K = 1, 2, 4 and config_HD
+   (narrow) with K = 1, 2: ms per iteration, images/s, peak allocated
+   eager, the graphs' pool and what is live (the pool must fall with K),
+   and at K = 2 the captured fused step against the eager one within 1e-3.
+Earlier lines are JSON objects, each with ``at_s``, the seconds since the
+script started. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
 checkout of the repo, it exits non-zero and prints no result.
 
@@ -149,7 +168,8 @@ comparison of two trees (parent, change, change, parent).
 
     python3 chip_smoke.py --sim2real
 
-builds the kernels and runs phase 13 alone; ``--vanilla`` phase 14 alone.
+builds the kernels and runs phase 13 alone; ``--vanilla`` phase 14 alone;
+``--hd`` phase 15 alone.
 """
 
 from __future__ import annotations
@@ -160,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -195,8 +216,12 @@ ROUNDS = 5                  # timed loops per translate timing, median kept
 SPIN_CYCLES = 2_000_000     # about 1 ms at the H100's clocks
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started."""
+    print(json.dumps({**kw, "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(ok: bool, msg: str):
@@ -338,18 +363,20 @@ def design_of(norms, name, x, tiles=1):
     return "cluster" if isinstance(p, norms.ClusterPlan) else "grid"
 
 
-def plan_phase(norms):
-    """Each path shape's launch plan, forward (one tile) and backward (x
-    and dy), for IN/AdaIN and for the LN: the cluster design's group, K,
-    rows, shared memory and resident clusters; the grid design's segments,
-    blocks, rows kept on chip, shared memory and blocks an SM holds. IN and
-    AdaIN must take the cluster design at (B, 64, 64, 256) and the grid
-    design elsewhere, the LN the grid design everywhere, the split design
-    nowhere; a grid must fit the card at once."""
+def plan_phase(norms, shapes=SHAPES, batches=PLAN_BATCHES,
+               cluster_shape=CLUSTER_SHAPE, phase="plan"):
+    """Each path shape's launch plan at each batch, forward (one tile) and
+    backward (x and dy), for IN/AdaIN and for the LN: the cluster design's
+    group, K, rows, shared memory and resident clusters; the grid design's
+    segments, blocks, rows kept on chip, shared memory and blocks an SM
+    holds. IN and AdaIN must take the cluster design at ``cluster_shape``
+    (None: nowhere) and the grid design elsewhere, the LN the grid design
+    everywhere, the split design nowhere; a grid must fit the card at
+    once."""
     for tiles, way in ((1, "forward"), (2, "backward")):
         for dtype in DTYPES:
-            for b in PLAN_BATCHES:
-                for h, w, c in SHAPES:
+            for b in batches:
+                for h, w, c in shapes:
                     x = torch.empty((b, h, w, c), dtype=dtype, device="cuda")
                     for norm, whole in (("in_adain", False), ("ln", True)):
                         p = plan_of(norms, x, tiles, whole)
@@ -370,9 +397,9 @@ def plan_phase(norms):
                                 1.0, p.blocks * p.res / (b * h * w))
                             check(p.blocks <= per_sm * sm_count(),
                                   f"plan {row}: the grid does not fit")
-                        emit(phase="plan", **row)
+                        emit(phase=phase, **row)
                         want = ("cluster" if not whole
-                                and (h, w, c) == CLUSTER_SHAPE else "grid")
+                                and (h, w, c) == cluster_shape else "grid")
                         check(design == want, f"plan {row}: want {want}")
                     del x
 
@@ -436,12 +463,17 @@ def phase2_cases():
                            else tuple(PATH_CALLS))
 
 
-def kernel_phase(norms):
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+def kernel_phase(norms, cases=None, seed=SEED, phase="kernel"):
+    """Each forward kernel at each (batch, (H, W, C), wrappers) of
+    ``cases`` (phase 2's by default), f32 and bf16, ReLU on and off,
+    against its plain version, the split design too, two runs bitwise;
+    timed after an L2 flush against its byte bound, the split design, a
+    copy of x, one library call and (f32) the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
     err = {}   # (wrapper, design, dtype): largest error against plain
     times = {}
-    for b, (h, w, c), names in phase2_cases():
+    for b, (h, w, c), names in (phase2_cases() if cases is None else cases):
         for dtype in DTYPES:
             a = make_inputs(b, h, w, c, dtype, gen)
             dname = dtype_name(dtype)
@@ -490,7 +522,7 @@ def kernel_phase(norms):
                 key = (name, design, dname)
                 err[key] = max(err.get(key, 0.0), shape_err)
                 times[(name, b, h, w, c, dname)] = row
-                emit(phase="kernel", **row)
+                emit(phase=phase, **row)
                 del y
             del a
     return err, times
@@ -985,21 +1017,23 @@ def direct_backward(norms, name, a, relu, split=False):
                                           relu, whole, split=split)
 
 
-def backward_phase(norms):
+def backward_phase(norms, bwd_calls=BWD_CALLS, batches=BWD_BATCHES,
+                   seed=SEED + 6, phase="backward_kernel"):
     """Each backward kernel against the plain closed form and autograd of
-    the plain forward, at every norm shape of the training path, f32 and
-    bf16, ReLU on and off; the split design held against the same
-    references and two runs held bitwise equal. Timed (ReLU off; the
-    launcher alone, as the Function calls it) against the byte bound, the
-    plain closed form and one library call's autograd backward (f32), and
-    the split design in the same run."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    the plain forward, at every norm shape of ``bwd_calls`` (the training
+    path's by default) times each of ``batches``, f32 and bf16, ReLU on
+    and off; the split design held against the same references and two
+    runs held bitwise equal. Timed (ReLU off; the launcher alone, as the
+    Function calls it) against the byte bound, the plain closed form and
+    one library call's autograd backward (f32), and the split design in
+    the same run."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
     err = {}   # (wrapper, design, dtype): largest error against plain
     times = {}
-    for name, calls in BWD_CALLS.items():
+    for name, calls in bwd_calls.items():
         for mult, h, w, c in calls:
-            for b in (mult * bb for bb in BWD_BATCHES):
+            for b in (mult * bb for bb in batches):
                 for dtype in (torch.float32, torch.bfloat16):
                     dname = str(dtype).split(".")[1]
                     a = gap_inputs(b, h, w, c, dtype, gen)
@@ -1058,7 +1092,7 @@ def backward_phase(norms):
                         times[(name, mult, h, w, c, b)] = row
                     key = (name, design, dname)
                     err[key] = max(err.get(key, 0.0), shape_err)
-                    emit(phase="backward_kernel", **row)
+                    emit(phase=phase, **row)
                     del a
     return err, times
 
@@ -1150,8 +1184,9 @@ def step_launches(conf):
     IN, a decode 2 n_res AdaIN and n_downsample LN; the style encoders run
     no norm. A dis step encodes both domains and decodes one batch per
     domain. A fused step encodes both, decodes the recon and cross
-    translations (one batch per domain with the dual generator, wide 1; a
-    decode each with gen_state 0, narrow), re-encodes both, decodes the
+    translations (one batch per domain when wide; a decode each when
+    narrow: gen_state 0, or config_HD's 512² crops), re-encodes both,
+    decodes the
     cycle if recon_x_cyc_w > 0 and, with guided 0, decodes D's own fakes
     without gradient; every other norm runs backward too. A classifier_sr
     step encodes both domains; a sample grid encodes both and decodes four
@@ -1165,7 +1200,8 @@ def step_launches(conf):
     def calls(encodes, decodes):
         return {"instance_norm": encodes * enc,
                 **{k: decodes * v for k, v in dec.items()}}
-    cross = 2 if conf["gen_state"] == 1 else 4
+    from munit_tpu_torch.train.trainer import wide_of
+    cross = 2 if wide_of(conf) else 4
     cyc = 2 if conf["recon_x_cyc_w"] > 0 else 0
     fakes = 0 if conf["guided"] == 1 else 2
     fused = calls(4, cross + cyc + fakes)
@@ -1206,12 +1242,12 @@ def expected_launches(norms, conf, steps):
     return want
 
 
-def train_inputs(b, seed):
+def train_inputs(b, seed, size=256):
     """Seeded images in [-1, 1] and masks (30 % ones) on the card."""
     g = torch.Generator().manual_seed(seed)
-    x_a, x_b = (torch.rand((b, 256, 256, 3), generator=g) * 2 - 1
+    x_a, x_b = (torch.rand((b, size, size, 3), generator=g) * 2 - 1
                 for _ in range(2))
-    m_a, m_b = ((torch.rand((b, 256, 256, 1), generator=g) > 0.7).float()
+    m_a, m_b = ((torch.rand((b, size, size, 1), generator=g) > 0.7).float()
                 for _ in range(2))
     return [t.cuda() for t in (x_a, x_b, m_a, m_b)]
 
@@ -2129,9 +2165,9 @@ RESUME_WARM = 10    # iterations a trainer runs (and captures) before resume
 FEED_WARM, FEED_ITERS = 30, 60
 
 
-def write_train_data(root: Path) -> dict:
-    """16 seeded random 286x286 JPEGs per domain, binary PNG masks and their
-    lists; returns the config's data keys (absolute paths)."""
+def write_train_data(root: Path, size=DATA_SIZE) -> dict:
+    """16 seeded random size x size (286) JPEGs per domain, binary PNG masks
+    and their lists; returns the config's data keys (absolute paths)."""
     from PIL import Image
     rng = np.random.RandomState(SEED)
     root.mkdir(parents=True)
@@ -2140,9 +2176,9 @@ def write_train_data(root: Path) -> dict:
         imgs, masks = [], []
         for i in range(DATA_IMAGES):
             img, mask = root / f"{dom}{i:02d}.jpg", root / f"{dom}{i:02d}.png"
-            Image.fromarray(rng.randint(0, 256, (DATA_SIZE, DATA_SIZE, 3),
+            Image.fromarray(rng.randint(0, 256, (size, size, 3),
                                         np.uint8)).save(img, quality=90)
-            Image.fromarray(((rng.rand(DATA_SIZE, DATA_SIZE) > 0.7) * 255)
+            Image.fromarray(((rng.rand(size, size) > 0.7) * 255)
                             .astype(np.uint8)).save(mask)
             imgs.append(str(img))
             masks.append(str(mask))
@@ -3095,7 +3131,8 @@ VANILLA_STEPS = (("dis", 2), ("dis_gen", 4), ("gen", 2), ("classifier_sr", 0))
 
 
 def vanilla_raw(base, over) -> dict:
-    """The base config (the package defaults when None) with ``over``."""
+    """The base config (the package defaults when None) with ``over``
+    merged in (phases 14 and 15)."""
     import yaml
     raw = yaml.safe_load(base.read_text()) if base is not None else {}
     for k, v in over.items():
@@ -3540,6 +3577,410 @@ def vanilla_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 15
+
+HD_CONFIG = ROOT / "configs" / "config_HD.yaml"
+HD_CROP = 512
+# The HD path's norm calls per image at each (H, W, C): a content encode's
+# IN (its stem at 512², its down at 256², 9 at 128²), a decode's 8 AdaIN
+# at 128² and its up-stage LN at 256² and 512².
+HD_CALLS = {
+    "instance_norm": {(512, 512, 64): 1, (256, 256, 128): 1,
+                      (128, 128, 256): 9},
+    "adain": {(128, 128, 256): 8},
+    "whole_layer_norm": {(256, 256, 128): 1, (512, 512, 64): 1},
+}
+HD_SHAPES = [(512, 512, 64), (256, 256, 128), (128, 128, 256)]
+# The batches of the HD calls: batch 1 narrow (1) and wide (2, the [recon
+# | cross] decodes), batch 8 narrow at K = 2 (4, a micro-batch) and K = 1
+# (8). Every one takes the grid design.
+HD_BATCHES = (1, 2, 4, 8)
+HD_DESIGN_SHARE = {k: {"grid": 1} for k in HD_CALLS}
+# Backward calls of one narrow fused step at batch 1 (config_HD's default)
+# by (batch multiple, H, W, C), as BWD_CALLS: 4 content encodes, 6 decodes
+# (recon, cross and cycle, a call each)
+HD_BWD_CALLS = {
+    "instance_norm": {(1, 512, 512, 64): 4, (1, 256, 256, 128): 4,
+                      (1, 128, 128, 256): 36},
+    "adain": {(1, 128, 128, 256): 48},
+    "whole_layer_norm": {(1, 256, 256, 128): 6, (1, 512, 512, 64): 6},
+}
+HD_DATA_SIZE = 600           # config_HD's new_size
+HD_CLI_KEYS = {"max_iter": CLI_ITERS, "snapshot_save_iter": 10,
+               "image_save_iter": 10, "image_display_iter": 5,
+               "num_workers": 8}
+HD_TIME_ROUNDS, HD_TIME_ITERS = 3, 10
+# grad_accum at full width, bf16, captured: bench.py's spec (config_256) at
+# batch 8 with K = 1, 2, 4; config_HD at batch 8 (wide 0) with K = 1, 2;
+# each timed over rounds of bench.py's 15-iteration cycle
+ACCUM_BATCH = 8
+ACCUM_RUNS = (("config_256", CONFIG, 256, (1, 2, 4)),
+              ("config_HD", HD_CONFIG, HD_CROP, (1, 2)))
+ACCUM_ROUNDS, ACCUM_ITERS = 3, 15
+
+
+def hd_cases():
+    """Phase 15(a)'s forward cases for ``kernel_phase``: every HD shape at
+    every HD batch, with the wrappers that the HD path calls there."""
+    for b in HD_BATCHES:
+        for hwc in HD_SHAPES:
+            yield b, hwc, tuple(n for n, calls in HD_CALLS.items()
+                                if hwc in calls)
+
+
+def launches_by_design(norms):
+    return {k: dict(v) for k, v in norms.design_launches.items()}
+
+
+def hd_time_phase(norms, MUNITTrainer, validate):
+    """15(b): config_HD at its shipped batch 1, bf16, captured, narrow
+    (wide 0, its default at 512²) and wide (1), full width, the segmenter
+    seeded, on tensors already on the card: capture_warmup iterations with
+    their norm launches by design (every one on the grid design), one
+    replayed fused step's launches against step_launches' count, ms per
+    captured iteration (median of 3 rounds of 10), ms per step kind
+    (replayed, median of 5), peak allocated and the graphs' pool."""
+    from munit_tpu_torch.train.trainer import (cadence_step, capture_warmup,
+                                               train_steps)
+    set_numerics("bf16")
+    out = {}
+    for wide in (0, 1):
+        conf = validate(vanilla_raw(HD_CONFIG, {"wide": wide}))
+        tr = cli_trainer(MUNITTrainer, conf, "cuda")
+        check(tr.wide == wide and tr.grad_accum == 1,
+              f"config_HD wide {wide}: trainer wide {tr.wide}")
+        batch = numerics_inputs(train_inputs(1, SEED + 150, HD_CROP), "bf16")
+        warm = capture_warmup(conf)
+        norms.reset_launches()
+        t0 = time.perf_counter()
+        train_steps(tr, *batch, range(warm))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        want = designs_of_calls(norms, expected_launches(
+            norms, conf, cadence(conf, warm)), HD_DESIGN_SHARE)
+        got = launches_by_design(norms)
+        check(got == want, f"config_HD wide {wide}: warm-up launches {got}, "
+                           f"want {want}")
+        graphs = len(tr._graphs)
+        norms.reset_launches()
+        tr.iterations = conf["ratio_disc_gen"] - 1
+        x_a, x_b, m_a, m_b = batch
+        tr.dis_gen_update(x_a, x_b, m_a, m_b)
+        fused = launches_by_design(norms)
+        fused_want = designs_of_calls(norms, step_launches(conf)["fused"],
+                                      HD_DESIGN_SHARE)
+        check(fused == fused_want, f"config_HD wide {wide}: a replayed fused "
+                                   f"step's launches {fused}, want "
+                                   f"{fused_want}")
+        timed = range(warm, warm + HD_TIME_ITERS)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        captured_ms, rounds = host_ms(
+            lambda: train_steps(tr, *batch, timed), HD_TIME_ROUNDS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        it = conf["adaptation"]["classif_frequency"] - 1
+        steps = {}
+        for kind in ("dis", "dis_gen", "classifier_sr"):
+            tr.iterations = it
+            steps[kind], _ = host_ms(lambda: cadence_step(
+                tr, conf, kind, *batch), 5)
+        check(len(tr._graphs) == graphs, f"config_HD wide {wide}: a step "
+                                         "was captured on the clock")
+        out[wide] = {"ms": captured_ms / HD_TIME_ITERS, "launches": got,
+                     "fused_launches": fused}
+        emit(phase="hd_time", config="config_HD", batch=1, wide=wide,
+             numerics="bf16",
+             ms_per_iteration_captured=captured_ms / HD_TIME_ITERS,
+             captured_rounds_ms=[r / HD_TIME_ITERS for r in rounds],
+             images_per_s=HD_TIME_ITERS / (captured_ms / 1e3),
+             step_ms_captured=steps, peak_memory_gb=peak,
+             graph_pool_gb=tr._graphs.pool_bytes() / 2**30,
+             live_gb=torch.cuda.memory_allocated() / 2**30, graphs=graphs,
+             capture_seconds={step_label(k): v for k, v in
+                              tr._graphs.capture_seconds.items()},
+             warmup_iterations=warm, warmup_seconds=warm_s,
+             warmup_launches_by_design=got,
+             fused_step_launches_by_design=fused,
+             note="host clock, each round ending in a synchronise; "
+                  "captured: replays only; step_ms: one step of each kind "
+                  "of iteration 14, replayed; peak_memory_gb: the most "
+                  "allocated during the captured rounds; every HD norm "
+                  "call on the grid design")
+        del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def hd_parity_phase(MUNITTrainer, validate):
+    """15(b): config_HD's fused step at full width, batch 1, narrow, in
+    parity numerics (TF32 off, cuDNN deterministic), on the card and on the
+    CPU from one state: every loss within SIM_LOSS_RTOL relative."""
+    conf = validate(vanilla_raw(HD_CONFIG, {}))
+    set_numerics("tf32_off")
+    torch.backends.cudnn.deterministic = True
+    trs = {}
+    try:
+        trs = {d: cli_trainer(MUNITTrainer, conf, d) for d in ("cpu", "cuda")}
+        trs["cuda"].load_state_dict(without_styles(trs["cpu"].state_dict()))
+        batch = train_inputs(1, SEED + 152, HD_CROP)
+        out, cpu_s = {}, 0.0
+        for dev, tr in trs.items():
+            tr.iterations = conf["ratio_disc_gen"] - 1
+            t0 = time.perf_counter()
+            m = tr.dis_gen_update(*(t.to(dev) for t in batch))
+            out[dev] = {k: float(v) for k, v in m.items() if k != "lr"}
+            if dev == "cpu":
+                cpu_s = time.perf_counter() - t0
+        errs = {k: abs(out["cuda"][k] - w) / abs(w) if w else
+                abs(out["cuda"][k]) for k, w in out["cpu"].items()}
+        worst = max(errs, key=errs.get)
+        emit(phase="hd_card_vs_cpu", config="config_HD", batch=1, wide=0,
+             width="full (512², gen dim 64, 3-scale discriminators)",
+             numerics="tf32_off", losses=len(errs), worst=worst,
+             rel_err=errs[worst], tol=SIM_LOSS_RTOL, cpu=out["cpu"],
+             card=out["cuda"], cpu_seconds=cpu_s,
+             note="one fused step from the CPU trainer's state, loaded into "
+                  "the card's; every loss it logs, relative to the CPU's")
+        check(errs[worst] <= SIM_LOSS_RTOL,
+              f"config_HD card against CPU: {worst} {errs[worst]}")
+        check(out["cpu"]["loss_sem_seg"] > 0, "config_HD: no semantic loss")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        del trs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def hd_cli_start(tmp: Path):
+    """15(b): `python -m munit_tpu_torch train` on config_HD as shipped
+    (bf16, batch 1, display_size 8) but for HD_CLI_KEYS and the data keys,
+    over 16 seeded 600x600 JPEGs per domain with PNG masks, in a
+    subprocess; returns (config path, counts file, process)."""
+    import yaml
+    data = write_train_data(tmp / "hd_data", HD_DATA_SIZE)
+    cfg = tmp / "hd" / "config_HD.yaml"
+    cfg.parent.mkdir(parents=True, exist_ok=True)
+    cfg.write_text(yaml.safe_dump({**vanilla_raw(HD_CONFIG, {}), **data,
+                                   **HD_CLI_KEYS}))
+    counts_file = tmp / "hd_counts.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SIM_RUNNER, str(counts_file), "train",
+         "--config", str(cfg), "--output_path", str(tmp / "hd")],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    return cfg, counts_file, proc, time.perf_counter()
+
+
+def hd_cli_check(norms, get_config, step_variants, started, tmp: Path):
+    """Waits for the HD train CLI: every logged loss finite, the semantic
+    loss above 0, snapshots at 10 and 20, the display_size-8 grids written,
+    every step variant that ran twice captured and replayed, the norm
+    launches of its steps and sample grids by design (all grid)."""
+    cfg, counts_file, proc, t0 = started
+    _, errs = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"config_HD train CLI exit {proc.returncode}: {errs[-3000:]}")
+    conf = get_config(str(cfg))
+    counts = json.loads(counts_file.read_text())
+    run = tmp / "hd" / "outputs" / "config_HD"
+    lines = [json.loads(ln) for ln in (run / "metrics.jsonl").open()]
+    losses = {m["step"]: m for m in lines if "loss_dis_total" in m}
+    finite = all(np.isfinite(v) for m in losses.values()
+                 for k, v in m.items() if k != "step")
+    variants = Counter(step_variants(conf, range(CLI_ITERS)))
+    norm_steps = Counter()
+    for (kind, *_), n in variants.items():
+        norm_steps[SIM_STEP_NORMS[kind]] += n
+    norm_steps["sample"] = sample_calls(conf, CLI_ITERS)
+    want = designs_of_calls(norms, expected_launches(norms, conf, norm_steps),
+                            HD_DESIGN_SHARE)
+    want_graphs = {variant_label(*v): n - 1 for v, n in variants.items()
+                   if n >= 2}
+    got_graphs = {variant_label(k, e, h): n
+                  for k, e, h, n in counts["graphs"]}
+    from munit_tpu_torch.io import checkpoint
+    snapshots = checkpoint.steps(str(run / "checkpoints"))
+    images = sorted(p.name for p in (run / "images").iterdir())
+    sem = [m["loss_sem_seg"] for m in losses.values() if "loss_sem_seg" in m]
+    emit(phase="hd_cli", config="config_HD", batch=conf["batch_size"],
+         display_size=conf["display_size"], crop=conf["crop_image_height"],
+         new_size=conf["new_size"], numerics="bf16",
+         seconds_incl_start=wall, iterations=CLI_ITERS,
+         logged_steps=sorted(losses), finite=finite, loss_sem_seg=sem,
+         graphs=got_graphs, expected_graphs=want_graphs,
+         launches_by_design=counts["launches_by_design"],
+         expected_by_design=want, images=images, snapshots=snapshots,
+         losses_last=losses.get(CLI_ITERS),
+         note="seconds from the subprocess's start; the launches include "
+              "the 8 sample grids' (display_size 8 at 512²)")
+    check(sorted(losses) == list(range(1, CLI_ITERS + 1)),
+          f"config_HD CLI: logged steps {sorted(losses)}")
+    check(finite and sem and all(v > 0 for v in sem),
+          f"config_HD CLI: losses finite {finite}, loss_sem_seg {sem}")
+    check(got_graphs == want_graphs,
+          f"config_HD CLI: graphs {got_graphs}, want {want_graphs}")
+    check(counts["launches_by_design"] == want,
+          f"config_HD CLI: launches {counts['launches_by_design']}, want "
+          f"{want}")
+    check(snapshots == [10, 20], f"config_HD CLI: snapshots {snapshots}")
+    check("gen_a2b_test_00000020.jpg" in images,
+          f"config_HD CLI: images {images}")
+    return counts["launches_by_design"]
+
+
+def fused_losses_close(tr, batch, label):
+    """K > 1: the fused step captured (replayed) and eager from one state,
+    every loss within SIM_LOSS_RTOL relative: graph-replay fidelity, the
+    port against itself (K = 2's correctness rests on the CPU lockstep
+    with the JAX trainer)."""
+    from munit_tpu_torch.io import checkpoint
+    x_a, x_b, m_a, m_b = batch
+    state = checkpoint.to_host(tr.state_dict())
+    out = {}
+    for mode, capture in (("captured", True), ("eager", False)):
+        tr.load_state_dict(state)
+        tr._capture, tr.iterations = capture, 4
+        out[mode] = {k: float(v) for k, v in tr.dis_gen_update(
+            x_a, x_b, m_a, m_b).items() if k != "lr"}
+    tr._capture = True
+    errs = {k: abs(out["captured"][k] - w) / abs(w) if w else
+            abs(out["captured"][k]) for k, w in out["eager"].items()}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= SIM_LOSS_RTOL,
+          f"{label}: captured fused step against eager: {worst} "
+          f"{errs[worst]}")
+    return {"worst": worst, "rel_err": errs[worst], "tol": SIM_LOSS_RTOL}
+
+
+def accum_phase(MUNITTrainer, validate):
+    """15(c): grad_accum at full width, bf16, on tensors already on the
+    card: config_256 at batch 8 with K = 1, 2, 4 and config_HD at batch 8
+    (narrow) with K = 1, 2. Each: one eager cycle (4 dis steps, a fused
+    step) for its peak allocated; capture_warmup iterations (the eager
+    cache emptied after each, before any capture); ms per captured
+    iteration over rounds of bench.py's 15-iteration cycle, images/s as
+    bench.py counts them, the graphs' pool and what is live; at K = 2 the
+    captured fused step against the eager one from one state. The pool
+    must fall as K rises."""
+    from munit_tpu_torch.train.trainer import capture_warmup, train_steps
+    set_numerics("bf16")
+    out = {}
+    for name, base, size, ks in ACCUM_RUNS:
+        pools = []
+        for k in ks:
+            conf = validate(vanilla_raw(base, {"batch_size": ACCUM_BATCH,
+                                               "grad_accum": k}))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)   # adv_lambda
+                tr = new_trainer(MUNITTrainer, conf, "cuda")
+            check(tr.grad_accum == k, f"{name} K={k}: {tr.grad_accum}")
+            batch = numerics_inputs(train_inputs(ACCUM_BATCH, SEED + 151,
+                                                 size), "bf16")
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr._capture = False
+            t0 = time.perf_counter()
+            train_steps(tr, *batch, range(conf["ratio_disc_gen"]))
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            eager_peak = torch.cuda.max_memory_allocated() / 2**30
+            tr._capture = True
+            warm = capture_warmup(conf)
+            t0 = time.perf_counter()
+            for it in range(warm):
+                train_steps(tr, *batch, [it])
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            warm_s = time.perf_counter() - t0
+            graphs = len(tr._graphs)
+            timed = range(warm, warm + ACCUM_ITERS)
+            torch.cuda.reset_peak_memory_stats()
+            ms, rounds = host_ms(lambda: train_steps(tr, *batch, timed),
+                                 ACCUM_ROUNDS)
+            check(len(tr._graphs) == graphs,
+                  f"{name} K={k}: a step was captured on the clock")
+            pool = tr._graphs.pool_bytes() / 2**30
+            live = torch.cuda.memory_allocated() / 2**30
+            row = {"config": name, "batch": ACCUM_BATCH, "grad_accum": k,
+                   "crop": size, "wide": tr.wide, "numerics": "bf16",
+                   "ms_per_iteration": ms / ACCUM_ITERS,
+                   "rounds_ms": [r / ACCUM_ITERS for r in rounds],
+                   "images_per_s": ACCUM_BATCH * ACCUM_ITERS / (ms / 1e3),
+                   "peak_allocated_eager_gb": eager_peak,
+                   "peak_allocated_captured_gb":
+                       torch.cuda.max_memory_allocated() / 2**30,
+                   "graph_pool_gb": pool, "live_gb": live,
+                   "pool_plus_live_gb": pool + live, "graphs": graphs,
+                   "capture_seconds": {step_label(key): v for key, v in
+                                       tr._graphs.capture_seconds.items()},
+                   "eager_cycle_seconds": eager_s, "warmup_iterations": warm,
+                   "warmup_seconds": warm_s}
+            if k == 2:
+                row["captured_vs_eager"] = fused_losses_close(
+                    tr, batch, f"{name} K=2")
+            emit(phase="grad_accum", **row,
+                 note="host clock, each round of bench.py's cycle (12 dis, "
+                      "3 fused, 1 classifier_sr step) ending in a "
+                      "synchronise; images/s: batch x iterations / seconds "
+                      "(bench.py's count); peak_allocated_eager_gb: one "
+                      "eager cycle of 4 dis steps and a fused step; "
+                      "graph_pool_gb: what the graphs' one pool holds; "
+                      "live_gb: allocated after the rounds")
+            pools.append(pool)
+            out[(name, k)] = row
+            del tr, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(all(p > q for p, q in zip(pools, pools[1:])),
+              f"{name}: the graphs' pool {pools} GB does not fall with K "
+              f"{ks}")
+    return out
+
+
+def hd_phase(norms, get_config, validate, tmp: Path):
+    """Phase 15: config_HD and grad_accum (ROADMAP 13, 13b): the plans and
+    the norm kernels forward and backward at the HD shapes (15a: phases 2
+    and 6's checks and timings, every call on the grid design), config_HD
+    at batch 1 narrow and wide (timing, launches, card against CPU while
+    its train CLI runs), and grad_accum's memory and time at batch 8.
+    Returns the kernels' errors and times (forward, backward), the batch-1
+    runs and the CLI's launches by design."""
+    from munit_tpu_torch.train.trainer import MUNITTrainer, step_variants
+    t0 = time.perf_counter()
+    parity_mode(True)
+    plan_phase(norms, HD_SHAPES, HD_BATCHES, None, "hd_plan")
+    err, times = kernel_phase(norms, hd_cases(), SEED + 15, "hd_kernel")
+    bwd_err, bwd_times = backward_phase(norms, HD_BWD_CALLS, HD_BATCHES,
+                                        SEED + 16, "hd_backward_kernel")
+    runs = hd_time_phase(norms, MUNITTrainer, validate)
+    started = hd_cli_start(tmp)
+    hd_parity_phase(MUNITTrainer, validate)
+    cli = hd_cli_check(norms, get_config, step_variants, started, tmp)
+    accum_phase(MUNITTrainer, validate)
+    emit(phase="hd_seconds", seconds=time.perf_counter() - t0)
+    return {"err": err, "times": times, "bwd_err": bwd_err,
+            "bwd_times": bwd_times, "runs": runs, "cli": cli}
+
+
+def hd_alone() -> int:
+    """``python3 chip_smoke.py --hd``: the build and phase 15 alone, for
+    working on it; the kernel line and status line are the full run's."""
+    from munit_tpu_torch.config import get_config, validate
+    from munit_tpu_torch.kernels import build, norms
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        hd_phase(norms, get_config, validate, Path(tmp))
+    return 0
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3565,12 +4006,44 @@ PROBE_KERNELS = (
 )
 
 
+def hd_rows(name, hd):
+    """(calls, row) of a wrapper's (``name``, or its backward ``name_bwd``)
+    config_HD calls at batch 1, float32, from phase 15(a)'s times."""
+    base = name.removesuffix("_bwd")
+    if name.endswith("_bwd"):
+        return [(n, hd["bwd_times"][(base, *key, key[0])])
+                for key, n in HD_BWD_CALLS[base].items()]
+    return [(n, hd["times"][(base, 1, *hwc, "float32")])
+            for hwc, n in HD_CALLS[base].items()]
+
+
+def hd_fields(name, hd):
+    """A grid kernel's config_HD figures: the sums over ``hd_rows`` of
+    phase 15(a)'s times, its largest errors there, and its launches in
+    phase 15(b)'s batch-1 runs (both wides) and train CLI."""
+    errs = hd["bwd_err" if name.endswith("_bwd") else "err"]
+    base = name.removesuffix("_bwd")
+    rows = hd_rows(name, hd)
+    out = {f"{key}_hd": sum(n * r[key] for n, r in rows)
+           for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    out.update(max_abs_err_hd=errs[(base, "grid", "float32")],
+               max_abs_err_hd_bf16=errs[(base, "grid", "bfloat16")],
+               launches_hd=sum(r["launches"][name]["grid"]
+                               for r in hd["runs"].values())
+               + hd["cli"][name]["grid"],
+               launches_hd_fused_step={
+                   f"wide {w}": r["fused_launches"][name]["grid"]
+                   for w, r in hd["runs"].items()})
+    return out
+
+
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                  mom_err, mom_times, probe_launches, cli_launches,
-                 sim_launches, vanilla_launches):
+                 sim_launches, vanilla_launches, hd):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
-    backward, then the moments kernels of the probes."""
+    backward, then the moments kernels of the probes. The grid kernels
+    also carry their config_HD figures (``*_hd``, phase 15)."""
     def total(rows, key):
         return sum(n * row[key] for n, row in rows)
 
@@ -3596,14 +4069,32 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
             out["copy_ms"] = total(rows, "copy_ms")
         return out
 
+    def hd_only(name, replaces, also):
+        """The grid kernel of a wrapper that only config_HD's path runs
+        (AdaIN at 128², forward and backward): its figures are phase
+        15's."""
+        f = hd_fields(name, hd)
+        errs = hd["bwd_err" if name.endswith("_bwd") else "err"]
+        return entry(name, "grid", hd_rows(name, hd), errs, **f,
+                     replaces=replaces, also_replaces=also,
+                     launches=f["launches_hd"],
+                     per="config_HD's calls of this design at batch 1, "
+                         "float32: one translated image's (forward) or one "
+                         "narrow fused step's (backward) (phase 15a); "
+                         "launches: config_HD's batch-1 warm-ups (wide 0 "
+                         "and 1) and its train CLI (phase 15b)")
+
     kernels = []
     for name, calls in PATH_CALLS.items():
         rows = [(n, times[(name, 1, *hwc, "float32")])
                 for hwc, n in calls.items()]
+        if "grid" not in norms_designs(rows):
+            kernels.append(hd_only(name, *REPLACES[name]))
         for design in norms_designs(rows):
             mine = [(n, r) for n, r in rows if r["design"] == design]
+            extra = hd_fields(name, hd) if design == "grid" else {}
             kernels.append(entry(
-                name, design, mine, err,
+                name, design, mine, err, **extra,
                 replaces=REPLACES[name][0], also_replaces=REPLACES[name][1],
                 launches=launches[name][design],
                 launches_train=train_launches["tf32"][name][design],
@@ -3622,14 +4113,23 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "sample grids (phase 12), launches_sim2real: the train "
                     "CLI's 3 final_test runs of 20 iterations (phase 13), "
                     "launches_vanilla: its 2 vanilla runs of 20 iterations "
-                    "and 8 grids each (phase 14)"))
+                    "and 8 grids each (phase 14); *_hd: one HD translated "
+                    "image's calls at batch 1, float32 (phase 15a), "
+                    "launches_hd: config_HD's batch-1 warm-ups (wide 0 and "
+                    "1) and its train CLI (phase 15b), "
+                    "launches_hd_fused_step: one replayed fused step's"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
+        if "grid" not in norms_designs(rows):
+            kernels.append(hd_only(name + "_bwd", BWD_REPLACES[name],
+                                   BWD_ALSO))
         for design in norms_designs(rows):
             mine = [(n, r) for n, r in rows if r["design"] == design]
+            extra = (hd_fields(name + "_bwd", hd) if design == "grid"
+                     else {})
             kernels.append(entry(
-                name + "_bwd", design, mine, bwd_err,
+                name + "_bwd", design, mine, bwd_err, **extra,
                 replaces=BWD_REPLACES[name], also_replaces=BWD_ALSO,
                 launches=train_launches["tf32"][name + "_bwd"][design],
                 launches_bf16=train_launches["bf16"][name + "_bwd"][design],
@@ -3642,7 +4142,10 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "iterations at batch 1 with TF32 (in bf16; phase 8), "
                     "launches_cli: the train CLI's 20 iterations (phase "
                     "12), launches_sim2real: its 3 final_test runs (phase "
-                    "13), launches_vanilla: its 2 vanilla runs (phase 14)"))
+                    "13), launches_vanilla: its 2 vanilla runs (phase 14); "
+                    "*_hd: one narrow config_HD fused step's backward calls "
+                    "at batch 1, float32 (phase 15a), launches_hd and "
+                    "launches_hd_fused_step as the forward's"))
     for row, name, probe, dname, replaces in PROBE_KERNELS:
         t = mom_times[(name, PROBE_SHAPES[0], dname)]
         kernels.append({
@@ -3702,6 +4205,8 @@ def main() -> int:
         return sim2real_alone()
     if sys.argv[1:] == ["--vanilla"]:
         return vanilla_alone()
+    if sys.argv[1:] == ["--hd"]:
+        return hd_alone()
     # a checkout of the repo: the port and its sources must be here
     from munit_tpu_torch.cli import translate
     from munit_tpu_torch.config import get_config, validate
@@ -3782,11 +4287,12 @@ def main() -> int:
                                       Path(tmp))
         vanilla_launches = vanilla_phase(norms, get_config, validate, data,
                                          Path(tmp))
+        hd = hd_phase(norms, get_config, validate, Path(tmp))
 
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
         mom_times, probe_launches, cli_launches, sim_launches,
-        vanilla_launches)}), flush=True)
+        vanilla_launches, hd)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

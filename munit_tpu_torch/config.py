@@ -25,7 +25,16 @@ _DEFAULTS: Dict[str, Any] = {
     "log_iter": 1,
     "max_iter": 1000000,
     "batch_size": 1,
+    # K > 1: each step's gradients are the mean over K sequential
+    # micro-batches of batch_size / K (munit_tpu/config.py:30-42)
     "grad_accum": 1,
+    # with grad_accum > 1: 1 = one forward a micro-batch serves both of the
+    # fused step's gradients, its adversarial terms against the D before
+    # the update; 0 = the exact two-phase step
+    "accum_shared_fwd": 0,
+    # with grad_accum > 1: 1 = chunk the discriminator's gradients too
+    # (exact either way)
+    "accum_chunk_dis": 0,
     "weight_decay": 0.0001,
     "beta1": 0.5,
     "beta2": 0.999,

@@ -4,7 +4,10 @@ NHWC tensors.
 Counterpart of ``munit_tpu/nn/classifiers.py::DomainClassifier`` (reference
 utils.py:1370-1392, 1220-1276): content code (B, H, W, 256) → MaxPool(2) →
 BasicBlock(256→128) → MaxPool(2) → BasicBlock(128→64) → AvgPool(16, the
-window clamped to the map) → FC(64→1), a scalar logit per sample.
+window clamped to the map) → FC(64 P→1), a scalar logit per sample. P is
+the pooled map's pixels: 1 up to 64x64 content codes (crops of 256), 4 at
+config_HD's 128x128 (crop 512), where the JAX package sizes its FC from
+the content it is built on.
 
 Its BatchNorm runs in train mode, as flax's ``nn.BatchNorm(momentum=0.9)``
 does and not as ``nn.BatchNorm2d``'s defaults: the output uses the batch's
@@ -93,14 +96,23 @@ class BasicBlock(nn.Module):
         return torch.relu(out + identity)
 
 
-class DomainClassifier(nn.Module):
-    """Scalar domain logit (B, 1) from a content code (B, H, W, C)."""
+def pooled_size(n: int) -> int:
+    """A content side of n after the two MaxPool(2) and the clamped
+    AvgPool(16)."""
+    m = n // 2 // 2
+    return m // min(16, m)
 
-    def __init__(self, in_dim: int = 256):
+
+class DomainClassifier(nn.Module):
+    """Scalar domain logit (B, 1) from a content code (B, H, W, C) of
+    ``content_hw`` (H, W)."""
+
+    def __init__(self, in_dim: int = 256, content_hw=(64, 64)):
         super().__init__()
         self.BasicBlock1 = BasicBlock(in_dim, 128)
         self.BasicBlock2 = BasicBlock(128, 64)
-        self.fc = nn.Linear(64, 1)
+        h, w = content_hw
+        self.fc = nn.Linear(64 * pooled_size(h) * pooled_size(w), 1)
 
     def forward(self, x: torch.Tensor,
                 update_stats: bool = False) -> torch.Tensor:

@@ -2,13 +2,15 @@
 for either generator (``gen_state: 1``, the fork's dual generator, or
 ``gen_state: 0``, upstream MUNIT's two auto-encoders), guided or random
 styles (``guided``), with or without the VGG perceptual loss (``vgg_w``),
-and ``grad_accum: 1``.
+narrow or wide forwards (``wide``) and gradient accumulation
+(``grad_accum``).
 
 - ``dis_update``      ≙ ``_dis_step_impl`` (trainer.py:690-732)
 - ``gen_update``      ≙ ``_gen_step_impl`` (:1072-1115)
 - ``dis_gen_update``  ≙ the fused ``_dis_gen_step_impl`` (:814-883): one
   generator forward; D is updated first against the detached fakes, then
-  the generator's losses are taken against the updated D
+  the generator's losses are taken against the updated D; at
+  ``grad_accum > 1`` ``_dis_gen_step_accum`` (:885-1023)
 - ``domain_classifier_update`` ≙ ``_dann_step_impl`` (:1258-1281), the
   A/B content-domain classifier (DANN)
 - ``domain_classifier_sr_update`` ≙ ``_classifier_sr_step_impl`` (:1283-1312)
@@ -35,19 +37,53 @@ the output-level term (``output_adv_lambda``) beside the feature-level
 fool term, each classifier in train-mode batch norm whose statistics are
 discarded.
 
-With the dual generator every forward makes the JAX trainer's ``wide: 1``
-calls (its default at 256 px): one style encode of both domains, the two
-content encoders as a pair, and one decode per domain over [recon | cross].
-``gen_state: 0`` forces the JAX trainer to ``wide: 0`` (trainer.py:
-267-268), and the port makes its narrow calls too: each domain's encoders
-on its own batch, and a decode per translation. With ``semantic_w >
-0`` the frozen ResNet34-8s segments [x_a | x_b] once per gen step, outside
-the differentiated part, for its pseudo-label targets (trainer.py:736-752,
-841-843), and [x_ab | x_ba] once inside it for the semantic loss
-(:771-782, 1199-1202); its gradient reaches the translations only.
-Gradients are taken with ``torch.autograd.grad`` with respect to named
-parameter lists, so D collects no generator gradient and no stale ``.grad``
-is left; the optimizers update the parameters in place.
+``wide`` follows the JAX trainer (trainer.py:258-268): ``MUNIT_WIDE`` over
+the config's ``wide`` over 0 at crops of 512 and more (config_HD) and 1
+below; 0 with ``gen_state: 0``. Wide (1) forwards make JAX's ``wide: 1``
+calls: one style encode of both domains, the two content encoders as a
+pair, one decode per domain over [recon | cross]. Narrow (0) forwards
+make its ``wide: 0`` calls (:458-466, :512-529): each domain's encoders on
+its own batch and a decode per translation. D runs over [fake | real] and
+the frozen segmenter over both image sets at once either way, where JAX's
+narrow path (:744-751, :774-782) makes a call each: the math per sample is
+the same, and one call is faster on the card.
+``wide: 2`` (the domains stacked as grouped convs) is refused. With
+``semantic_w > 0`` the frozen ResNet34-8s segments the real images once
+per gen step, outside the differentiated part, for its pseudo-label
+targets (trainer.py:736-752, 841-843), and the translations inside it for
+the semantic loss (:771-782, 1199-1202); its gradient reaches the
+translations only. Gradients are taken with
+``torch.autograd.grad`` with respect to named parameter lists, so D
+collects no generator gradient and no stale ``.grad`` is left; the
+optimizers update the parameters in place.
+
+Gradient accumulation (``grad_accum: K`` or ``MUNIT_GRAD_ACCUM``; docs/
+PARITY.md #12 and #12b; trainer.py:275-331, 638-686, 885-1023). A chunked
+step splits the leading dim of every input (images, masks, ground truth,
+random styles drawn for the whole batch first) into K equal micro-batches,
+runs its body on each in turn, sums their gradients and metrics from zero
+and multiplies by 1/K. Only one micro-batch's autograd residuals are live
+at a time: each chunk's forward is dropped before the next starts. The
+contract:
+
+- Exact for every full-count-mean loss term, which is every shipped term
+  but those of a train-mode batch-norm classifier: with ``adaptation.
+  adv_lambda > 0`` or ``domain_adv_w > 0`` each micro-batch's classifier
+  normalises with its own chunk's statistics, so those gradients differ
+  from K = 1 (the trainer warns, as JAX's does). Pseudo-labels are taken
+  per chunk: the frozen segmenter is per sample, so they equal the
+  full-batch targets.
+- The gen step chunks; the dis step chunks only with ``accum_chunk_dis``
+  (its loss is a full-count mean and its forward keeps no residuals).
+- The fused step, by default exact (≙ the dis step then the gen step):
+  phase A takes D's gradients over one no-grad cross decode of the whole
+  batch (chunked with ``accum_chunk_dis``), D steps, then phase B takes
+  the generator's gradients over K chunked forwards against the updated D,
+  and the generator steps. It costs one inference forward more than K = 1.
+- ``accum_shared_fwd: 1`` (``MUNIT_ACCUM_SHARED_FWD=1``): one forward a
+  micro-batch serves both D's and the generator's gradients, its
+  adversarial terms taken against D before its update (PARITY #12b); both
+  updates follow the loop.
 
 Random styles (``guided: 0``): the dis, gen and fused steps draw N(0, I)
 styles of shape (B, style_dim) in the images' type, in the JAX trainer's
@@ -73,16 +109,21 @@ trainer's jitted ``_*_step_impl`` are: the host reads the lr and the
 ExtraAdam phase, writes the lr and each optimizer's bias correction into
 device scalars, runs the body, then advances the optimizers' counts and
 anchor flags. The body reads no Python value that changes between
-iterations. On a CUDA device the bodies run as CUDA graphs, captured once
-per key and replayed (``train/graphs.py``); on the CPU they run eagerly.
+iterations: K and the two accumulation switches are fixed per trainer. On
+a CUDA device the bodies run as CUDA graphs, captured once per key and
+replayed (``train/graphs.py``); on the CPU they run eagerly.
 ``dis_gen_grads`` and ``sample`` always run eagerly.
 
-Not ported yet, and refused: ``grad_accum > 1`` (ROADMAP.md).
+``check_ported`` reads the JAX trainer's switches and refuses, naming its
+ROADMAP item, each that this port lacks.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import os
+import warnings
 from collections import Counter
 from typing import Dict, List, Tuple
 
@@ -125,11 +166,62 @@ def merge_class_matrix() -> np.ndarray:
     return m
 
 
+def _switch(env: str, conf: Dict, key: str, default) -> bool:
+    """A JAX trainer on/off switch: the environment over the config key
+    over the default, on only as "1" (trainer.py:272, 308-321)."""
+    return os.environ.get(env, str(conf.get(key, default))) in ("1", 1, True)
+
+
+def grad_accum_of(conf: Dict) -> int:
+    """K: ``MUNIT_GRAD_ACCUM`` over ``grad_accum``, checked with the JAX
+    trainer's messages (trainer.py:288-298): the environment bypasses the
+    config's validation."""
+    k = int(os.environ.get("MUNIT_GRAD_ACCUM",
+                           str(conf.get("grad_accum", 1))))
+    if k < 1:
+        raise ValueError(f"grad_accum must be a positive int, got {k!r}")
+    if conf["batch_size"] % k:
+        raise ValueError(
+            f"batch_size ({conf['batch_size']}) must be divisible by "
+            f"grad_accum ({k})")
+    return k
+
+
+def wide_of(conf: Dict) -> int:
+    """``MUNIT_WIDE`` over ``wide`` over 0 at crops of 512 and more, else
+    1; 0 with ``gen_state: 0`` (trainer.py:258-268)."""
+    default = 0 if conf.get("crop_image_height", 256) >= 512 else 1
+    wide = int(os.environ.get("MUNIT_WIDE", str(conf.get("wide", default))))
+    return wide if conf["gen_state"] == 1 else 0
+
+
+# the JAX train CLI's remat values that turn it on (cli/train.py:234-239)
+_REMAT_ON = ("pads", "hd", "true", "full", "1")
+
+
 def check_ported(conf: Dict) -> None:
-    """Raise NotImplementedError for what the port lacks."""
-    if conf["grad_accum"] != 1:
+    """Raise NotImplementedError, naming its ROADMAP item, for a switch of
+    the JAX trainer or its CLI that is set to what this port lacks."""
+    if not _switch("MUNIT_FUSED", conf, "fused", 1):
         raise NotImplementedError(
-            "grad_accum > 1 is not ported; ROADMAP queue 1 item 13")
+            "MUNIT_FUSED=0 (separate dis and gen steps on gen iterations) is "
+            "not ported; ROADMAP queue 1 item 21")
+    if os.environ.get("MUNIT_INT8_DIS", "0") == "1":
+        raise NotImplementedError(
+            "MUNIT_INT8_DIS=1 (int8 discriminator fakes) is not ported; "
+            "ROADMAP queue 1 item 17")
+    if str(conf.get("remat", "")).lower() in _REMAT_ON:
+        raise NotImplementedError(
+            f"remat: {conf['remat']} (rematerialisation) is not ported; "
+            "ROADMAP queue 1 item 13c")
+    if os.environ.get("MUNIT_SEG_REMAT", "0") == "1":
+        raise NotImplementedError(
+            "MUNIT_SEG_REMAT=1 (the segmenter rematerialised) is not "
+            "ported; ROADMAP queue 1 item 13c")
+    if wide_of(conf) >= 2:
+        raise NotImplementedError(
+            "wide: 2 / MUNIT_WIDE=2 (the two domains stacked as grouped "
+            "convs) is not ported; ROADMAP queue 1 item 13b")
 
 
 def _named(module: torch.nn.Module) -> Tensors:
@@ -161,9 +253,21 @@ class MUNITTrainer:
         self.train_seg = ad["sem_seg_lambda"] > 0
         self.guided = conf["guided"] == 1
         self.style_dim = conf["gen"]["style_dim"]
-        # the JAX trainer's wide: 1 for the dual generator, wide: 0 for
-        # gen_state 0 (trainer.py:267-268)
-        self.wide = conf["gen_state"] == 1
+        self.wide = wide_of(conf)
+        self.grad_accum = grad_accum_of(conf)
+        self.accum_shared_fwd = _switch("MUNIT_ACCUM_SHARED_FWD", conf,
+                                        "accum_shared_fwd", 0)
+        self.accum_chunk_dis = _switch("MUNIT_ACCUM_CHUNK_DIS", conf,
+                                       "accum_chunk_dis", 0)
+        if self.grad_accum > 1 and (ad["adv_lambda"] > 0
+                                    or conf["domain_adv_w"] > 0):
+            warnings.warn(
+                "grad_accum > 1 with a train-mode BatchNorm classifier "
+                "loss (adaptation.adv_lambda > 0 or domain_adv_w > 0): "
+                "each micro-batch normalizes with its own chunk "
+                "statistics, so these gradients deviate from "
+                "grad_accum=1 (all other shipped terms stay exact). "
+                "See docs/PARITY.md.", stacklevel=2)
         self.lr_schedule = schedule_from_config(conf)
         self.iterations = 0
         self.hw = {k: float(conf[k]) for k in
@@ -178,11 +282,13 @@ class MUNITTrainer:
         self.dis_b = discriminator.build(conf, device)
         g = conf["gen"]
         content_dim = g["dim"] * 2 ** g["n_downsample"]
+        content_hw = tuple(conf[k] // 2 ** g["n_downsample"] for k in
+                           ("crop_image_height", "crop_image_width"))
         # the fool term needs the classifiers too (trainer.py:1217-1223)
         self.classifier_sr_a = self.classifier_sr_b = None
         if self.use_classifier_sr or self.hw["adv_lambda"] > 0:
             self.classifier_sr_a, self.classifier_sr_b = (
-                classifiers.DomainClassifier(content_dim).to(
+                classifiers.DomainClassifier(content_dim, content_hw).to(
                     device=device, memory_format=torch.channels_last)
                 for _ in range(2))
         # frozen: seeded by init() or loaded by load_segmenter()
@@ -204,7 +310,8 @@ class MUNITTrainer:
 
         def on_device(net):
             return net.to(device=device, memory_format=torch.channels_last)
-        self.dann = (on_device(classifiers.DomainClassifier(content_dim))
+        self.dann = (on_device(classifiers.DomainClassifier(content_dim,
+                                                            content_hw))
                      if self.domain_adv_w else None)
         # the gen term needs the output classifiers too (trainer.py:
         # 1227-1233)
@@ -446,8 +553,10 @@ class MUNITTrainer:
         return self.segmenter(seg_preprocess(img))
 
     def _semantic_targets(self, x_a, x_b):
-        """Pseudo-labels of the real images (trainer.py:736-752, wide 1):
-        one pass over [x_a | x_b], outside any gradient."""
+        """Pseudo-labels of the real images (trainer.py:736-752): one pass
+        over [x_a | x_b] whatever ``wide``, outside any gradient (the
+        frozen segmenter in eval mode gives each sample the same logits as
+        JAX's narrow passes, one per image set)."""
         if not self.semantic_w:
             return None
         with torch.no_grad():
@@ -469,9 +578,10 @@ class MUNITTrainer:
 
     def _semantic_loss_pair(self, x_ab, x_ba, targets, mask_a, mask_b,
                             has_gt=False):
-        """Both translations through one segmenter pass, held against the
-        targets of their sources: x_ab against (t_a, mask_a), x_ba against
-        (t_b, mask_b) (trainer.py:771-782, 1199-1202)."""
+        """Both translations through one segmenter pass whatever ``wide``,
+        as ``_semantic_targets``, held against the targets of their
+        sources: x_ab against (t_a, mask_a), x_ba against (t_b, mask_b)
+        (trainer.py:771-782, 1199-1202)."""
         bsz = x_ab.shape[0]
         logits = self._segment(torch.cat([x_ab, x_ba]))
         t_a, t_b = targets
@@ -493,7 +603,9 @@ class MUNITTrainer:
         return [o[:bsz] for o in outs], [o[bsz:] for o in outs]
 
     def _dis_loss(self, x_ba, x_ab, x_a, x_b):
-        """calc_dis_loss of both discriminators (trainer.py:784-812)."""
+        """calc_dis_loss of both discriminators (trainer.py:784-812), each
+        over [fake | real] whatever ``wide``: the JAX trainer's narrow path
+        applies D to each apart, the same math per sample."""
         fa, ra = self._dis_apply_fr(self.dis_a, x_ba, x_a)
         fb, rb = self._dis_apply_fr(self.dis_b, x_ab, x_b)
         la = losses.dis_gan_loss(fa, ra, self.gan_type)
@@ -608,6 +720,35 @@ class MUNITTrainer:
         gs = torch.autograd.grad(loss, [params[k] for k in names])
         return dict(zip(names, gs))
 
+    def _accum(self, chunk_fn, inputs, chunked=True) -> Tuple[Tensors,
+                                                              Tensors]:
+        """``chunk_fn(*inputs) -> (grads, metrics)``, or with K > 1 and
+        ``chunked`` its mean over K equal slices of every input's leading
+        dim (None stays None), run one after another: the sums start from
+        zero and are multiplied by 1/K, as ``_accum_grads`` does
+        (trainer.py:638-686). A chunk's forward is dropped before the next
+        one runs."""
+        k = self.grad_accum
+        if k == 1 or not chunked:
+            return chunk_fn(*inputs)
+        bsz = next(t for t in inputs if t is not None).shape[0]
+        if bsz % k:
+            raise ValueError(f"batch {bsz} not divisible by grad_accum {k}")
+        parts = [(None,) * k if t is None else t.chunk(k) for t in inputs]
+        sums = None
+        for i in range(k):
+            out = chunk_fn(*(p[i] for p in parts))
+            if sums is None:
+                sums = tuple({n: torch.zeros_like(v) for n, v in d.items()}
+                             for d in out)
+            for acc, d in zip(sums, out):
+                torch._foreach_add_(list(acc.values()),
+                                    [v.detach() for v in d.values()])
+            del out
+        for acc in sums:
+            torch._foreach_mul_(list(acc.values()), 1.0 / k)
+        return sums
+
     # ---------------------------------------------------------- optimizer
 
     def _phase(self) -> bool:
@@ -686,12 +827,17 @@ class MUNITTrainer:
                           (x_a, x_b, *self._styles(styles, 2, x_a)),
                           ("dis",), lr_metric=True)
 
-    def _dis_body(self, extrapolate, x_a, x_b, *styles) -> Tensors:
+    def _dis_chunk(self, x_a, x_b, *styles):
+        """D's gradients and metrics on detached cross decodes."""
         with torch.no_grad():
             x_ba, x_ab = self._cross_decode(x_a, x_b, styles)
-        params = self.dis_params()
         total, m = self._dis_loss(x_ba, x_ab, x_a, x_b)
-        self._update(self._grads(total, params), "dis", params, extrapolate)
+        return self._grads(total, self.dis_params()), m
+
+    def _dis_body(self, extrapolate, x_a, x_b, *styles) -> Tensors:
+        grads, m = self._accum(self._dis_chunk, (x_a, x_b, *styles),
+                               self.accum_chunk_dis)
+        self._update(grads, "dis", self.dis_params(), extrapolate)
         return m
 
     def _gen_inputs(self, x_a, x_b, mask_a, mask_b, synth, sem_gt_a,
@@ -709,13 +855,13 @@ class MUNITTrainer:
         tensors += self._styles(styles, n_styles, x_a)
         return tensors, (bool(synth), has_gt)
 
-    @staticmethod
-    def _split_gen_inputs(has_gt, rest):
-        """(sem_gt_a, sem_gt_b, styles) of a gen or fused body's inputs
-        after the masks."""
+    def _split_gen_inputs(self, has_gt, x_a, mask_a, mask_b, rest):
+        """(mask_a, mask_b, sem_gt_a, sem_gt_b, styles) of a gen or fused
+        body's inputs after the images: zero masks for those not given."""
+        mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
         if has_gt:
-            return rest[0], rest[1], rest[2:]
-        return None, None, rest
+            return mask_a, mask_b, rest[0], rest[1], rest[2:]
+        return mask_a, mask_b, None, None, rest
 
     def gen_update(self, x_a, x_b, mask_a=None, mask_b=None, synth=False,
                    sem_gt_a=None, sem_gt_b=None, styles=None) -> Tensors:
@@ -726,15 +872,22 @@ class MUNITTrainer:
         return self._step("gen", self._gen_body, tensors, ("gen",),
                           static=static)
 
-    def _gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a, mask_b,
-                  *rest) -> Tensors:
-        sem_gt_a, sem_gt_b, styles = self._split_gen_inputs(has_gt, rest)
-        mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+    def _gen_chunk(self, synth, has_gt, x_a, x_b, mask_a, mask_b, sem_gt_a,
+                   sem_gt_b, *styles):
+        """The generator's gradients and metrics against the current D."""
         targets = self._targets(x_a, x_b, sem_gt_a, sem_gt_b)
-        params = self.gen_params()
         total, m = self._gen_loss(self._gen_forward(x_a, x_b, styles), x_a,
                                   x_b, mask_a, mask_b, targets, synth, has_gt)
-        self._update(self._grads(total, params), "gen", params, extrapolate)
+        return self._grads(total, self.gen_params()), m
+
+    def _gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a, mask_b,
+                  *rest) -> Tensors:
+        mask_a, mask_b, sem_gt_a, sem_gt_b, styles = self._split_gen_inputs(
+            has_gt, x_a, mask_a, mask_b, rest)
+        grads, m = self._accum(
+            functools.partial(self._gen_chunk, synth, has_gt),
+            (x_a, x_b, mask_a, mask_b, sem_gt_a, sem_gt_b, *styles))
+        self._update(grads, "gen", self.gen_params(), extrapolate)
         return m
 
     def dis_gen_update(self, x_a, x_b, mask_a=None, mask_b=None,
@@ -742,9 +895,10 @@ class MUNITTrainer:
                        styles=None) -> Tensors:
         """The fused dis + gen step: one generator forward; D steps first on
         its detached cross decodes, then the generator's losses are taken
-        against the updated D. With guided 0, D's fakes are decodes of
-        their own with the dis styles, and ``styles`` is (dis s_a, dis s_b,
-        gen s_a, gen s_b), drawn when None."""
+        against the updated D (at K > 1 the module docstring's variants).
+        With guided 0, D's fakes are decodes of their own with the dis
+        styles, and ``styles`` is (dis s_a, dis s_b, gen s_a, gen s_b),
+        drawn when None."""
         tensors, static = self._gen_inputs(x_a, x_b, mask_a, mask_b, synth,
                                            sem_gt_a, sem_gt_b, styles, 4)
         return self._step("dis_gen", self._dis_gen_body, tensors,
@@ -761,18 +915,54 @@ class MUNITTrainer:
             return (self.gen.decode(fw["c_b"], s_a, 1),
                     self.gen.decode(fw["c_a"], s_b, 2))
 
-    def _dis_gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a,
-                      mask_b, *rest) -> Tensors:
-        sem_gt_a, sem_gt_b, styles = self._split_gen_inputs(has_gt, rest)
-        mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
+    def _shared_chunk(self, synth, has_gt, x_a, x_b, mask_a, mask_b,
+                      sem_gt_a, sem_gt_b, *styles):
+        """One forward serving D's gradients and the generator's, both
+        against the current D: {"dis": ..., "gen": ...} and the metrics."""
         targets = self._targets(x_a, x_b, sem_gt_a, sem_gt_b)
         fw = self._gen_forward(x_a, x_b, styles[2:])
-        dis_params = self.dis_params()
+        total_d, m_dis = self._dis_loss(*self._dis_fakes(fw, styles[:2]),
+                                        x_a, x_b)
+        grads = {f"dis/{k}": g for k, g in self._grads(
+            total_d, self.dis_params()).items()}
+        total_g, m_gen = self._gen_loss(fw, x_a, x_b, mask_a, mask_b,
+                                        targets, synth, has_gt)
+        grads.update((f"gen/{k}", g) for k, g in self._grads(
+            total_g, self.gen_params()).items())
+        return grads, {**m_dis, **m_gen}
+
+    def _dis_gen_body(self, extrapolate, synth, has_gt, x_a, x_b, mask_a,
+                      mask_b, *rest) -> Tensors:
+        mask_a, mask_b, sem_gt_a, sem_gt_b, styles = self._split_gen_inputs(
+            has_gt, x_a, mask_a, mask_b, rest)
+        dis_params, gen_params = self.dis_params(), self.gen_params()
+        if self.grad_accum > 1 and self.accum_shared_fwd:
+            grads, m = self._accum(
+                functools.partial(self._shared_chunk, synth, has_gt),
+                (x_a, x_b, mask_a, mask_b, sem_gt_a, sem_gt_b, *styles))
+            for name, params in (("dis", dis_params), ("gen", gen_params)):
+                self._update({k: grads[f"{name}/{k}"] for k in params}, name,
+                             params, extrapolate)
+            return m
+        if self.grad_accum > 1:
+            # phase A: D's gradients over a no-grad cross decode, D steps;
+            # phase B: the generator's, chunked, against the updated D
+            grads_d, m_dis = self._accum(self._dis_chunk,
+                                         (x_a, x_b, *styles[:2]),
+                                         self.accum_chunk_dis)
+            self._update(grads_d, "dis", dis_params, extrapolate)
+            del grads_d
+            grads_g, m_gen = self._accum(
+                functools.partial(self._gen_chunk, synth, has_gt),
+                (x_a, x_b, mask_a, mask_b, sem_gt_a, sem_gt_b, *styles[2:]))
+            self._update(grads_g, "gen", gen_params, extrapolate)
+            return {**m_dis, **m_gen}
+        targets = self._targets(x_a, x_b, sem_gt_a, sem_gt_b)
+        fw = self._gen_forward(x_a, x_b, styles[2:])
         total_d, m_dis = self._dis_loss(*self._dis_fakes(fw, styles[:2]),
                                         x_a, x_b)
         self._update(self._grads(total_d, dis_params), "dis", dis_params,
                      extrapolate)
-        gen_params = self.gen_params()
         total_g, m_gen = self._gen_loss(fw, x_a, x_b, mask_a, mask_b,
                                         targets, synth, has_gt)
         self._update(self._grads(total_g, gen_params), "gen", gen_params,

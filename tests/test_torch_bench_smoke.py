@@ -52,6 +52,19 @@ def test_bench_torch_smoke(bench, capsys, numerics):
     assert rec["vs_baseline"] == pytest.approx(rec["value"] / 20.0, abs=6e-4)
 
 
+def test_bench_torch_grad_accum_from_the_environment(bench, capsys,
+                                                     monkeypatch):
+    """MUNIT_GRAD_ACCUM=2 reaches the trainer as bench.py's reaches the JAX
+    trainer: the batch of 2 runs as two micro-batches, with the warning of
+    the classifier term's chunk statistics."""
+    monkeypatch.setenv("MUNIT_GRAD_ACCUM", "2")
+    with pytest.warns(UserWarning, match="chunk statistics"):
+        bench(BENCH_DEVICE="cpu", BENCH_BATCH="2").main()
+    out = capsys.readouterr()
+    assert "batch 2, crop 64" in out.err and "grad_accum 2" in out.err
+    assert json.loads(out.out.strip().splitlines()[-1])["value"] > 0
+
+
 def test_bench_torch_needs_a_card_by_default(bench, monkeypatch, capsys):
     monkeypatch.delenv("BENCH_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -327,6 +327,60 @@ def test_vanilla_cadence_keys_warmup_and_draws_through_the_graphs():
     _assert_same(_leaves(captured), _leaves(eager))
 
 
+# bench.py's cadence at batch 4 with gradient accumulation (K = 2): a
+# fused and a classifier_sr step every 2nd iteration
+ACCUM = dict(optimizer="extra_adam", ratio_disc_gen=2, batch_size=4,
+             adaptation={"adv_lambda": 6, "dfeat_lambda": 1,
+                         "classif_frequency": 2})
+
+
+def _accum_trainer(**over):
+    with pytest.warns(UserWarning, match="chunk statistics"):
+        return _trainer(**{**ACCUM, "grad_accum": 2, **over})
+
+
+def _batch4():
+    return [torch.from_numpy(a) for a in train_batch(3, 4)]
+
+
+def test_grad_accum_cadence_asks_for_the_keys_of_k1():
+    """K and the two accumulation switches are fixed per trainer, so a
+    K = 2 trainer's steps ask for the keys that the same cadence (bench.py's,
+    at batch 4) asks for at K = 1, one graph each: 30 iterations, 6 keys
+    (dis, fused and classifier_sr in both ExtraAdam phases), and
+    ``capture_warmup`` the same."""
+    cadence = dict(BENCH_CADENCE, batch_size=4)
+    k1 = _trainer(**cadence)
+    rec1 = _recording(k1)
+    k2 = _accum_trainer(accum_shared_fwd=1, **cadence)
+    rec2 = _recording(k2)
+    batch = _batch4()
+    for tr in (k1, k2):
+        train_steps(tr, *batch, range(30))
+    assert rec2.keys == rec1.keys and len(set(rec2.keys)) == 6
+    assert capture_warmup(k2.conf) == capture_warmup(k1.conf)
+
+
+@pytest.mark.parametrize("switches", [{}, {"accum_shared_fwd": 1},
+                                      {"accum_chunk_dis": 1}],
+                         ids=["exact", "shared_fwd", "chunk_dis"])
+def test_grad_accum_steps_through_the_graphs_equal_eager_bitwise(switches):
+    """6 iterations at K = 2 (each of the fused step's variants) through
+    the captured path equal the eager steps bit for bit, in every metric
+    and state leaf: the K chunks run inside the captured body."""
+    eager = _accum_trainer(**switches)
+    eager._capture = False
+    captured = _accum_trainer(**switches)
+    steps = _through_graphs(captured)
+    batch = _batch4()
+    want = train_steps(eager, *batch, range(6))
+    got = train_steps(captured, *batch, range(6))
+    assert len(steps) == len(set(step_variants(captured.conf, range(6))))
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    _assert_same(_leaves(captured), _leaves(eager))
+
+
 def test_the_replay_reads_the_lr_scalar():
     """After its capture, a replay with twice the lr (and nothing else
     changed: the same key, no new capture) moves the discriminators twice

@@ -271,6 +271,94 @@ def _sign_flips(calls32, calls64, modules):
     return out
 
 
+class _JaxReluInputs:
+    """Records, while inside, the input of every ReLU and LeakyReLU that
+    the JAX package's blocks apply: the activations (``blocks._act``) and
+    the pre-activations of the IN and AdaIN calls that fuse a ReLU, through
+    ordered debug callbacks, so a jitted step reports them each time it
+    runs. Its stem's packed IN (``ops.packed_instance_norm``) is not
+    seen. A trainer must be built and traced inside."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _tap(self, x):
+        jax.debug.callback(
+            lambda v: self.calls.append(np.asarray(v, np.float64).copy()),
+            x, ordered=True)
+
+    def __enter__(self):
+        from munit_tpu.kernels import norms as jnorms
+        from munit_tpu.nn import blocks as jblocks
+        self._saved = (jnorms, jnorms.maybe_instance_norm, jnorms.maybe_adain,
+                       jblocks, jblocks._act)
+        inorm, adain, act = self._saved[1], self._saved[2], self._saved[4]
+
+        def maybe_instance_norm(x, relu=False):
+            if relu:
+                self._tap(inorm(x, False))
+            return inorm(x, relu)
+
+        def maybe_adain(x, g, b, relu=False):
+            if relu:
+                self._tap(adain(x, g, b, False))
+            return adain(x, g, b, relu)
+
+        def _act(module, name, x):
+            if name in ("relu", "lrelu"):
+                self._tap(x)
+            return act(module, name, x)
+        jnorms.maybe_instance_norm = maybe_instance_norm
+        jnorms.maybe_adain = maybe_adain
+        jblocks._act = _act
+        return self
+
+    def __exit__(self, *exc):
+        jnorms, inorm, adain, jblocks, act = self._saved
+        jnorms.maybe_instance_norm, jnorms.maybe_adain = inorm, adain
+        jblocks._act = act
+
+
+def _matched_flips(jcalls, calls32, calls64, modules):
+    """Each port float64 activation input matched to the JAX call of its
+    shape nearest to it (within 1e-4 of its largest |x|, each JAX call
+    used once); the sign flips against float64 of the port's float32 and
+    of JAX's float32 on the matched calls: (matched, port flips, JAX
+    flips), each flip as ``_sign_flips`` gives it."""
+    used, port, ref = set(), [], []
+    for i, (a32, a64) in enumerate(zip(calls32, calls64)):
+        a32, a64 = a32.numpy(), a64.numpy()
+        near = [(np.abs(x - a64).max(), j) for j, x in enumerate(jcalls)
+                if j not in used and x.shape == a64.shape]
+        if not near or min(near)[0] > 1e-4 * np.abs(a64).max():
+            continue
+        j = min(near)[1]
+        used.add(j)
+        for out, x in ((port, a32), (ref, jcalls[j])):
+            d = (x > 0) != (a64 > 0)
+            if d.any():
+                out.append({"call": i, "module": modules[i],
+                            "shape": list(a64.shape), "flips": int(d.sum()),
+                            "at": float(np.abs(a64[d]).max()
+                                        / np.abs(a64).max())})
+    return len(used), port, ref
+
+
+def exact_convs():
+    """Every float32 convolution of the port computed in float64 and
+    rounded to float32 (the readings' ``--exact-conv``)."""
+    from munit_tpu_torch.core import ops
+    conv = ops.conv2d
+
+    def conv2d(x, weight, bias=None, *args, **kw):
+        if x.dtype != torch.float32:
+            return conv(x, weight, bias, *args, **kw)
+        return conv(x.double(), weight.double(),
+                    None if bias is None else bias.double(), *args,
+                    **kw).float()
+    ops.conv2d = conv2d
+
+
 def op_accuracy(seed=0):
     """Relative RMS error against float64 of each float32 op the
     pre-activations come from, JAX's and the port's, on seeded inputs at the
@@ -321,11 +409,14 @@ def grad_seed_readings(seeds, semantic_ws=(0, 3)):
     and semantic weight, from one seeded state: JAX in float32 against the
     port in float32, and each of them against the port in float64 (JAX's
     pseudo-labels on every side), with the activation inputs whose sign
-    differs between the port's float32 and float64 runs. A pre-activation
-    within a few float32 ulps of 0 that float32 rounding moves across the
-    ReLU's kink changes the gradient by that element's whole term."""
+    differs between the port's float32 and float64 runs, and those of
+    JAX's float32 run against the port's float64 one on the calls that
+    match. A pre-activation within a few float32 ulps of 0 that float32
+    rounding moves across the ReLU's kink changes the gradient by that
+    element's whole term."""
     seg = seg_ref_weights(0)
-    with _ReluInputs() as acts:     # the port binds activations when built
+    # the port binds activations when built, JAX's taps when traced
+    with _ReluInputs() as acts, _JaxReluInputs() as jacts:
         for sw in semantic_ws:
             spec = small_train_spec(semantic_w=sw,
                                     adaptation=dict(ADAPTATION))
@@ -352,10 +443,10 @@ def grad_seed_readings(seeds, semantic_ws=(0, 3)):
                         acts.watch(name, getattr(net, "module", net))
                 ports[dtype] = tr
             for seed in seeds:
-                yield _seed_row(jtr, ports, acts, seed, sw)
+                yield _seed_row(jtr, ports, acts, jacts, seed, sw)
 
 
-def _seed_row(jtr, ports, acts, seed, sw):
+def _seed_row(jtr, ports, acts, jacts, seed, sw):
     batch = train_batch(seed)
     jbatch = list(map(jnp.asarray, batch))
     if sw:
@@ -363,7 +454,9 @@ def _seed_row(jtr, ports, acts, seed, sw):
             jbatch[0], jbatch[1], None, None, False, jtr.frozen)]
         for tr in ports.values():
             _share_targets(tr, targets)
+    jacts.calls = []
     gd, gg = jtr.dis_gen_grads(*jbatch)
+    jax.effects_barrier()
     want = {f"{d}.{k}": v.numpy() for d in ("a", "b")
             for k, v in from_jax_dis(gd[d]).items()}
     want.update({k: v.numpy() for k, v in from_jax_params(gg).items()})
@@ -383,15 +476,50 @@ def _seed_row(jtr, ports, acts, seed, sw):
         row[name] = {"max": err, "leaf": leaf, "leaves_over_tol": over}
     row["port32_vs_port64_sign_flips"] = _sign_flips(
         calls[torch.float32], calls[torch.float64], modules[torch.float32])
+    matched, port, ref = _matched_flips(
+        jacts.calls, calls[torch.float32], calls[torch.float64],
+        modules[torch.float32])
+    row["matched_calls"] = {"jax": len(jacts.calls), "port": len(
+        calls[torch.float64]), "matched": matched}
+    row["on_matched_calls"] = {"port32_vs_port64": port,
+                               "jax32_vs_port64": ref}
+    row["forward_drift"] = _forward_drift(jtr, ports, batch)
     return row
 
 
+def _forward_drift(jtr, ports, batch):
+    """The gen step's generator forward (every tensor that both packages
+    return) of JAX and of the port in float32 against the port in
+    float64: the largest relative L2 error over those tensors, each
+    side."""
+    fw = {}
+    for dtype, tr in ports.items():
+        with torch.no_grad():
+            out = tr._gen_forward(*(torch.from_numpy(t).to(dtype)
+                                    for t in batch[:2]))
+        fw[dtype] = {k: v.double().numpy() for k, v in out.items()}
+    ref = fw[torch.float64]
+    jout = jtr._gen_forward(jtr.state["gen"], *map(jnp.asarray, batch[:2]),
+                            None, None, True)
+
+    def drift(got):
+        return max(float(np.linalg.norm(np.asarray(got[k], np.float64) - v)
+                         / np.linalg.norm(v))
+                   for k, v in ref.items() if k in jout)
+    return {"jax32": drift(jout), "port32": drift(fw[torch.float32])}
+
+
 if __name__ == "__main__":
-    # JAX_PLATFORMS=cpu python -m tests.test_torch_semantic [SEED ...]
+    # JAX_PLATFORMS=cpu python -m tests.test_torch_semantic
+    #     [--exact-conv] [SEED ...]
     import json
     import sys
     torch.set_num_threads(1)
+    args = sys.argv[1:]
+    if "--exact-conv" in args:
+        args.remove("--exact-conv")
+        exact_convs()
     for r in op_accuracy():
         print(json.dumps(r), flush=True)
-    for r in grad_seed_readings([int(s) for s in sys.argv[1:]] or range(8)):
+    for r in grad_seed_readings([int(s) for s in args] or range(8)):
         print(json.dumps(r), flush=True)

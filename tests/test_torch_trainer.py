@@ -231,26 +231,24 @@ def test_fused_step_matches_unfused_pair(jax_grads):
                                        atol=2.5e-4, err_msg=k)
 
 
-# the options the port refuses, each with the ROADMAP item that brings it
-REFUSED = {"grad_accum": "item 13"}
-
-
 @pytest.mark.parametrize("key,value", [
     ("guided", 0), ("grad_accum", 2),
     ("adaptation", {"adv_lambda": 6, "dfeat_lambda": 1, "sem_seg_lambda": 1}),
     ("vgg_w", 1), ("domain_adv_w", 1), ("recon_synth_w", 1)])
 def test_unported_options_raise(key, value):
-    """grad_accum > 1 is refused, naming its ROADMAP item. The options
-    refused until they were ported now build their net and step: the seg
-    head, the DANN and the synthetic-pair loss (ROADMAP item 11), random
-    styles (guided: 0, item 9) and the VGG perceptual loss (vgg_w, item
-    12)."""
+    """The options refused until they were ported now build their net and
+    step: the seg head, the DANN and the synthetic-pair loss (ROADMAP item
+    11), random styles (guided: 0, item 9), the VGG perceptual loss
+    (vgg_w, item 12) and gradient accumulation (grad_accum, item 13, with
+    the warning of its classifier term). The switches still refused are
+    in tests/test_torch_hd.py."""
     conf = validate(small_train_spec(**{key: value}))
-    if key in REFUSED:
-        with pytest.raises(NotImplementedError, match=REFUSED[key]):
-            MUNITTrainer(conf, "cpu")
-        return
-    tr = MUNITTrainer(conf, "cpu")
+    if key == "grad_accum":
+        with pytest.warns(UserWarning, match="chunk statistics"):
+            tr = MUNITTrainer(conf, "cpu")
+        assert tr.grad_accum == 2
+    else:
+        tr = MUNITTrainer(conf, "cpu")
     tr.init(torch.Generator().manual_seed(0))
     x_a, x_b, m_a, m_b = map(torch.from_numpy, train_batch(1))
     if key == "adaptation":

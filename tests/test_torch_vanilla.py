@@ -48,12 +48,11 @@ from munit_tpu_torch.config import validate
 from munit_tpu_torch.core import ops
 from munit_tpu_torch.data.datasets import ImageFolder
 from munit_tpu_torch.io import checkpoint
-from munit_tpu_torch.io.weights import (from_jax_classifier, from_jax_dis,
-                                        from_jax_params)
 from munit_tpu_torch.nn.vgg import convert_vgg16_state_dict
 from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
 from tests.torch_port_util import (CROP, SMALL_GEN,  # noqa: F401
-                                   check_update, one_torch_thread,
+                                   check_update, jax_draws, net_groups,
+                                   one_torch_thread, port_state,
                                    small_train_spec, train_batch,
                                    update_errors, vgg_ref_weights)
 
@@ -67,7 +66,9 @@ STYLE_DIM = SMALL_GEN["style_dim"]
 # one by 1.8e-2 (its backward on the same input agrees to 7e-8), while
 # JAX's float32 run lands on float64's side, and the two packages' gen
 # updates part in 3.4 % of the generator's weights. Such a flip is the
-# float32 rounding both packages carry (UPDATE_RTOL), not a fault of either.
+# float32 rounding both packages carry (UPDATE_RTOL), not a fault of either;
+# the port's float32 takes more of them, its CPU convolutions rounding
+# coarser than XLA's (test_torch_grad_accum.py's OTHER_ORDERS).
 STEPS = ((0, "dis"), (1, "gen"), (2, "dis_gen"))
 UPDATED = {"dis": ("dis",), "dis_gen": ("gen", "dis"), "gen": ("gen",)}
 
@@ -77,61 +78,6 @@ def parity():
     ops.set_conv_compute(None)
     yield
     ops.set_conv_compute(None)
-
-
-def _pair(convert, tree):
-    return {f"{d}.{k}": v for d in ("a", "b")
-            for k, v in convert(tree[d]).items()}
-
-
-def _classifiers(state, prefix="classifier_sr"):
-    return {f"{d}.{k}": v for d in ("a", "b")
-            for k, v in from_jax_classifier(
-                state[f"{prefix}_{d}"], state[f"{prefix}_{d}_stats"]).items()}
-
-
-def port_state(state, iterations):
-    """A JAX trainer's state (numpy) as a port ``state_dict()``, without
-    ``styles``: the nets with their statistics and the three optimizers."""
-    nets = {"gen": from_jax_params(state["gen"])}
-    for d in ("a", "b"):
-        nets[f"dis_{d}"] = from_jax_dis(state[f"dis_{d}"])
-        nets[f"classifier_sr_{d}"] = from_jax_classifier(
-            state[f"classifier_sr_{d}"], state[f"classifier_sr_{d}_stats"])
-    convert = {"gen": from_jax_params,
-               "dis": lambda t: _pair(from_jax_dis, t),
-               "classif_sr": lambda t: _pair(from_jax_classifier, t)}
-    opt = {}
-    for name, fn in convert.items():
-        o = state[f"{name}_opt"]
-        opt[name] = {"count": int(o.count), "has_copy": bool(o.has_copy),
-                     **{f: fn(getattr(o, f))
-                        for f in ("mu", "nu", "params_copy")}}
-    return {"iterations": iterations, "nets": nets, "opt": opt}
-
-
-def net_groups(nets):
-    out = {"gen": nets["gen"],
-           "dis": {f"{d}.{k}": v for d in ("a", "b")
-                   for k, v in nets[f"dis_{d}"].items()},
-           "classifier": {f"{d}.{k}": v for d in ("a", "b")
-                          for k, v in nets[f"classifier_sr_{d}"].items()}}
-    return {n: {k: v.detach().numpy().copy() for k, v in d.items()}
-            for n, d in out.items()}
-
-
-def jax_draws(state, kind, bsz, dtype=jnp.float32):
-    """The styles a JAX step draws from ``state["rng"]``, in its order."""
-    rng = state["rng"]
-    if kind == "dis_gen":
-        mid, d1, d2 = jax.random.split(rng, 3)
-        _, g1, g2 = jax.random.split(mid, 3)
-        keys = (d1, d2, g1, g2)
-    else:
-        _, k1, k2 = jax.random.split(rng, 3)
-        keys = (k1, k2)
-    return [torch.from_numpy(np.asarray(
-        jax.random.normal(k, (bsz, STYLE_DIM), dtype))) for k in keys]
 
 
 def run_step(tr, kind, batch, styles=None):
@@ -180,7 +126,7 @@ def lockstep():
     steps = []
     for it, kind in STEPS:
         jtr.iterations = tr.iterations = it
-        draws = jax_draws(before, kind, batch[0].shape[0])
+        draws = jax_draws(before, kind, batch[0].shape[0], STYLE_DIM)
         want = {k: float(v) for k, v in jax_step(jtr, kind, jb).items()}
         after = jax.tree.map(np.asarray, jtr.state)
         tr.load_state_dict(port_state(before, it))

@@ -106,6 +106,63 @@ def jax_steps(jtr, batch, iters: int) -> list:
     return out
 
 
+def _pair(convert, tree):
+    return {f"{d}.{k}": v for d in ("a", "b")
+            for k, v in convert(tree[d]).items()}
+
+
+def port_state(state, iterations):
+    """A JAX trainer's state (numpy) with the generator, the two
+    discriminators and the two sim/real classifiers as a port
+    ``state_dict()``, without ``styles``: the nets with their statistics
+    and the three optimizers."""
+    nets = {"gen": from_jax_params(state["gen"])}
+    for d in ("a", "b"):
+        nets[f"dis_{d}"] = from_jax_dis(state[f"dis_{d}"])
+        nets[f"classifier_sr_{d}"] = from_jax_classifier(
+            state[f"classifier_sr_{d}"], state[f"classifier_sr_{d}_stats"])
+    convert = {"gen": from_jax_params,
+               "dis": lambda t: _pair(from_jax_dis, t),
+               "classif_sr": lambda t: _pair(from_jax_classifier, t)}
+    opt = {}
+    for name, fn in convert.items():
+        o = state[f"{name}_opt"]
+        opt[name] = {"count": int(o.count), "has_copy": bool(o.has_copy),
+                     **{f: fn(getattr(o, f))
+                        for f in ("mu", "nu", "params_copy")}}
+    return {"iterations": iterations, "nets": nets, "opt": opt}
+
+
+def net_groups(nets):
+    """``port_state``'s (or a port ``state_dict()``'s) nets as numpy copies
+    per net of ``update_errors``: gen, dis and classifier, the a and b
+    halves of a pair under one name."""
+    out = {"gen": nets["gen"],
+           "dis": {f"{d}.{k}": v for d in ("a", "b")
+                   for k, v in nets[f"dis_{d}"].items()},
+           "classifier": {f"{d}.{k}": v for d in ("a", "b")
+                          for k, v in nets[f"classifier_sr_{d}"].items()}}
+    return {n: {k: v.detach().numpy().copy() for k, v in d.items()}
+            for n, d in out.items()}
+
+
+def jax_draws(state, kind, bsz, style_dim):
+    """The float32 styles a JAX step draws from ``state["rng"]``, in its
+    order (the fused step: the dis step's pair, then the gen step's), as
+    torch tensors."""
+    import jax
+    rng = state["rng"]
+    if kind == "dis_gen":
+        mid, d1, d2 = jax.random.split(rng, 3)
+        _, g1, g2 = jax.random.split(mid, 3)
+        keys = (d1, d2, g1, g2)
+    else:
+        _, k1, k2 = jax.random.split(rng, 3)
+        keys = (k1, k2)
+    return [torch.from_numpy(np.array(jax.random.normal(k, (bsz, style_dim))))
+            for k in keys]
+
+
 def port_module(gen: dict, input_dim: int = 3) -> AdaINGenDual:
     return AdaINGenDual(input_dim, gen["dim"], gen["style_dim"],
                         gen["n_downsample"], gen["n_res"], gen["mlp_dim"],
@@ -183,6 +240,27 @@ UPDATE_SHARE = 0.01      # weights allowed past it, per net
 MOVED = 0.1              # median |update| of an updated net, in lr
 
 
+def _past(b, v, g, k, lr):
+    """Weights whose update (g - b) differs from JAX's (v - b) by more than
+    k (UPDATE_RTOL lr + one float32 ulp of the weight)."""
+    gap = np.abs((g - b) - (v - b))   # exact (Sterbenz)
+    ulp = np.spacing(np.maximum(np.abs(b), np.abs(v)))
+    return gap > k * (UPDATE_RTOL * lr + ulp), gap
+
+
+def past_in_both(before, want, got, other, lr):
+    """Per net, the fraction of its weights whose update parts from JAX's
+    (as ``update_errors`` counts) in both ``got`` and ``other``: two runs
+    of the port, at two precisions, from one state."""
+    out = {}
+    for net, w in want.items():
+        both = [(_past(before[net][key], v, got[net][key], 1, lr)[0]
+                 & _past(before[net][key], v, other[net][key], 1, lr)[0]
+                 ).ravel() for key, v in w.items() if "running" not in key]
+        out[net] = float(np.concatenate(both).mean())
+    return out
+
+
 def update_errors(before, want, got, lr, updates):
     """Per net, from its weights before, JAX's after and the port's after
     ({net: {name: numpy array}}) over ``updates[net]`` updates at ``lr``: ``share``,
@@ -204,10 +282,9 @@ def update_errors(before, want, got, lr, updates):
                     (d / (1e-6 + 1e-4 * np.abs(v))).max()))
                 continue
             b = before[net][key]
-            d_jax, d_port = v - b, got[net][key] - b   # exact (Sterbenz)
-            gap = np.abs(d_port - d_jax)
-            ulp = np.spacing(np.maximum(np.abs(b), np.abs(v)))
-            past.append((gap > k * (UPDATE_RTOL * lr + ulp)).ravel())
+            d_jax, d_port = v - b, got[net][key] - b
+            over, gap = _past(b, v, got[net][key], k, lr)
+            past.append(over.ravel())
             moved.append(np.abs(d_port).ravel())
             worst = max(worst, float(gap.max()))
             still = max(still, float(np.abs(d_port).max()),
