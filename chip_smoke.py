@@ -21,7 +21,8 @@ Phases, each raising on failure (exit code 1):
    under other tile budgets than the plan's); then a profile that finds
    one device kernel per call, forward and backward, of AdaIN at
    (2, 64, 64, 256), IN at (1, 128, 128, 128) and the LN at
-   (2, 256, 256, 64), and the host µs per wrapper call of each design;
+   (2, 256, 256, 64) (a profile whose records the profiler lost is taken
+   again), and the host µs per wrapper call of each design;
 3. the golden fixture (tests/fixtures/golden_gen.npz) reproduced on the
    card through the kernels;
 4. the main path: the translate CLI on the card at the full width of
@@ -82,7 +83,9 @@ Phases, each raising on failure (exit code 1):
 9. one fused step's gradients at batch 1, with the semantic term, on the
    card with TF32 off against the CPU, with TF32 on against float64, and in
    bf16 against the CPU's bf16 and float64, and the pseudo-label flips of
-   each; then bench_torch.py at batch 8 and 30 iterations, bf16 and f32;
+   each; then bench_torch.py at batch 8 and 30 iterations, bf16 and f32
+   (the CPU's runs go on in a process of their own beside 8c, the card's
+   runs and the bench);
 10. the moments kernels (sample_sums, sample_affine) against their plain
    versions at every whole-LN probe shape, f32 and bf16, ReLU on and off,
    timed against the byte bound, the plain version and one library call;
@@ -114,9 +117,9 @@ Phases, each raising on failure (exit code 1):
    equals A outside a band, PNG masks, semantic PNGs in the table's gray
    values): every logged loss finite, the flavor's new losses logged,
    every step variant that ran twice captured and replayed as the cadence
-   says, the norm launches by design; then each step of an iteration with
-   every sim→real step, card (TF32 off) against CPU at full width from
-   one state, every loss within 1e-3 relative; a resume at iteration 10
+   says, the norm launches by design; beside them, each step of an
+   iteration with every sim→real step, card (TF32 off) against CPU at
+   full width from one state, every loss within 1e-3 relative; a resume at iteration 10
    restored bit for bit with every new net; and ms per iteration (captured
    and eager), per step kind, peak memory and graphs of each flavor at
    batch 1 in bf16;
@@ -127,8 +130,8 @@ Phases, each raising on failure (exit code 1):
    side over phase 12's JPEGs (phase 12's loop keys): every logged loss
    finite, the VGG terms above 0, every step variant that ran twice
    captured and replayed, the norm launches by design (a guided: 0 fused
-   step: 124 forward, 104 backward); a dis, fused, gen and classifier_sr
-   step, card (TF32 off) against CPU at full width from one state with
+   step: 124 forward, 104 backward); beside them, a dis, fused, gen and
+   classifier_sr step, card (TF32 off) against CPU at full width from one state with
    the same explicit styles, every loss within 1e-3 relative; a resume at
    iteration 10 bit for bit, the style stream too, and the styles of
    iteration 11 equal to an uninterrupted run's; translate_batch with 10
@@ -154,7 +157,27 @@ Phases, each raising on failure (exit code 1):
    at batch 8, bf16, captured: config_256 with K = 1, 2, 4 and config_HD
    (narrow) with K = 1, 2: ms per iteration, images/s, peak allocated
    eager, the graphs' pool and what is live (the pool must fall with K),
-   and at K = 2 the captured fused step against the eager one within 1e-3.
+   and at K = 2 the captured fused step against the eager one within 1e-3;
+16. evaluation (ROADMAP item 14) at config_256's full width, seeded
+   generator and InceptionV3 (torchvision layout, .pth), 32 seeded JPEG
+   pairs: the norm kernels' plans and forward checks at batch 32;
+   translate+pool ms an image at batch 8 and 32 and the peak memory;
+   Newton-Schulz's 400 iterations at 2048² timed, its FID against scipy's
+   on one full-rank set; (a) compute_moments and evaluate fid --kid on the
+   card (11 IN, 8 AdaIN, 2 LN launches per scored image) and the same
+   commands on the CPU in a process beside it: FID and KID within 1e-3
+   relative, the real pools within 1e-4 and the first batch's translated
+   pools within 1e-3 of their largest magnitude, the set's FID against its
+   own moments ~0; (b) translate_batch --num_style 3 --compute_IS
+   --compute_CIS, card against CPU; (c) the train CLI in parity with
+   eval_fid 1 (FID at each snapshot) beside two eval_fid 0 runs: replays
+   equal, launches those of eval_fid 0 plus the FID translations, what
+   the steps read (state, step scalars, graph inputs) bit for bit equal
+   before and after each FID, the first iteration's losses bit for bit and
+   every later one within 1e-5 relative (no two card runs are bitwise),
+   and the logged FID that of evaluate fid on the last snapshot; (d) checkpoint_tools import → export
+   → pack on the card; (e) a config_HD translation through the 512 → 299
+   preprocessing and InceptionV3, card against CPU.
 Earlier lines are JSON objects, each with ``at_s``, the seconds since the
 script started. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
@@ -169,13 +192,21 @@ comparison of two trees (parent, change, change, parent).
     python3 chip_smoke.py --sim2real
 
 builds the kernels and runs phase 13 alone; ``--vanilla`` phase 14 alone;
-``--hd`` phase 15 alone.
+``--hd`` phase 15 alone; ``--eval`` phase 16 alone.
+
+    python3 chip_smoke.py --profiler [N]
+
+counts how often torch.profiler loses the device records of phase 2's
+one-kernel profiles, N profiles a step, without and with the idle that
+``device_profile`` leaves at each end of its window.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -529,6 +560,9 @@ def kernel_phase(norms, cases=None, seed=SEED, phase="kernel"):
 
 
 PROFILE_CALLS = 8
+PROFILE_PAD_S = 0.01    # idle at each end of a profiler window
+PROFILE_TAKES = 3       # profiles of a side-effect-free step, should the
+                        # profiler lose its records
 HOST_CALLS = 1000
 
 
@@ -541,15 +575,12 @@ ONE_KERNEL_CASES = (
 )
 
 
-def one_kernel_phase(norms):
-    """One device kernel per call: PROFILE_CALLS forward calls (no grad) and
-    as many backward calls (autograd.grad through the wrapper's Function;
-    AdaIN's gamma and beta strided slices as the generator passes them) of
-    each ONE_KERNEL_CASES row, f32 and bf16, profiled; each call's window
-    must hold exactly one device kernel, the design's. Then the host µs
-    per call (a mean over HOST_CALLS calls, no synchronise) of each
-    design's launcher, and of the public wrapper."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+def one_kernel_steps(norms, gen):
+    """(name, shape, dtype, direction, step, kernel) of each
+    ONE_KERNEL_CASES row, f32 and bf16: PROFILE_CALLS-worthy forward calls
+    (no grad) and backward calls (autograd.grad through the wrapper's
+    Function; AdaIN's gamma and beta strided slices as the generator passes
+    them), each warmed up once. No step has a side effect."""
     for name, shape, fwd_kernel, bwd_kernel in ONE_KERNEL_CASES:
         for dtype in DTYPES:
             a = make_inputs(*shape, dtype, gen)
@@ -567,17 +598,30 @@ def one_kernel_phase(norms):
             for way, step, kernel in (("forward", fwd, fwd_kernel),
                                       ("backward", bwd, bwd_kernel)):
                 step()
-                rows, _ = device_profile(step, PROFILE_CALLS)
-                per_call = [{"kernel": r[1][:90], "per_call": r[2]}
-                            for r in rows]
-                emit(phase="one_kernel", kernel=name, direction=way,
-                     shape=list(shape), dtype=dtype_name(dtype),
-                     device_kernels=per_call)
-                check(len(rows) == 1 and kernel in rows[0][1]
-                      and rows[0][2] == 1,
-                      f"{name} {way} {list(shape)} {dtype_name(dtype)}: "
-                      f"device kernels per call {per_call}, want one {kernel}")
+                yield name, shape, dtype, way, step, kernel
             del a, dy, y, inputs
+
+
+def one_kernel_phase(norms):
+    """One device kernel per call: PROFILE_CALLS calls of each
+    one_kernel_steps step profiled; each call's window must hold exactly
+    one device kernel, the design's (a profile whose records were lost is
+    taken again, up to PROFILE_TAKES times). Then the host µs per call (a
+    mean over HOST_CALLS calls, no synchronise) of each design's launcher,
+    and of the public wrapper."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for name, shape, dtype, way, step, kernel in one_kernel_steps(norms, gen):
+        for take in range(1, PROFILE_TAKES + 1):
+            rows, _ = device_profile(step, PROFILE_CALLS)
+            if not records_lost(rows, kernel):
+                break
+        per_call = [{"kernel": r[1][:90], "per_call": r[2]} for r in rows]
+        emit(phase="one_kernel", kernel=name, direction=way,
+             shape=list(shape), dtype=dtype_name(dtype),
+             device_kernels=per_call, takes=take)
+        check(len(rows) == 1 and kernel in rows[0][1] and rows[0][2] == 1,
+              f"{name} {way} {list(shape)} {dtype_name(dtype)}: "
+              f"device kernels per call {per_call}, want one {kernel}")
     for name, shape in (("adain", (1, *CLUSTER_SHAPE)),
                         ("instance_norm", (1, 128, 128, 128))):
         a = make_inputs(*shape, torch.float32, gen)
@@ -600,6 +644,15 @@ def one_kernel_phase(norms):
         emit(phase="host_per_call", kernel=name, shape=list(shape),
              dtype="float32", calls=HOST_CALLS, **row,
              note="host µs per call, mean over the calls, no synchronise")
+
+
+def records_lost(rows, kernel) -> bool:
+    """A profile of calls that each launch ``kernel`` that shows nothing
+    but fewer than one ``kernel`` a call: the profiler lost records (a
+    lost record hides a kernel, it never adds one). One that shows
+    another kernel is a reading."""
+    return not rows or (len(rows) == 1 and kernel in rows[0][1]
+                        and rows[0][2] < 1)
 
 
 def host_us(fn):
@@ -841,16 +894,24 @@ def device_profile(step, reps, api=None):
     """[(device ms per step, kernel name, launches per step)] of ``reps``
     runs of ``step`` under torch.profiler, largest first, and the profiled
     host wall ms per step. ``api``: a dict that gets the host ms per step
-    of each CUDA API call (where the host waits)."""
+    of each CUDA API call (where the host waits).
+
+    The profiler keeps only the device records whose span, converted to
+    the host's clock, lies inside its window; the kernels launched right
+    after it starts or ending right before it stops can fall outside by
+    the clocks' skew and be lost. PROFILE_PAD_S of idle on each side of
+    the steps keeps them in."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        time.sleep(PROFILE_PAD_S)
     rows = []
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total",
@@ -1375,7 +1436,46 @@ def flips(a, b):
     return sum(int((x != y).sum()) for x, y in zip(a, b))
 
 
-def grads_phase(MUNITTrainer, conf, removed_by_norm):
+# Phase 9's CPU runs (name, numerics, float64), in a process of their own
+# (GRADS_CPU_RUNNER) beside the card's runs, phase 8c and phase 9's bench,
+# on GRADS_CPU_THREADS of the host's 8 cores; each writes its gradients,
+# pseudo-labels and step seconds to the file it is given.
+GRADS_CPU_RUNS = (("cpu", "tf32_off", False), ("cpu_bf16", "bf16", False),
+                  ("cpu_f64", "tf32_off", True))
+GRADS_CPU_THREADS = 6
+GRADS_CPU_RUNNER = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from munit_tpu_torch.config import get_config
+from munit_tpu_torch.train.trainer import MUNITTrainer
+out, batch_file = sys.argv[1:3]
+conf = get_config(str(c.CONFIG))
+batch = torch.load(batch_file, weights_only=True)
+runs = {}
+for name, numerics, f64 in c.GRADS_CPU_RUNS:
+    grads, labels, tr, seconds = c.fused_grads(MUNITTrainer, conf, batch,
+                                               "cpu", numerics, f64)
+    runs[name] = {"grads": grads, "labels": labels, "seconds": seconds}
+    del tr
+torch.save(runs, out)
+"""
+
+
+def grads_cpu_start(tmp: Path):
+    """Starts phase 9's CPU runs on its batch; (process, batch, out file)."""
+    batch = [t.cpu() for t in train_inputs(1, SEED + 100)]
+    torch.save(batch, tmp / "grads_batch.pt")
+    with open(tmp / "grads_cpu.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", GRADS_CPU_RUNNER, str(tmp / "grads_cpu.pt"),
+             str(tmp / "grads_batch.pt")],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+            env={**os.environ, "OMP_NUM_THREADS": str(GRADS_CPU_THREADS)})
+    return proc, batch, tmp / "grads_cpu.pt"
+
+
+def grads_phase(MUNITTrainer, conf, removed_by_norm, cpu_side, meanwhile):
     """One fused step's gradients (dis_gen_grads) at batch 1 with the
     semantic term, leaf by leaf, in three numerics on the card:
     - TF32 off against the CPU in float32: the relative L2 error within
@@ -1391,23 +1491,24 @@ def grads_phase(MUNITTrainer, conf, removed_by_norm):
       has no bound.
     Every float32 run is held against a float64 CPU run, and each leg's
     pseudo-labels against the CPU's in the same numerics: a flip moves one
-    pixel's CE term."""
-    batch = [t.cpu() for t in train_inputs(1, SEED + 100)]
+    pixel's CE term. The CPU runs come from ``cpu_side`` (grads_cpu_start);
+    ``meanwhile`` runs after the card's runs, before they are waited for."""
+    proc, batch, cpu_file = cpu_side
     runs = {}
     for name, device, numerics in (("card", "cuda", "tf32_off"),
                                    ("card_tf32", "cuda", "tf32"),
-                                   ("card_bf16", "cuda", "bf16"),
-                                   ("cpu", "cpu", "tf32_off"),
-                                   ("cpu_bf16", "cpu", "bf16")):
+                                   ("card_bf16", "cuda", "bf16")):
         grads, labels, tr, seconds = fused_grads(MUNITTrainer, conf, batch,
                                                  device, numerics)
         runs[name] = {"grads": grads, "labels": labels, "seconds": seconds}
+        zero = removed_by_norm(tr)
         del tr
         torch.cuda.empty_cache()
-    grads, labels, cpu, _ = fused_grads(MUNITTrainer, conf, batch, "cpu",
-                                        f64=True)
-    runs["cpu_f64"] = {"grads": grads, "labels": labels}
-    zero = removed_by_norm(cpu)
+    meanwhile()
+    rc = proc.wait(timeout=900)
+    check(rc == 0, f"phase 9's CPU runs: exit {rc}: "
+                   f"{cpu_file.with_suffix('.err').read_text()[-3000:]}")
+    runs.update(torch.load(cpu_file, weights_only=True))
     got, want, ref = (runs[k]["grads"] for k in ("card", "cpu", "cpu_f64"))
     net = max(v.abs().max().item() for v in want.values())
     worst_zero = max(max(got[k].abs().max().item(), want[k].abs().max().item())
@@ -1540,10 +1641,13 @@ def train_time_phase(tr, batch, conf, b, numerics="tf32"):
     prof = {}
     for mode, capture in (("eager", False), ("captured", True)):
         tr._capture = capture
-        tr.dis_gen_update(x_a, x_b, m_a, m_b)
-        api = {}
-        rows, wall = device_profile(
-            lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), 3, api)
+        for _ in range(PROFILE_TAKES):      # four steps a take
+            tr.dis_gen_update(x_a, x_b, m_a, m_b)
+            api = {}
+            rows, wall = device_profile(
+                lambda: tr.dis_gen_update(x_a, x_b, m_a, m_b), 3, api)
+            if rows:
+                break
         busy = sum(r[0] for r in rows)
         step_ms = times[mode]["fused_step_ms"]
         prof[mode] = {"rows": rows, "busy": busy, "wall": wall,
@@ -2810,7 +2914,29 @@ def variant_label(kind, extrapolate, has_copy):
             + "".join("1" if h else "0" for h in has_copy))
 
 
-def sim_cli_phase(norms, get_config, step_variants, data, tmp: Path):
+def run_beside(runs, meanwhile) -> dict:
+    """Runs ``meanwhile`` while the train CLIs of ``runs`` ({name: (config,
+    counts file, process)}) go on, each waited for in a thread of its own;
+    {name: (its stderr, the perf_counter at which it ended)}. A failure of
+    ``meanwhile`` ends the processes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def finish(proc):
+        _, err = proc.communicate(timeout=600)
+        return err, time.perf_counter()
+    with ThreadPoolExecutor(len(runs)) as pool:
+        waits = {name: pool.submit(finish, r[2]) for name, r in runs.items()}
+        try:
+            meanwhile()
+        except BaseException:
+            for _, _, proc in runs.values():
+                proc.kill()
+            raise
+        return {name: w.result() for name, w in waits.items()}
+
+
+def sim_cli_phase(norms, get_config, step_variants, data, tmp: Path,
+                  meanwhile):
     """13(a): `python -m munit_tpu_torch train` in three subprocesses run
     side by side, bf16, 20 iterations each, on
     configs/final_test/FeatureDA.yaml, Output_DA.yaml and FeatureDA with
@@ -2819,7 +2945,7 @@ def sim_cli_phase(norms, get_config, step_variants, data, tmp: Path):
     synthetic fused step every iteration). Every logged loss finite, the
     flavor's new losses logged, every step variant that ran twice
     captured and replayed as often as the cadence says, the norm launches
-    by design."""
+    by design. ``meanwhile`` (13(b)) runs beside them."""
     import yaml
     synth = write_synth_data(tmp / "sim_data")
     runs = {}
@@ -2837,10 +2963,11 @@ def sim_cli_phase(norms, get_config, step_variants, data, tmp: Path):
             cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
             text=True)
         runs[name] = (cfg, counts_file, proc)
+    done = run_beside(runs, meanwhile)
     total = {}
     for name, (cfg, counts_file, proc) in runs.items():
-        _, err = proc.communicate(timeout=600)
-        wall = time.perf_counter() - t0
+        err, end = done[name]
+        wall = end - t0
         check(proc.returncode == 0,
               f"{name}: train CLI exit {proc.returncode}: {err[-3000:]}")
         conf = get_config(str(cfg))
@@ -3083,9 +3210,12 @@ def sim2real_phase(norms, get_config, validate, data, tmp: Path):
                                                cadence_steps, capture_warmup,
                                                step_variants, train_steps)
     t0 = time.perf_counter()
-    launches = sim_cli_phase(norms, get_config, step_variants, data, tmp)
-    conf = sim_parity_phase(MUNITTrainer, cadence_step, cadence_steps,
-                            get_config, tmp)
+    parity = {}
+    launches = sim_cli_phase(
+        norms, get_config, step_variants, data, tmp,
+        lambda: parity.update(conf=sim_parity_phase(
+            MUNITTrainer, cadence_step, cadence_steps, get_config, tmp)))
+    conf = parity["conf"]
     sim_resume_phase(MUNITTrainer, train_steps, conf, tmp)
     sim_time_phase(MUNITTrainer, train_steps, cadence_step, cadence_steps,
                    capture_warmup, validate)
@@ -3152,7 +3282,8 @@ def spy_draws(tr):
     return calls
 
 
-def vanilla_cli_phase(norms, get_config, step_variants, data, tmp: Path):
+def vanilla_cli_phase(norms, get_config, step_variants, data, tmp: Path,
+                      meanwhile):
     """14(a): `python -m munit_tpu_torch train` in two subprocesses side by
     side, bf16, 20 iterations each: the vanilla defaults with vgg_w 1, and
     config_256 with gen_state 0 and guided 0, over phase 12's JPEGs, with
@@ -3160,8 +3291,9 @@ def vanilla_cli_phase(norms, get_config, step_variants, data, tmp: Path):
     every 5, display_size 2, 8 workers) and the data keys. Every logged
     loss finite, the VGG terms above 0 where vgg_w is, every step variant
     that ran twice captured and replayed as the cadence says, the norm
-    launches by design (the steps' and the guided: 0 grids'). Returns the
-    launches by design and each run's directory and config."""
+    launches by design (the steps' and the guided: 0 grids'). ``meanwhile``
+    (14(b)) runs beside them. Returns the launches by design and each
+    run's directory and config."""
     import yaml
     runs, out = {}, {}
     t0 = time.perf_counter()
@@ -3177,10 +3309,11 @@ def vanilla_cli_phase(norms, get_config, step_variants, data, tmp: Path):
             cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
             text=True)
         runs[name] = (cfg, counts_file, proc)
+    done = run_beside(runs, meanwhile)
     total = {}
     for name, (cfg, counts_file, proc) in runs.items():
-        _, err = proc.communicate(timeout=600)
-        wall = time.perf_counter() - t0
+        err, end = done[name]
+        wall = end - t0
         check(proc.returncode == 0,
               f"{name}: train CLI exit {proc.returncode}: {err[-3000:]}")
         conf = get_config(str(cfg))
@@ -3374,7 +3507,7 @@ def translate_batch_model_ms(cfg: Path, ckpts: str) -> dict:
     """What translate_batch runs on the card for one 256x256 image, the
     content encode and the batched decode over VANILLA_STYLES styles: host
     ms (median of 10, each ending in a synchronise), and its device time by
-    kernel group and its largest kernels over 3 profiled runs."""
+    kernel group and its largest kernels in one profiled run."""
     from munit_tpu_torch.cli.translate import load_generator_weights
     from munit_tpu_torch.config import get_config
     from munit_tpu_torch.nn.generator import GenBundle
@@ -3390,7 +3523,7 @@ def translate_batch_model_ms(cfg: Path, ckpts: str) -> dict:
         gen.decode(c.repeat(VANILLA_STYLES, 1, 1, 1), styles, 2)
     with torch.inference_mode():
         ms, _ = host_ms(one, 10)
-        rows, _ = device_profile(one, 3)
+        rows, _ = device_profile(one, 1)
     return {"model_ms_per_image": ms,
             "model_device_ms_by_group": grouped(rows),
             "model_top_kernels": [{"ms": r[0], "calls": r[2],
@@ -3405,7 +3538,6 @@ def vanilla_translate_phase(norms, run: Path, cfg: Path, data: dict,
     seed, hence the same styles: every output within
     VANILLA_TRANSLATE_ATOL; its norm launches (one encode and one decode of
     10 a image); then `translate` from the same snapshot."""
-    import shutil
     from munit_tpu_torch.__main__ import main as entry
     from munit_tpu_torch.cli import translate_batch
     from PIL import Image
@@ -3549,9 +3681,9 @@ def vanilla_phase(norms, get_config, validate, data, tmp: Path):
     by design."""
     from munit_tpu_torch.train.trainer import MUNITTrainer, step_variants
     t0 = time.perf_counter()
-    launches, runs = vanilla_cli_phase(norms, get_config, step_variants,
-                                       data, tmp)
-    vanilla_parity_phase(MUNITTrainer, validate)
+    launches, runs = vanilla_cli_phase(
+        norms, get_config, step_variants, data, tmp,
+        lambda: vanilla_parity_phase(MUNITTrainer, validate))
     vanilla_resume_phase(MUNITTrainer, validate, tmp)
     vanilla_translate_phase(norms, *runs["vanilla"], data, tmp)
     vanilla_time_phase(MUNITTrainer, validate)
@@ -3981,6 +4113,679 @@ def hd_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 16
+
+EVAL_PAIRS = 32            # seeded JPEG pairs at config_256's new_size
+EVAL_BATCH = 8             # the translated pools compared card against CPU
+EVAL_TIME_BATCHES = (8, 32)
+EVAL_STYLES, EVAL_IS_IMAGES = 3, 2     # translate_batch --compute_IS
+EVAL_FID_PAIRS = 4         # the training run's FID set
+# the first fused step (iteration 4) falls between the two snapshots
+EVAL_TRAIN_ITERS, EVAL_SNAPSHOT = 6, 3
+# the CPU side's threads ("fid" translates 32 pairs), so that the card's
+# host work and the train CLIs keep some of the host's cores
+EVAL_CPU_THREADS = {"fid": 4, "side": 2}
+# Card against CPU: pools of the same real images, of their largest
+# magnitude (float32 convolutions, TF32 off, summed in another order); of
+# translations, which differ by up to phase 4's 1e-3; FID, KID, IS, CIS
+EVAL_POOL_TOL, EVAL_FAKE_TOL, EVAL_SCORE_RTOL = 1e-4, 1e-3, 1e-3
+EVAL_SELF_TOL = 1e-4       # a set's FID against its own moments, of tr(sigma)
+# eval_fid 1 against eval_fid 0 on the card, every loss after the first
+# iteration: no two card runs are bitwise (the reflect pad's backward adds
+# with atomics; two eval_fid 0 runs part by ~1e-6 relative here), so the
+# hook's neutrality is checked bit for bit on the state around it instead
+EVAL_LOSS_RTOL = 1e-5
+EVAL_NS_RTOL = 1e-3        # Newton-Schulz FID against scipy's, one set
+NS_DIM = 2048
+# The CPU side, in two processes beside the card's work: "fid" runs
+# evaluate fid --kid --device cpu; "side" runs compute_moments and
+# translate_batch --compute_IS --compute_CIS with --device cpu, then the
+# pools of the first EVAL_BATCH pairs' translations (evaluate.fid_pools).
+# Each prints one JSON line last.
+EVAL_CPU_RUNNER = """
+import contextlib, io, json, sys
+import numpy as np
+from munit_tpu_torch.cli import compute_moments, evaluate, translate_batch
+from munit_tpu_torch.cli.translate import load_generator
+from munit_tpu_torch.config import get_config
+from munit_tpu_torch.data.api import get_fid_data_loader
+from munit_tpu_torch.eval.inception import load_inception
+mode, out, cfg, images, incep, gen, folder, styles, batch = sys.argv[1:10]
+cpu = ["--device", "cpu"]
+if mode == "fid":
+    print(json.dumps(evaluate.main(["fid", "--config", cfg, "--checkpoint",
+                                    gen, "--inception_ckpt", incep, "--kid"]
+                                   + cpu)))
+    sys.exit(0)
+compute_moments.main(["--images", images, "--inception_ckpt", incep,
+                      "--out", out + ".npz"] + cpu)
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    outs = translate_batch.main(["--config", cfg, "--checkpoint", gen,
+        "--input_folder", folder, "--output_folder", out + "_tb",
+        "--num_style", styles, "--compute_IS", "--compute_CIS",
+        "--inception_ckpt", incep] + cpu)
+conf = get_config(cfg)
+g = load_generator(gen, conf, "cpu")
+loader = get_fid_data_loader(conf["data_list_fid_a"], conf["data_list_fid_b"],
+                             int(batch), new_size=conf["new_size"])
+fakes = evaluate.fid_pools(g, load_inception(incep, "cpu"),
+                           [next(iter(loader.batches()))], "cpu")
+np.savez(out + "_arrays.npz", outs=np.stack(outs), fakes=fakes)
+print(json.dumps({"printed": buf.getvalue()}))
+"""
+
+
+# Put before SIM_RUNNER for phase 16(c): wraps the metric function that
+# the train CLI attaches (cli/train.py::attach_fid_metrics) so that each
+# FID at a snapshot is taken between two copies of what the training steps
+# read (the trainer's state_dict: nets, optimizers, iterations, the style
+# stream; the step scalars; every captured graph's input buffers), which
+# must be equal bit for bit; the result goes to <counts file>.hook.json.
+FID_HOOK_SPY = """
+import json as _json, sys as _sys, torch as _torch
+from munit_tpu_torch.cli import train as _cli
+_hook_out, _attach = _sys.argv[1] + ".hook.json", _cli.attach_fid_metrics
+_hook = {"calls": 0, "compared": 0, "changed": []}
+def _snapshot(tr):
+    flat = {}
+    def walk(v, key):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(x, key + "/" + str(k))
+        else:
+            flat[key] = (v.detach().clone() if isinstance(v, _torch.Tensor)
+                         else v)
+    walk(tr.state_dict(), "state")
+    flat["scalars"] = tr._scalars.clone()
+    for key, step in tr._graphs._steps.items():
+        for i, buf in enumerate(step.inputs):
+            if buf is not None:
+                flat["graph/" + str(key) + "/" + str(i)] = buf.clone()
+    return flat
+def _same(a, b):
+    if isinstance(a, _torch.Tensor):
+        return isinstance(b, _torch.Tensor) and _torch.equal(a, b)
+    return a == b
+def _spy_attach(conf, loaders, device):
+    _attach(conf, loaders, device)
+    metric = loaders.get("fid_metrics")
+    if metric is None:
+        return
+    def watched(trainer, loader):
+        before = _snapshot(trainer)
+        fid = metric(trainer, loader)
+        after = _snapshot(trainer)
+        _hook["calls"] += 1
+        _hook["compared"] += len(before)
+        _hook["changed"] += [k for k, v in before.items()
+                             if not _same(v, after.get(k))]
+        with open(_hook_out, "w") as f:
+            _json.dump(_hook, f)
+        return fid
+    loaders["fid_metrics"] = watched
+_cli.attach_fid_metrics = _spy_attach
+"""
+
+
+def write_eval_data(root: Path) -> dict:
+    """EVAL_PAIRS seeded DATA_SIZE² JPEGs a domain and their lists (all,
+    the first EVAL_FID_PAIRS), and a folder of the first EVAL_IS_IMAGES of
+    domain A."""
+    from PIL import Image
+    rng = np.random.RandomState(SEED + 16)
+    (root / "is_in").mkdir(parents=True)
+    lists = {}
+    for dom in ("a", "b"):
+        paths = []
+        for i in range(EVAL_PAIRS):
+            p = root / f"{dom}{i:02d}.jpg"
+            img = Image.fromarray(rng.randint(0, 256, (DATA_SIZE, DATA_SIZE,
+                                                       3), np.uint8))
+            img.save(p, quality=90)
+            if dom == "a" and i < EVAL_IS_IMAGES:
+                img.save(root / "is_in" / f"x{i}.jpg", quality=90)
+            paths.append(str(p))
+        for name, part in ((dom, paths), (f"{dom}_few",
+                                          paths[:EVAL_FID_PAIRS])):
+            (root / f"{name}.txt").write_text("\n".join(part) + "\n")
+            lists[name] = str(root / f"{name}.txt")
+    lists["is_in"] = str(root / "is_in")
+    return lists
+
+
+def per_image_launches(conf) -> dict:
+    """Norm launches of one guided a→b translation: a content encode (1 +
+    n_downsample + 2 n_res IN) and a decode (2 n_res AdaIN, n_downsample
+    LN); the style encoder runs none."""
+    g = conf["gen"]
+    return {"instance_norm": 1 + g["n_downsample"] + 2 * g["n_res"],
+            "adain": 2 * g["n_res"], "whole_layer_norm": g["n_downsample"]}
+
+
+def counts_of(norms) -> dict:
+    return {k: v for k, v in norms.launches.items() if v}
+
+
+def rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def eval_time_phase(gen, net, guided_a2b, pool_and_logits):
+    """Translate+pool ms an image at EVAL_TIME_BATCHES (one batch, CUDA
+    events, median of 5 after 2 warm-ups, the card otherwise idle) and the
+    peak memory of the largest."""
+    gen_rng = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    out = {}
+    for b in EVAL_TIME_BATCHES:
+        x_a, x_b = (torch.rand((b, 256, 256, 3), generator=gen_rng,
+                               device="cuda") * 2 - 1 for _ in range(2))
+
+        def step():
+            with torch.no_grad():
+                return pool_and_logits(net, guided_a2b(gen, x_a, x_b))[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated() / 2**30
+        times = []
+        for i in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        out[b] = {"ms_per_image": float(np.median(times)) / b,
+                  "ms_per_batch": float(np.median(times)),
+                  "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+                  "live_gb_before": live}
+        del x_a, x_b
+    emit(phase="eval_time", by_batch={str(b): v for b, v in out.items()},
+         numerics="f32, TF32 off (the evaluate CLI's)",
+         note="one guided a→b translation of config_256 (seeded weights) "
+              "and its InceptionV3 pool per image, batched; CUDA events "
+              "around the whole batch; peak_gb: max_memory_allocated in "
+              "its rounds (cuDNN's workspaces included), live_gb_before: "
+              "what was allocated before them")
+    return out
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
+def ns_phase(fid, pool):
+    """Newton-Schulz's 400 iterations at 2048² on the card, timed, and its
+    FID against scipy's on the same full-rank moments (4096 seeded
+    samples a set, where the iteration converges); scipy runs in ``pool``
+    on the host. Returns a function that waits for it, emits and checks,
+    and returns the ms of one call."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    x1 = torch.randn((2 * NS_DIM, NS_DIM), generator=g, device="cuda")
+    x2 = torch.randn((2 * NS_DIM, NS_DIM), generator=g, device="cuda") * 1.1 \
+        + 0.2
+    mu1, s1, mu2, s2 = x1.mean(0), fid.cov(x1), x2.mean(0), fid.cov(x2)
+    prod = s1 @ s2
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fid.sqrt_newton_schulz(prod)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    got = fid.frechet_distance(mu1, s1, mu2, s2)
+    want = pool.submit(timed, fid.frechet_distance_scipy,
+                       *(t.double().cpu().numpy() for t in (mu1, s1, mu2, s2)))
+
+    def finish():
+        value, scipy_s = want.result()
+        emit(phase="eval_newton_schulz", dim=NS_DIM, iterations=400,
+             ms=times[1:], fid_newton_schulz=got, fid_scipy=value,
+             rel_err=rel(got, value), tol=EVAL_NS_RTOL, scipy_seconds=scipy_s,
+             note="ms: 400 iterations (800 matmuls, float32, TF32 off) of "
+                  "one call after a first; scipy: sqrtm on the host, beside "
+                  "the card's work")
+        check(np.isfinite(got) and rel(got, value) <= EVAL_NS_RTOL,
+              f"Newton-Schulz FID {got} against scipy {value}")
+        return times[-1]
+    return finish
+
+
+def eval_cli_runs(lists, cfg_of, data, tmp: Path):
+    """Phase 16(c)'s train CLIs, started: config_256 in parity (f32, TF32
+    off) for EVAL_TRAIN_ITERS iterations, a snapshot every EVAL_SNAPSHOT,
+    with eval_fid 1 and twice with eval_fid 0, in three processes side by
+    side (SIM_RUNNER: launches and replays)."""
+    runs = {}
+    for name, eval_fid in (("fid", 1), ("plain", 0), ("plain_again", 0)):
+        cfg = write_config(tmp / "eval_train" / name / "config_256.yaml", data,
+                           {"max_iter": EVAL_TRAIN_ITERS, "log_iter": 1,
+                            "snapshot_save_iter": EVAL_SNAPSHOT,
+                            "image_save_iter": 1000,
+                            "image_display_iter": 1000, "num_workers": 2,
+                            "precision": "parity", "eval_fid": eval_fid,
+                            **cfg_of(lists["a_few"], lists["b_few"])})
+        counts = cfg.parent / "counts.json"
+        proc = subprocess.Popen(
+            [sys.executable, "-c", FID_HOOK_SPY + SIM_RUNNER, str(counts),
+             "train", "--config", str(cfg), "--output_path",
+             str(cfg.parent)],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True)
+        runs[name] = (cfg, counts, proc)
+    return runs
+
+
+def eval_cli_wait(runs) -> dict:
+    """Waits for 16(c)'s train CLIs; their launches, replays, losses and
+    logged FID."""
+    out = {}
+    for name, (cfg, counts_file, proc) in runs.items():
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0,
+              f"eval train {name}: exit {proc.returncode}: {err[-3000:]}")
+        run = cfg.parent / "outputs" / "config_256"
+        lines = [json.loads(ln) for ln in (run / "metrics.jsonl").open()]
+        hook = Path(f"{counts_file}.hook.json")
+        out[name] = {
+            "hook": json.loads(hook.read_text()) if hook.exists() else None,
+            "counts": json.loads(counts_file.read_text()),
+            "losses": {m["step"]: {k: v for k, v in m.items() if k != "step"}
+                       for m in lines if "loss_dis_total" in m},
+            "fid": {m["step"]: m["FID"] for m in lines if "FID" in m},
+            "cfg": cfg, "run": run}
+    return out
+
+
+def eval_cli_check(out, evaluated, per_image):
+    """16(c): FID logged at each snapshot, each taken between two copies
+    of what the steps read that are equal bit for bit (FID_HOOK_SPY); the
+    captured steps' replays as with eval_fid 0, and the launches those of
+    eval_fid 0 plus one translation per FID pair and snapshot; the first
+    iteration's losses bit for bit, every later one within EVAL_LOSS_RTOL
+    of eval_fid 0's, beside two eval_fid 0 runs' own difference; the
+    logged FID equal to ``evaluated``, `evaluate fid` on the last
+    snapshot."""
+    fid, plain, again = out["fid"], out["plain"], out["plain_again"]
+    snaps = list(range(EVAL_SNAPSHOT, EVAL_TRAIN_ITERS + 1, EVAL_SNAPSHOT))
+    extra = {k: len(snaps) * EVAL_FID_PAIRS * n for k, n in per_image.items()}
+    want = {k: v + extra.get(k, 0)
+            for k, v in plain["counts"]["launches"].items()}
+    graphs = {name: sorted((kind, phase, tuple(flags), n)
+                           for kind, phase, flags, n in r["counts"]["graphs"])
+              for name, r in out.items()}
+    pairs = [(step, k, v, plain["losses"][step][k], again["losses"][step][k])
+             for step, m in fid["losses"].items() for k, v in m.items()]
+    worst = max(rel(v, p) for _, _, v, p, _ in pairs)
+    noise = max(rel(q, p) for _, _, _, p, q in pairs)
+    unequal = [x for x in pairs
+               if (x[0] == 1 and not x[2] == x[3] == x[4])
+               or rel(x[2], x[3]) > EVAL_LOSS_RTOL]
+    hook = fid["hook"] or {}
+    emit(phase="eval_train_fid", iterations=EVAL_TRAIN_ITERS,
+         snapshots=snaps, fid=fid["fid"], evaluate_fid_last=evaluated,
+         hook=hook, launches=fid["counts"]["launches"], expected=want,
+         graphs=graphs["fid"], graphs_without=graphs["plain"],
+         losses_max_rel_diff=worst, eval_fid0_pair_max_rel_diff=noise,
+         losses_unequal=unequal[:10], tol=EVAL_LOSS_RTOL,
+         note="config_256, precision parity, batch 1, FID over "
+              f"{EVAL_FID_PAIRS} pairs; hook: the FID calls, the tensors "
+              "and values compared around them, those that changed; "
+              "losses: eval_fid 1 against 0, beside two eval_fid 0 runs")
+    check(sorted(fid["fid"]) == snaps and all(np.isfinite(v) for v in
+                                              fid["fid"].values()),
+          f"logged FID {fid['fid']}")
+    check(hook.get("calls") == len(snaps) and hook.get("compared", 0) > 0
+          and not hook.get("changed"), f"the FID hook touched {hook}")
+    check(not plain["fid"] and not again["fid"], "eval_fid 0 logged FID")
+    check(sorted(fid["losses"]) == list(range(1, EVAL_TRAIN_ITERS + 1)),
+          f"logged steps {sorted(fid['losses'])}")
+    check(graphs["fid"] == graphs["plain"],
+          f"replays {graphs['fid']} against {graphs['plain']}")
+    check(fid["counts"]["launches"] == want,
+          f"launches {fid['counts']['launches']}, want {want}")
+    check(not unequal, f"losses differ: {unequal[:5]}")
+    check(rel(fid["fid"][snaps[-1]], evaluated) <= 1e-6,
+          f"logged FID {fid['fid'][snaps[-1]]} against evaluate's "
+          f"{evaluated}")
+
+
+def eval_tools_phase(gen_sd, conf_path, tmp: Path):
+    """16(d): checkpoint_tools import → export → pack on the card: the
+    reference .pt back bit for bit, the optimizers fresh, the packed file
+    the bfloat16 rounding of each weight."""
+    from munit_tpu_torch.cli import checkpoint_tools
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.io import checkpoint
+    from munit_tpu_torch.io.weights import (load_reference_checkpoint,
+                                            reference_gen_blob)
+    from munit_tpu_torch.nn import discriminator
+    t0 = time.perf_counter()
+    root = tmp / "tools"
+    root.mkdir()
+    torch.save(reference_gen_blob(gen_sd, 1), root / "gen.pt")
+    conf = get_config(str(conf_path))
+    g = torch.Generator().manual_seed(SEED + 18)
+    dis = {}
+    for d in "ab":
+        net = discriminator.build(conf, "cpu")
+        net.init(g)
+        dis[d] = net.state_dict()
+    torch.save(dis, root / "dis.pt")
+    step = 370000
+    checkpoint_tools.main(["import", "--config", str(conf_path), "--gen",
+                           str(root / "gen.pt"), "--dis", str(root / "dis.pt"),
+                           "--out", str(root / "ckpt"), "--step", str(step)])
+    checkpoint_tools.main(["export", "--config", str(conf_path), "--ckpt",
+                           str(root / "ckpt"), "--out", str(root / "out.pt")])
+    checkpoint_tools.main(["pack", "--config", str(conf_path), "--ckpt",
+                           str(root / "ckpt"), "--out", str(root / "gen.npz")])
+    want = torch.load(root / "gen.pt", weights_only=True)["2"]
+    got = torch.load(root / "out.pt", weights_only=True)["2"]
+    state, at = checkpoint.restore_checkpoint(str(root / "ckpt"))
+    packed = load_reference_checkpoint(str(root / "gen.npz"))
+    bad_pack = [k for k, v in gen_sd.items()
+                if not torch.equal(packed[k], torch.from_numpy(
+                    ((bf16_bits(v.cpu().numpy()).astype(np.uint32) << 16)
+                     .view(np.float32)) if v.ndim >= 2 else v.cpu().numpy()))]
+    same = set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                         for k in want)
+    dis_same = all(torch.equal(state["nets"][f"dis_{d}"][k], v)
+                   for d in "ab" for k, v in dis[d].items())
+    fresh = all(int(o["count"]) == 0 and not any(t.any() for t in
+                                                 o["mu"].values())
+                for o in state["opt"].values())
+    emit(phase="eval_checkpoint_tools", seconds=time.perf_counter() - t0,
+         step=at, export_bitwise=same, dis_bitwise=dis_same,
+         fresh_optimizers=fresh, pack_bytes=(root / "gen.npz").stat().st_size,
+         pack_not_bf16=bad_pack[:5])
+    check(at == step == state["iterations"], f"imported step {at}")
+    check(same and dis_same, "import → export is not bit for bit")
+    check(fresh, "imported optimizers are not fresh")
+    check(not bad_pack, f"packed weights not their bf16 rounding: {bad_pack}")
+
+
+def eval_hd_phase(norms, get_config, net, guided_a2b, inception_preprocess,
+                  pool_and_logits):
+    """16(e): one config_HD translation (seeded weights, 512²) on the card
+    through inception_preprocess's 512 → 299 downscale and InceptionV3,
+    against the same translation's on the CPU."""
+    from munit_tpu_torch.nn.generator import GenBundle
+    conf = get_config(str(HD_CONFIG))
+    per_image = per_image_launches(conf)
+    gen = GenBundle(conf, "cuda")
+    gen.init(torch.Generator().manual_seed(SEED + 19))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    x_a, x_b = (torch.rand((1, HD_CROP, HD_CROP, 3), generator=g,
+                           device="cuda") * 2 - 1 for _ in range(2))
+    cpu_net = type(net)()
+    cpu_net.load_state_dict(net.state_dict())
+    cpu_net = cpu_net.frozen_on("cpu")
+    norms.reset_launches()
+    with torch.no_grad():
+        fake = guided_a2b(gen, x_a, x_b)
+        launches = counts_of(norms)
+        pre = inception_preprocess(fake)
+        pool = pool_and_logits(net, fake)[0]
+        pre_cpu = inception_preprocess(fake.cpu())
+        pool_cpu = pool_and_logits(cpu_net, fake.cpu())[0]
+    e_pre = float((pre.cpu() - pre_cpu).abs().max() / pre_cpu.abs().max())
+    e_pool = float((pool.cpu() - pool_cpu).abs().max()
+                   / pool_cpu.abs().max())
+    emit(phase="eval_hd", fake_shape=list(fake.shape),
+         preprocessed_shape=list(pre.shape), launches=launches,
+         expected=per_image, preprocess_rel_err=e_pre, pool_rel_err=e_pool,
+         tol=EVAL_POOL_TOL)
+    check(tuple(pre.shape) == (1, 299, 299, 3), f"HD preprocess {pre.shape}")
+    check(launches == per_image, f"HD launches {launches}, want {per_image}")
+    check(e_pre <= 1e-6 and e_pool <= EVAL_POOL_TOL,
+          f"HD preprocess/pool card against CPU {e_pre}, {e_pool}")
+
+
+def eval_phase(norms, get_config, tmp: Path):
+    """Phase 16: evaluation (ROADMAP item 14) at config_256's full width:
+    (a) compute_moments and evaluate fid --kid on the card over 32 seeded
+    pairs, the same commands on the CPU, the real pools card against CPU,
+    a set's FID against its own moments, Newton-Schulz against scipy, the
+    norm launches per scored image, translate+pool ms and peak memory;
+    (b) translate_batch --compute_IS --compute_CIS, card against CPU; (c)
+    the train CLI with eval_fid 1 against eval_fid 0; (d) checkpoint_tools
+    import → export → pack; (e) a config_HD image through the 512 → 299
+    preprocessing. The CPU side and the train CLIs run in processes, and
+    scipy's sqrtm in threads, beside the card's work after the timings.
+    Returns the evaluate run's norm launches by design."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+    from munit_tpu_torch.cli import compute_moments, evaluate, translate_batch
+    from munit_tpu_torch.eval import fid
+    from munit_tpu_torch.eval.fid import guided_a2b
+    from munit_tpu_torch.eval.inception import (InceptionV3,
+                                                inception_preprocess,
+                                                load_inception,
+                                                pool_and_logits)
+    from munit_tpu_torch.data.api import get_fid_data_loader
+    from munit_tpu_torch.nn.generator import GenBundle
+    t0 = time.perf_counter()
+    set_numerics("tf32_off")     # as a fresh evaluate process runs
+    # the kernels at batch 32, the timing's
+    plan_phase(norms, SHAPES, (32,), CLUSTER_SHAPE, "eval_plan")
+    kernel_phase(norms, ((32, hwc, tuple(PATH_CALLS)) for hwc in SHAPES),
+                 SEED + 16, "eval_kernel")
+    root = tmp / "eval"
+    lists = write_eval_data(root / "data")
+    conf = get_config(str(CONFIG))
+    per_image = per_image_launches(conf)
+    gen = GenBundle(conf, "cuda")
+    gen.init(torch.Generator().manual_seed(SEED))
+    gen_pt = root / "gen.pt"
+    torch.save({"2": gen.state_dict()}, gen_pt)
+    incep = root / "inception.pth"
+    torch.save(InceptionV3().init(torch.Generator().manual_seed(SEED))
+               .state_dict(), incep)
+    net = load_inception(str(incep), "cuda")
+    moments = root / "moments.npz"
+
+    def fid_keys(list_a, list_b):
+        return {"data_list_fid_a": list_a, "data_list_fid_b": list_b,
+                "inception_ckpt_path": str(incep),
+                "inception_moment_path": str(moments)}
+    # config_256's own batch_size_fid (1): one launch a wrapper call an image
+    cfg = write_config(root / "eval.yaml", {},
+                       {"num_workers": 8, **fid_keys(lists["a"], lists["b"])})
+    timing = eval_time_phase(gen, net, guided_a2b, pool_and_logits)
+    steps = {}
+
+    def mark(name):
+        steps[name] = time.perf_counter() - t0
+    mark("timed")
+    pool = ThreadPoolExecutor(3)
+    ns_done = ns_phase(fid, pool)
+
+    # (a) the card's moments; then the CPU side and the training runs
+    real = compute_moments.main(["--images", lists["b"], "--inception_ckpt",
+                                 str(incep), "--out", str(moments)])
+    cpu_out = root / "cpu"
+    cpu, train = {}, {}
+    try:
+        for mode in ("fid", "side"):
+            cpu[mode] = subprocess.Popen(
+                [sys.executable, "-c", EVAL_CPU_RUNNER, mode, str(cpu_out),
+                 str(cfg), lists["b"], str(incep), str(gen_pt),
+                 lists["is_in"], str(EVAL_STYLES), str(EVAL_BATCH)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env={**os.environ, "OMP_NUM_THREADS":
+                                str(EVAL_CPU_THREADS[mode])})
+        train.update(eval_cli_runs(lists, fid_keys,
+                                   write_train_data(root / "train"), root))
+        self_fid = pool.submit(fid.compute_fid_from_pools, real["pool"],
+                               real["mu"], real["sigma"], True, "cuda")
+        loader = get_fid_data_loader(lists["a"], lists["b"], EVAL_BATCH,
+                                     new_size=conf["new_size"])
+        fakes = evaluate.fid_pools(gen, net, [next(iter(loader.batches()))],
+                                   "cuda")
+        # (b) IS and CIS on the card
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            outs = translate_batch.main([
+                "--config", str(cfg), "--checkpoint", str(gen_pt),
+                "--input_folder", lists["is_in"], "--output_folder",
+                str(root / "is_out"), "--num_style", str(EVAL_STYLES),
+                "--compute_IS", "--compute_CIS", "--inception_ckpt",
+                str(incep)])
+        scores = parse_scores(buf.getvalue())
+        mark("card_pools_and_scores")
+        # (d), (e)
+        eval_tools_phase(gen.state_dict(), CONFIG, root)
+        eval_hd_phase(norms, get_config, net, guided_a2b, inception_preprocess,
+                      pool_and_logits)
+        mark("tools_and_hd")
+        # (a) the card's evaluate, its launches alone
+        norms.reset_launches()
+        res = evaluate.main(["fid", "--config", str(cfg), "--checkpoint",
+                             str(gen_pt), "--inception_ckpt", str(incep),
+                             "--kid"])
+        launches = counts_of(norms)
+        by_design = launches_by_design(norms)
+        want = {k: EVAL_PAIRS * n for k, n in per_image.items()}
+        mark("card_evaluate")
+        # (c) the last snapshot through evaluate, beside the CPU side
+        trained = eval_cli_wait(train)
+        mark("train_clis_waited")
+        evaluated = pool.submit(evaluate.main, [
+            "fid", "--config", str(trained["fid"]["cfg"]), "--checkpoint",
+            str(trained["fid"]["run"] / "checkpoints"), "--inception_ckpt",
+            str(incep)])
+        done = {}
+        for mode, proc in cpu.items():
+            out, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"CPU side ({mode}) exit "
+                                        f"{proc.returncode}: {err[-3000:]}")
+            done[mode] = json.loads(out.strip().splitlines()[-1])
+        mark("cpu_side_waited")
+        cpu_res = done["fid"]
+        cpu_scores = parse_scores(done["side"]["printed"])
+        with np.load(f"{cpu_out}.npz") as z:
+            cpu_pool = z["pool"]
+        with np.load(f"{cpu_out}_arrays.npz") as z:
+            cpu_outs, cpu_fakes = z["outs"], z["fakes"]
+        e_real = float(np.abs(real["pool"] - cpu_pool).max()
+                       / np.abs(cpu_pool).max())
+        e_fake = float(np.abs(fakes - cpu_fakes).max()
+                       / np.abs(cpu_fakes).max())
+        e_tb = float(np.abs(np.stack(outs) - cpu_outs).max())
+        trace = float(np.trace(real["sigma"]))
+        self_fid = self_fid.result()
+        emit(phase="eval_fid", pairs=EVAL_PAIRS, card=res, cpu=cpu_res,
+             fid_rel_err=rel(res["fid"], cpu_res["fid"]),
+             kid_rel_err=rel(res["kid"], cpu_res["kid"]),
+             real_pool_rel_err=e_real, fake_pool_rel_err=e_fake,
+             fake_pool_batch=EVAL_BATCH, self_fid=self_fid, trace_sigma=trace,
+             launches=launches, expected=want, launches_by_design=by_design,
+             tol={"pool": EVAL_POOL_TOL, "fake_pool": EVAL_FAKE_TOL,
+                  "scores": EVAL_SCORE_RTOL, "self": EVAL_SELF_TOL})
+        emit(phase="eval_scores", card=scores, cpu=cpu_scores,
+             images=EVAL_IS_IMAGES, styles=EVAL_STYLES,
+             translate_batch_max_abs_err=e_tb)
+        check(launches == want, f"evaluate launches {launches}, want {want}")
+        check(e_real <= EVAL_POOL_TOL, f"real pools card against CPU {e_real}")
+        check(e_fake <= EVAL_FAKE_TOL, f"fake pools card against CPU {e_fake}")
+        check(e_tb <= 1e-3, f"translate_batch card against CPU {e_tb}")
+        for key in ("fid", "kid"):
+            check(rel(res[key], cpu_res[key]) <= EVAL_SCORE_RTOL,
+                  f"{key} card {res[key]} against CPU {cpu_res[key]}")
+        for key in ("IS", "CIS"):
+            check(rel(scores[key], cpu_scores[key]) <= EVAL_SCORE_RTOL,
+                  f"{key} card {scores[key]} against CPU {cpu_scores[key]}")
+        check(abs(self_fid) <= EVAL_SELF_TOL * trace,
+              f"FID of the set against its own moments {self_fid}")
+        ns_ms = ns_done()
+        eval_cli_check(trained, evaluated.result(), per_image)
+    finally:
+        # every process and thread of the phase ends with it
+        for proc in [*cpu.values(), *(r[2] for r in train.values())]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        pool.shutdown(cancel_futures=True)
+    emit(phase="eval_seconds", seconds=time.perf_counter() - t0,
+         steps=steps, timing=timing, newton_schulz_ms=ns_ms,
+         note="steps: seconds from the phase's start at which each stage "
+              "of the card's thread ended")
+    return by_design
+
+
+def parse_scores(printed: str) -> dict:
+    """IS and CIS from translate_batch's output."""
+    out = {}
+    for line in printed.splitlines():
+        if line.startswith("Inception Score: "):
+            out["IS"] = float(line.split(": ")[1])
+        elif line.startswith("conditional Inception Score: "):
+            out["CIS"] = float(line.split(": ")[1])
+    check(set(out) == {"IS", "CIS"}, f"no scores in {printed[-500:]}")
+    return out
+
+
+def eval_alone() -> int:
+    """``python3 chip_smoke.py --eval``: the build and phase 16 alone, for
+    working on it; the kernel line and status line are the full run's."""
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.kernels import build, norms
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_phase(norms, get_config, Path(tmp))
+    return 0
+
+
+def profiler_alone(args) -> int:
+    """``python3 chip_smoke.py --profiler [N]``: how often torch.profiler
+    loses device records. Each one_kernel_steps step profiled N times
+    (default 25) with no idle at the window's ends and with PROFILE_PAD_S,
+    twice each, interleaved; counts the profiles that lost records and
+    those that show another kernel. No take is repeated."""
+    from munit_tpu_torch.kernels import build, norms
+    global PROFILE_PAD_S
+    n = int(args[0]) if args else 25
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    parity_mode(True)
+    pad = PROFILE_PAD_S
+    counts = {p: {"profiles": 0, "lost": 0, "other_kernel": 0,
+                  "lost_per_call": []} for p in (0.0, pad)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for p in (0.0, pad, 0.0, pad):
+        PROFILE_PAD_S = p
+        for *_, step, kernel in one_kernel_steps(norms, gen):
+            for _ in range(n):
+                rows, _ = device_profile(step, PROFILE_CALLS)
+                c = counts[p]
+                c["profiles"] += 1
+                if records_lost(rows, kernel):
+                    c["lost"] += 1
+                    c["lost_per_call"].append(rows[0][2] if rows else 0)
+                elif not (len(rows) == 1 and rows[0][2] == 1):
+                    c["other_kernel"] += 1
+    PROFILE_PAD_S = pad
+    for p, c in counts.items():
+        emit(phase="profiler_losses", pad_s=p, calls=PROFILE_CALLS, **c)
+    return 0
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -4039,11 +4844,12 @@ def hd_fields(name, hd):
 
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                  mom_err, mom_times, probe_launches, cli_launches,
-                 sim_launches, vanilla_launches, hd):
+                 sim_launches, vanilla_launches, hd, eval_launches):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
     backward, then the moments kernels of the probes. The grid kernels
-    also carry their config_HD figures (``*_hd``, phase 15)."""
+    also carry their config_HD figures (``*_hd``, phase 15), the forward
+    ones their launches in phase 16's evaluate run (``launches_eval``)."""
     def total(rows, key):
         return sum(n * row[key] for n, row in rows)
 
@@ -4075,7 +4881,9 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
         15's."""
         f = hd_fields(name, hd)
         errs = hd["bwd_err" if name.endswith("_bwd") else "err"]
-        return entry(name, "grid", hd_rows(name, hd), errs, **f,
+        extra = ({} if name.endswith("_bwd") else
+                 {"launches_eval": eval_launches[name]["grid"]})
+        return entry(name, "grid", hd_rows(name, hd), errs, **f, **extra,
                      replaces=replaces, also_replaces=also,
                      launches=f["launches_hd"],
                      per="config_HD's calls of this design at batch 1, "
@@ -4102,6 +4910,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_cli=cli_launches[name][design],
                 launches_sim2real=sim_launches[name][design],
                 launches_vanilla=vanilla_launches[name][design],
+                launches_eval=eval_launches[name][design],
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
@@ -4117,7 +4926,9 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "image's calls at batch 1, float32 (phase 15a), "
                     "launches_hd: config_HD's batch-1 warm-ups (wide 0 and "
                     "1) and its train CLI (phase 15b), "
-                    "launches_hd_fused_step: one replayed fused step's"))
+                    "launches_hd_fused_step: one replayed fused step's; "
+                    "launches_eval: evaluate fid --kid over 32 pairs "
+                    "(phase 16)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -4207,6 +5018,10 @@ def main() -> int:
         return vanilla_alone()
     if sys.argv[1:] == ["--hd"]:
         return hd_alone()
+    if sys.argv[1:] == ["--eval"]:
+        return eval_alone()
+    if sys.argv[1:2] == ["--profiler"]:
+        return profiler_alone(sys.argv[2:])
     # a checkout of the repo: the port and its sources must be here
     from munit_tpu_torch.cli import translate
     from munit_tpu_torch.config import get_config, validate
@@ -4269,10 +5084,18 @@ def main() -> int:
                 fixed[b] = res
             del tr, batch
             torch.cuda.empty_cache()
-    capture_parity_phase(MUNITTrainer, cadence_iteration, cadence_steps,
-                         train_conf)
-    grads_phase(MUNITTrainer, train_conf, removed_by_norm)
-    bench_phase()
+    grads_dir = Path(tempfile.mkdtemp())
+    grads_cpu = grads_cpu_start(grads_dir)
+    try:
+        capture_parity_phase(MUNITTrainer, cadence_iteration, cadence_steps,
+                             train_conf)
+        grads_phase(MUNITTrainer, train_conf, removed_by_norm, grads_cpu,
+                    bench_phase)
+    finally:
+        if grads_cpu[0].poll() is None:
+            grads_cpu[0].kill()
+            grads_cpu[0].wait()
+        shutil.rmtree(grads_dir)
 
     parity_mode(True)
     mom_err, mom_times = moments_phase(moments)
@@ -4288,11 +5111,12 @@ def main() -> int:
         vanilla_launches = vanilla_phase(norms, get_config, validate, data,
                                          Path(tmp))
         hd = hd_phase(norms, get_config, validate, Path(tmp))
+        eval_launches = eval_phase(norms, get_config, Path(tmp))
 
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
         mom_times, probe_launches, cli_launches, sim_launches,
-        vanilla_launches, hd)}), flush=True)
+        vanilla_launches, hd, eval_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,7 +13,14 @@ COMMANDS = {
                   "guided single-style folder inference (reference test.py)"),
     "translate_batch": ("munit_tpu_torch.cli.translate_batch",
                         "multi-style batch inference (reference "
-                        "test_batch.py)"),
+                        "test_batch.py), IS/CIS"),
+    "evaluate": ("munit_tpu_torch.cli.evaluate",
+                 "FID/KID against real moments; slerp style sweeps"),
+    "compute_moments": ("munit_tpu_torch.cli.compute_moments",
+                        "Inception pool moments of a real-image set"),
+    "checkpoint_tools": ("munit_tpu_torch.cli.checkpoint_tools",
+                         "reference .pt <-> training checkpoint; packed "
+                         "bf16 .npz"),
 }
 
 

@@ -18,7 +18,9 @@ raises without one; ``--device cpu`` runs the kernels' plain versions.
 stream (``guided: 0``). With ``vgg_w > 0`` the perceptual loss takes the
 VGG16 state dict at ``vgg_model_path`` (torchvision's ``features.*`` or the
 reference ``Vgg16``'s keys); a path that does not exist stops the run, and
-no path means seeded weights, with a warning.
+no path means seeded weights, with a warning. With ``eval_fid: 1``,
+``inception_ckpt_path`` and ``inception_moment_path``, each snapshot logs
+the generator's ``FID`` over the ``data_list_fid_a``/``_b`` pairs.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from munit_tpu_torch.config import flatten_opts, get_config
 from munit_tpu_torch.core import ops
 from munit_tpu_torch.data.api import (get_all_data_loaders,
                                       get_data_loader_mask_and_im,
+                                      get_fid_data_loader,
                                       get_synthetic_data_loader)
+from munit_tpu_torch.eval.fid import prepare_inception_metrics
+from munit_tpu_torch.eval.inception import load_inception
 from munit_tpu_torch.io import checkpoint
 from munit_tpu_torch.io.weights import load_segmenter_checkpoint
 from munit_tpu_torch.nn.vgg import convert_vgg16_state_dict
@@ -54,9 +59,11 @@ VGG_SEED = 2
 
 def build_loaders(conf, seed=0):
     """The A and B image-and-mask training loaders, with seeds seed and
-    seed + 1, and the synthetic-pair loader with seed + 2 when
+    seed + 1, the synthetic-pair loader with seed + 2 when
     ``data_list_train_a_synth`` names a file that exists, so the three
-    shuffles are independent (``munit_tpu/cli/train.py:33-51``)."""
+    shuffles are independent, and with ``eval_fid`` and an existing
+    ``inception_moment_path`` the FID pairs' loader
+    (``munit_tpu/cli/train.py:33-58``)."""
     kw = dict(new_size=conf["new_size"], height=conf["crop_image_height"],
               width=conf["crop_image_width"], num_workers=conf["num_workers"])
     use_masks = conf["semantic_w"] > 0
@@ -76,7 +83,32 @@ def build_loaders(conf, seed=0):
             conf["data_list_train_b_seg_synth"], conf["seg_list_a"],
             conf["seg_list_b"], conf["batch_size"], True, seed=seed + 2,
             **kw)
+    moments = conf.get("inception_moment_path")
+    if conf.get("eval_fid", 0) > 0 and moments and os.path.exists(
+            str(moments)):
+        loaders["fid"] = get_fid_data_loader(
+            conf["data_list_fid_a"], conf["data_list_fid_b"],
+            max(conf["batch_size_fid"], 1), new_size=conf["new_size"],
+            num_workers=conf["num_workers"])
     return loaders
+
+
+def attach_fid_metrics(conf, loaders, device) -> None:
+    """In-training FID (reference train.py:119-130 prepared it and never
+    called it; the loop's hook at snapshot time runs it once this metric
+    function is attached): InceptionV3 from ``inception_ckpt_path`` on
+    ``device``, Newton-Schulz on the card and scipy on the CPU, as the JAX
+    CLI chooses by backend (``munit_tpu/cli/train.py:61-90``)."""
+    if "fid" not in loaders:
+        return
+    ckpt = conf.get("inception_ckpt_path")
+    if not (ckpt and os.path.exists(str(ckpt))):
+        print("WARNING: eval_fid > 0 but inception_ckpt_path missing — "
+              "in-training FID disabled")
+        return
+    loaders["fid_metrics"] = prepare_inception_metrics(
+        conf["inception_moment_path"], load_inception(str(ckpt), device),
+        newton_schulz=torch.device(device).type == "cuda")
 
 
 def display_batch(loader, display: int, device) -> torch.Tensor:
@@ -205,6 +237,7 @@ def main(argv=None) -> int:
     start = checkpoint.resume(trainer, ckpt_dir) if opts.resume else 0
 
     loaders = build_loaders(conf, seed=opts.seed)
+    attach_fid_metrics(conf, loaders, device)
     display = int(conf["display_size"])
     display_batches = tuple(display_batch(ld, display, device)
                             for ld in get_all_data_loaders(conf,

@@ -66,6 +66,14 @@ def load_generator_weights(path: str):
     return load_reference_checkpoint(path)
 
 
+def load_generator(path: str, conf, device) -> GenBundle:
+    """The config's generator on ``device`` with the weights of ``path``
+    (any file or directory ``load_generator_weights`` reads)."""
+    gen = GenBundle(conf, device)
+    gen.load_state_dict(load_generator_weights(path))
+    return gen
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -100,8 +108,7 @@ def main(argv=None):
         raise SystemExit("Image list is empty.")
     os.makedirs(opts.output_folder, exist_ok=True)
 
-    gen = GenBundle(conf, device)
-    gen.load_state_dict(load_generator_weights(opts.checkpoint))
+    gen = load_generator(opts.checkpoint, conf, device)
     new_size = conf["new_size"]
 
     s_b = gen.encode_style(load_image(opts.style, new_size, device), 2)

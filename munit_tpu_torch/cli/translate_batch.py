@@ -16,13 +16,21 @@ one batch per image. The JAX command has the same semantics on another
 stream of numbers (``jax.random``), so the two packages draw different
 styles from one seed; the card and the CPU draw the same ones.
 
-Not ported, and refused: ``--trainer UNIT`` (ROADMAP queue 1 item 18),
-``--compute_IS``/``--compute_CIS`` (item 14) and ``--mesh auto`` (item 16).
+``--compute_IS``/``--compute_CIS`` score the translations with a
+fine-tuned InceptionV3 (``--inception_ckpt``, or the target domain's
+``--inception_b`` with ``--a2b 1`` and ``--inception_a`` with ``--a2b 0``,
+the reference's flags): each image's ``num_style`` outputs' softmax
+predictions, then the Inception Score over all of them and the
+conditional one per input image (test_batch.py:138-208).
+
+Not ported, and refused: ``--trainer UNIT`` (ROADMAP queue 1 item 18) and
+``--mesh auto`` (item 16).
 
 Usage:
   python -m munit_tpu_torch translate_batch --config configs/config.yaml \\
       --checkpoint gen.pt --input_folder in/ --output_folder out/ \\
-      [--num_style 10] [--seed 1] [--synchronized] [--device cpu]
+      [--num_style 10] [--seed 1] [--synchronized] [--device cpu] \\
+      [--compute_IS] [--compute_CIS] [--inception_ckpt inception.pth]
 """
 
 from __future__ import annotations
@@ -33,18 +41,16 @@ import os
 import numpy as np
 import torch
 
-from munit_tpu_torch.cli.translate import (load_generator_weights,
-                                           resolve_device, save_image01)
+from munit_tpu_torch.cli.translate import (load_generator, resolve_device,
+                                           save_image01)
 from munit_tpu_torch.config import get_config
 from munit_tpu_torch.data.datasets import ImageFolder
-from munit_tpu_torch.nn.generator import GenBundle
+from munit_tpu_torch.eval.inception import inception_probs, load_inception
+from munit_tpu_torch.eval.scores import (conditional_inception_score,
+                                         inception_score)
 
 REFUSED = (("trainer", "UNIT", "--trainer UNIT (VAEGen) is not ported; "
             "ROADMAP queue 1 item 18"),
-           ("compute_IS", True, "--compute_IS needs InceptionV3, which is "
-            "not ported; ROADMAP queue 1 item 14"),
-           ("compute_CIS", True, "--compute_CIS needs InceptionV3, which is "
-            "not ported; ROADMAP queue 1 item 14"),
            ("mesh", "auto", "--mesh auto (several cards) is not ported; "
             "ROADMAP queue 1 item 16"))
 
@@ -68,10 +74,18 @@ def parse_args(argv=None):
     p.add_argument("--output_only", action="store_true")
     p.add_argument("--seed", type=int, default=1,
                    help="seeds the torch.Generator of the styles")
-    p.add_argument("--compute_IS", action="store_true",
-                   help="not ported (ROADMAP item 14)")
-    p.add_argument("--compute_CIS", action="store_true",
-                   help="not ported (ROADMAP item 14)")
+    p.add_argument("--compute_IS", action="store_true")
+    p.add_argument("--compute_CIS", action="store_true")
+    p.add_argument("--inception_ckpt", default=None,
+                   help="fine-tuned InceptionV3 weights: torchvision .pth, "
+                        ".npz, or the JAX CLIs' pickle")
+    # the reference's flags (test_batch.py:73-85, :96-102): one Inception
+    # per target domain, chosen by the direction
+    p.add_argument("--inception_a", default=None,
+                   help="the Inception of --a2b 0; an alias of "
+                        "--inception_ckpt")
+    p.add_argument("--inception_b", default=None,
+                   help="the Inception of --a2b 1")
     p.add_argument("--trainer", default="MUNIT", choices=["MUNIT", "UNIT"],
                    help="UNIT is not ported (ROADMAP item 18)")
     p.add_argument("--mesh", choices=["off", "auto"], default="off",
@@ -88,13 +102,20 @@ def main(argv=None):
     for key, value, msg in REFUSED:
         if getattr(opts, key) == value:
             raise SystemExit(msg)
+    if opts.inception_ckpt is None:
+        # IS/CIS measure the target domain (test_batch.py:98-102)
+        opts.inception_ckpt = (opts.inception_b if opts.a2b
+                               else opts.inception_a)
+    scoring = opts.compute_IS or opts.compute_CIS
+    if scoring and opts.inception_ckpt is None:
+        raise SystemExit("--compute_IS/CIS needs --inception_ckpt")
     device = resolve_device(opts.device)
     conf = get_config(opts.config)
     style_dim = conf["gen"]["style_dim"]
     new_size = conf.get("new_size_a") or conf["new_size"]
-    gen = GenBundle(conf, device)
-    gen.load_state_dict(load_generator_weights(opts.checkpoint))
+    gen = load_generator(opts.checkpoint, conf, device)
     enc_dom, dec_dom = (1, 2) if opts.a2b else (2, 1)
+    net = load_inception(opts.inception_ckpt, device) if scoring else None
 
     dataset = ImageFolder(opts.input_folder, new_size, new_size, new_size,
                           train=False, crop=False, return_paths=True)
@@ -102,7 +123,7 @@ def main(argv=None):
         raise SystemExit("Image list is empty.")
     g = torch.Generator().manual_seed(opts.seed)
     style_fixed = torch.randn((opts.num_style, style_dim), generator=g)
-    outs = []
+    outs, preds = [], []
     for i in range(len(dataset)):
         sample = dataset.get(i, np.random.default_rng(0))
         x = torch.from_numpy(sample["image"])[None].to(device)
@@ -110,7 +131,10 @@ def main(argv=None):
                   torch.randn((opts.num_style, style_dim), generator=g))
         c = gen.encode_content(x, enc_dom)
         y = gen.decode(c.repeat(opts.num_style, 1, 1, 1),
-                       styles.to(device), dec_dom).cpu().numpy()
+                       styles.to(device), dec_dom)
+        if net is not None:
+            preds.append(inception_probs(net, (y + 1.0) / 2.0).cpu().numpy())
+        y = y.cpu().numpy()
         basename = os.path.basename(sample["path"])
         for j in range(opts.num_style):
             outdir = f"{opts.output_folder}_{j:02d}"
@@ -124,6 +148,11 @@ def main(argv=None):
         outs.append(y)
     print(f"Wrote {len(dataset)} images x {opts.num_style} styles to "
           f"{opts.output_folder}_NN")
+    if opts.compute_IS:
+        print(f"Inception Score: {inception_score(np.concatenate(preds))}")
+    if opts.compute_CIS:
+        print("conditional Inception Score: "
+              f"{conditional_inception_score(np.stack(preds))}")
     return outs
 
 

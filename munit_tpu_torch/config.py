@@ -60,7 +60,10 @@ _DEFAULTS: Dict[str, Any] = {
     "gen_state": 0,
     "guided": 0,
     "ratio_disc_gen": 1,
+    "batch_size_fid": 1,
     "eval_fid": 0,
+    "inception_moment_path": None,
+    "inception_ckpt_path": None,  # InceptionV3 weights (any of its formats)
     "semantic_ckpt_path": None,   # the frozen segmenter's .pth
     "input_dim_a": 3,
     "input_dim_b": 3,

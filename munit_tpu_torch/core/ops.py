@@ -13,6 +13,8 @@ kernels against them. Statistics are two-pass in (at least) float32.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -86,6 +88,34 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y.contiguous()
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off for cuDNN convolutions and matmuls inside the block, the
+    settings restored after: the JAX package's ``Precision.HIGHEST`` for
+    code that a TF32-on caller may reach."""
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+
+
+def conv2d_f32(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+               padding=0) -> torch.Tensor:
+    """A bias-free conv of an NHWC input in float32 whatever
+    ``set_conv_compute`` says (zero ``padding``: an int or (ph, pw)): the
+    JAX package's ``lax.conv_general_dilated`` at ``Precision.HIGHEST``
+    outside its ``ops.conv`` (InceptionV3, the flood classifier). Run it
+    under ``exact_f32`` for no TF32 on the card."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.float(), None, stride,
+                 padding)
+    return y.permute(0, 2, 3, 1)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -189,8 +219,10 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
 
 def box_avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     """AvgPool2d(window, stride=1, padding=window // 2) on NHWC, the pad
-    counted (divides by window²): the seg head's smoothing, the JAX
-    package's ``reduce_window`` sum over a zero-padded window / window²."""
+    counted (divides by window²): the seg head's smoothing (window 7) and
+    InceptionV3's branch pool (window 3, ``munit_tpu/eval/inception.py::
+    _avg_pool3_s1_p1``), the JAX package's ``reduce_window`` sum over a
+    zero-padded window / window²."""
     return _nhwc(F.avg_pool2d(_nchw(x), window, 1, window // 2,
                               count_include_pad=True))
 
@@ -204,15 +236,45 @@ def window_avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     return _nhwc(F.avg_pool2d(_nchw(x), (wh, ww), (wh, ww)))
 
 
-def resize_bilinear(x: torch.Tensor, size: tuple) -> torch.Tensor:
-    """Bilinear upsample of an NHWC tensor to ``size`` (H, W) with
-    half-pixel centres and source coordinates clamped at the edges (torch's
-    ``align_corners=False``): the JAX package's ``resize_bilinear`` default,
-    ``jax.image.resize(..., "linear")``, when no axis shrinks. That call
-    antialiases a downscale, which nothing in the port needs, so a
+def _align_corners_coords(n_out: int, n_in: int, device):
+    """Source rows (or columns) of an align-corners resize: i·(n_in − 1)/
+    (n_out − 1) in float32, the two neighbours clamped, and the weight of
+    the second."""
+    if n_out == 1:
+        src = torch.zeros(1, dtype=torch.float32, device=device)
+    else:
+        src = (torch.arange(n_out, dtype=torch.float32, device=device)
+               * ((n_in - 1) / (n_out - 1)))
+    i0 = torch.floor(src).long().clamp(0, n_in - 1)
+    return i0, (i0 + 1).clamp(0, n_in - 1), src - i0.float()
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of an NHWC tensor to ``size`` (H, W).
+
+    ``align_corners=False`` (the segmenter's upsample): half-pixel centres,
+    source coordinates clamped at the edges, the JAX package's default
+    ``jax.image.resize(..., "linear")`` when no axis shrinks. That call
+    antialiases a downscale, which nothing in the port needs there, so a
     downscale raises. Runs on a contiguous NCHW copy, as the pools do (see
-    ``_nchw``)."""
+    ``_nchw``).
+
+    ``align_corners=True`` (InceptionV3's 299² input, up or down, no
+    antialias): the JAX package's explicit gather, corner pixels on corner
+    pixels, interpolated in float32 and cast back to x's type."""
     h, w = x.shape[1], x.shape[2]
+    if align_corners:
+        if (h, w) == tuple(size):
+            return x
+        y0, y1, wy = _align_corners_coords(size[0], h, x.device)
+        x0, x1, wx = _align_corners_coords(size[1], w, x.device)
+        g = upcast_f32(x)
+        wy, wx = wy[None, :, None, None], wx[None, None, :, None]
+        top, bot = g[:, y0], g[:, y1]
+        top = top[:, :, x0] * (1 - wx) + top[:, :, x1] * wx
+        bot = bot[:, :, x0] * (1 - wx) + bot[:, :, x1] * wx
+        return (top * (1 - wy) + bot * wy).to(x.dtype)
     if size[0] < h or size[1] < w:
         raise ValueError(f"resize_bilinear upsamples only: {(h, w)} -> "
                          f"{tuple(size)}")

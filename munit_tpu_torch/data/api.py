@@ -1,8 +1,7 @@
-"""Loader factories: the port's copy of ``munit_tpu/data/api.py`` for the
-list, folder, image-and-mask and synthetic-pair loaders (reference
+"""Loader factories: the port's copy of ``munit_tpu/data/api.py`` (reference
 get_all_data_loaders utils.py:50-156; get_data_loader_list :192-250;
 get_data_loader_mask_and_im :638-677; get_synthetic_data_loader :552-635;
-get_data_loader_folder :680-740).
+get_fid_data_loader :408-455; get_data_loader_folder :680-740).
 
 The threaded ``DataLoader`` is the only backend: ``MUNIT_LOADER=grain``,
 the JAX package's Grain-backed loader, is not ported and raises.
@@ -11,10 +10,14 @@ the JAX package's Grain-backed loader, is not ported and raises.
 from __future__ import annotations
 
 import os
+import sys
 
-from munit_tpu_torch.data.datasets import (ImageFilelist, ImageFolder,
-                                           ImageMaskDataset,
-                                           SyntheticPairDataset)
+from PIL import Image
+
+from munit_tpu_torch.data.datasets import (FidPairDataset, ImageFilelist,
+                                           ImageFolder, ImageMaskDataset,
+                                           SyntheticPairDataset,
+                                           read_filelist)
 from munit_tpu_torch.data.loader import DataLoader as _ThreadedDataLoader
 
 
@@ -58,6 +61,40 @@ def get_synthetic_data_loader(file_list_a, file_list_b, mask_list, sem_list_a,
     ds = SyntheticPairDataset(file_list_a, file_list_b, mask_list, sem_list_a,
                               sem_list_b, new_size, height, width)
     return DataLoader(ds, batch_size, shuffle=train, num_workers=num_workers,
+                      seed=seed, **shard)
+
+
+def _resized_shapes(paths, new_size):
+    """The (H, W) of each image after the shorter-side resize, from the
+    files' headers alone (no decode); the rounding is
+    ``transforms.resize_shorter``'s."""
+    shapes = set()
+    for p in paths:
+        with Image.open(p) as im:
+            w, h = im.size
+        if w <= h:
+            shapes.add((max(1, round(h * new_size / w)), new_size))
+        else:
+            shapes.add((new_size, max(1, round(w * new_size / h))))
+    return shapes
+
+
+def get_fid_data_loader(file_list_a, file_list_b, batch_size, new_size=256,
+                        num_workers=4, seed=0, **shard):
+    """Paired FID batches in list order. The FID transform only resizes,
+    so lists of mixed aspect ratios give batches that cannot stack (the
+    reference's DataLoader crashes there): such lists fall back to batches
+    of one image, which the Inception protocol's resize to 299² makes
+    exact. Each list need only be uniform within itself: image_a and
+    image_b stack as separate keys."""
+    ds = FidPairDataset(file_list_a, file_list_b, new_size)
+    if batch_size > 1 and any(
+            len(_resized_shapes(read_filelist(f), new_size)) > 1
+            for f in (file_list_a, file_list_b)):
+        print("fid loader: mixed image shapes after resize — using "
+              "batch_size=1", file=sys.stderr)
+        batch_size = 1
+    return DataLoader(ds, batch_size, shuffle=False, num_workers=num_workers,
                       seed=seed, **shard)
 
 

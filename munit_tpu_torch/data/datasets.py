@@ -1,6 +1,6 @@
 """Datasets (index → sample): the port's copy of
-``munit_tpu/data/datasets.py`` for the list, folder, image-and-mask and
-synthetic-pair datasets.
+``munit_tpu/data/datasets.py`` for the list, folder, image-and-mask,
+synthetic-pair and FID-pair datasets.
 
 A dataset is a sized object whose ``get(index, rng)`` returns a dict of
 numpy arrays: NHWC images, float32 in [-1, 1] or uint8 (see
@@ -241,3 +241,26 @@ class SyntheticPairDataset:
             self.new_size, self.h, self.w)
         return {"image_a": a, "image_b": b, "mask": m,
                 "sem_a": sa, "sem_b": sb}
+
+
+class FidPairDataset:
+    """Paired (a, b) images for FID, shorter side resized to ``new_size``,
+    nothing cropped (DatasetInferenceFID, utils.py:366-455), float32 in
+    [-1, 1]. The reference's ``image_b = normalizer(image_a)`` copy-paste
+    bug (utils.py:401) is fixed, as in the JAX package: b is image_b."""
+
+    def __init__(self, list_a: str, list_b: str, new_size: int):
+        self.a = read_filelist(list_a)
+        self.b = read_filelist(list_b)
+        self.new_size = new_size
+
+    def __len__(self):
+        return len(self.a)
+
+    def _image(self, path):
+        return T.normalize_pm1(T.to_array01(
+            T.resize_shorter(_open_rgb(path), self.new_size)))
+
+    def get(self, index, rng):
+        return {"image_a": self._image(self.a[index]),
+                "image_b": self._image(self.b[index])}

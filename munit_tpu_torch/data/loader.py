@@ -12,6 +12,7 @@ slice of every epoch's permutation.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import sys
@@ -25,7 +26,8 @@ import torch
 
 
 class DataLoader:
-    """Iterates batches forever (epoch reshuffles internally).
+    """Iterates batches forever (epoch reshuffles internally), or one epoch
+    with ``batches()``.
 
     Yields dicts of stacked numpy arrays. drop_last semantics always on
     (matching the reference's training loaders).
@@ -83,6 +85,11 @@ class DataLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self._iterate()
 
+    def batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        """One epoch of batches (epoch 0's order, the last partial batch
+        dropped), then the end: what FID reads."""
+        return self._iterate(single_epoch=True)
+
     def iter_from(self, start_batch: int) -> Iterator[Dict[str, np.ndarray]]:
         """The infinite stream as if ``start_batch`` batches were already
         consumed: exact data-order resume after a checkpoint restore. The
@@ -95,7 +102,7 @@ class DataLoader:
         decoded samples held in RAM."""
         return max(2 * self.batch_size, 2 * self.num_workers)
 
-    def _iterate(self, start_batch: int = 0):
+    def _iterate(self, start_batch: int = 0, single_epoch: bool = False):
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -105,7 +112,7 @@ class DataLoader:
             while True:
                 idx = self._epoch_indices(epoch)
                 usable = (len(idx) // self.batch_size) * self.batch_size
-                if usable == 0:
+                if usable == 0 and not single_epoch:
                     # an infinite stream of nothing would hang training
                     raise ValueError(
                         f"dataset yields 0 usable batches: {len(idx)} "
@@ -119,6 +126,8 @@ class DataLoader:
                         yield epoch, i
                     skip = 0
                 epoch += 1
+                if single_epoch:
+                    return
 
         def put_blocking(item) -> bool:
             """A put that gives up when the consumer has gone."""
@@ -137,10 +146,13 @@ class DataLoader:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     in_flight: "deque" = deque()
                     while not stop.is_set():
-                        while len(in_flight) < window:
-                            ep, i = next(stream)
+                        for ep, i in itertools.islice(
+                                stream, window - len(in_flight)):
                             in_flight.append(
                                 pool.submit(self._load_or_substitute, ep, i))
+                        if len(in_flight) < self.batch_size:
+                            put_blocking(None)   # a single epoch's end
+                            return
                         samples = [in_flight.popleft().result()
                                    for _ in range(self.batch_size)]
                         batch = {k: np.stack([smp[k] for smp in samples])
@@ -160,6 +172,8 @@ class DataLoader:
         try:
             while True:
                 item = out_q.get()
+                if item is None:
+                    return
                 if isinstance(item, BaseException):
                     raise item
                 yield item

@@ -18,13 +18,20 @@
 
 Every transform is linear (transposes and renames), so the same functions
 carry a JAX gradient tree into the port's names and layout.
-- ``to_jax_params``: the inverse of ``from_jax_params``.
+- ``to_jax_params``: the inverse of ``from_jax_params``;
+  ``save_packed_params`` writes its tree as the packed inference ``.npz``;
+  ``reference_gen_blob``: a generator state_dict → a reference
+  ``gen_*.pt`` blob, the AdaIN layers' dummy buffers included.
 - ``load_reference_checkpoint``: a reference ``gen_*.pt`` (``{"2": sd}``
   or ``{"a": sd, "b": sd}``), an ``.npz`` with ``sd::``-prefixed entries (``tests/fixtures/
   golden_gen.npz``) or the JAX package's packed inference ``.npz``
   (``load_packed_params``) → ``state_dict``.
 - ``load_segmenter_checkpoint``: the reference segmenter ``.pth`` (a bare
   ``resnet34_8s.*`` state dict) or an ``sd::`` ``.npz`` → ``state_dict``.
+- ``load_inception_checkpoint``: InceptionV3 weights from a torchvision
+  ``.pth``, an ``.npz`` or the JAX CLIs' pickle of flax variables (numpy
+  leaves only: ``_NumpyUnpickler`` refuses any other object) →
+  torchvision-keyed ``state_dict`` (``from_jax_inception`` for the pickle).
 
 Transforms: conv kernels HWIO → OIHW, dense kernels (in, out) → (out, in),
 ``ln_gamma``/``ln_beta`` → ``norm.gamma``/``norm.beta``.
@@ -33,6 +40,7 @@ Transforms: conv kernels HWIO → OIHW, dense kernels (in, out) → (out, in),
 from __future__ import annotations
 
 import json
+import pickle
 import re
 from typing import Dict
 
@@ -146,20 +154,19 @@ def from_jax_params(tree) -> StateDict:
     return _tensors(sd)
 
 
-def to_jax_params(sd) -> dict:
-    """The port's dual-generator state_dict → the JAX package's param tree
-    (nested dicts of float32 numpy arrays): the inverse of
-    ``from_jax_params``. Depths are read off the keys."""
+def _to_jax_gen(sd, nets) -> dict:
+    content, dec, mlp = (names[0] for names in nets)
+
     def count(pattern):
         return sum(1 for k in sd if re.fullmatch(pattern, k))
 
-    n_down = count(r"enc1_content\.model\.\d+\.conv\.weight") - 1
+    n_down = count(rf"{content}\.model\.\d+\.conv\.weight") - 1
     layout = _gen_layout(
         count(r"enc_style\.model\.\d+\.conv\.weight"), n_down,
-        count(rf"enc1_content\.model\.{n_down + 1}\.model\.\d+\.model\.0"
+        count(rf"{content}\.model\.{n_down + 1}\.model\.\d+\.model\.0"
               r"\.conv\.weight"),
-        count(r"dec1\.model\.\d+\.norm\.gamma"),
-        count(r"mlp1\.model\.\d+\.fc\.weight"))
+        count(rf"{dec}\.model\.\d+\.norm\.gamma"),
+        count(rf"{mlp}\.model\.\d+\.fc\.weight"), nets)
     tree: dict = {}
     for path, prefix, conv in layout:
         node = tree
@@ -172,6 +179,19 @@ def to_jax_params(sd) -> dict:
                 node[leaf] = np.ascontiguousarray(
                     _to_jax(v) if leaf == "kernel" else v)
     return tree
+
+
+def to_jax_params(sd) -> dict:
+    """The port's generator state_dict → the JAX package's param tree
+    (nested dicts of float32 numpy arrays): the inverse of
+    ``from_jax_params``, the dual generator's tree, or ``{"a", "b"}`` from
+    ``AdaINGenPair``'s ``a.``/``b.`` keys (gen_state 0). Depths are read off
+    the keys."""
+    if any(k.startswith("a.") for k in sd):
+        return {half: _to_jax_gen({k[2:]: v for k, v in sd.items()
+                                   if k.startswith(f"{half}.")}, SINGLE_NETS)
+                for half in ("a", "b")}
+    return _to_jax_gen(sd, DUAL_NETS)
 
 
 def from_jax_dis(tree) -> StateDict:
@@ -325,6 +345,39 @@ def load_packed_params(path: str) -> dict:
     return tree
 
 
+def bf16_bits(a) -> np.ndarray:
+    """float32 → the uint16 bits of its bfloat16 rounding (to nearest, ties
+    to even), as the JAX package stores a bf16 leaf."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def save_packed_params(path: str, tree: dict) -> None:
+    """A JAX param tree → the packed inference ``.npz`` that
+    ``load_packed_params`` and the JAX package's ``load_inference_params``
+    read (``save_inference_params`` with ``quant="bf16"``): leaves sorted
+    by their "/"-joined path, each float32 leaf of two or more dimensions
+    stored as bfloat16 bits, every other leaf as it is."""
+    def flat(t, prefix=""):
+        for k, v in t.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            yield from flat(v, key) if isinstance(v, dict) else [(key, v)]
+
+    arrays, keys = {}, {}
+    for i, (key, v) in enumerate(sorted(flat(tree))):
+        name, v = f"a{i}", np.asarray(v)
+        if v.ndim >= 2 and v.dtype == np.float32:
+            arrays[name] = bf16_bits(v)
+            keys[key] = {"name": name, "dtype": "bfloat16"}
+        else:
+            arrays[name] = v
+            keys[key] = {"name": name, "dtype": str(v.dtype)}
+    arrays["__manifest__"] = np.frombuffer(json.dumps(
+        {"magic": PACKED_MAGIC, "keys": keys}).encode(), dtype=np.uint8)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
 def _load_npz(path: str) -> StateDict:
     """An ``.npz`` of ``sd::`` entries or a packed inference file →
     state_dict; anything else raises, naming both formats."""
@@ -366,6 +419,34 @@ def load_reference_checkpoint(path: str) -> StateDict:
     return drop_adain_buffers(sd)
 
 
+_ADAIN_CONV = re.compile(r"(.*dec\d?\.model\.0\.model\.\d+\.model\.\d+)"
+                         r"\.conv\.weight")
+
+
+def reference_gen_blob(sd, gen_state: int) -> dict:
+    """The port's generator state_dict → a reference ``gen_*.pt`` blob
+    (trainer.py:1402-1407): {"2": sd} of the dual generator, or {"a": sd,
+    "b": sd} of gen_state 0, with the dummy running-statistic buffers the
+    reference's AdaIN layers register (mean 0, var 1), as the JAX package's
+    ``save_reference_checkpoint`` writes them."""
+    def with_buffers(part):
+        out = {k: torch.as_tensor(v).detach().cpu().float().clone()
+               for k, v in part.items()}
+        for k in part:
+            m = _ADAIN_CONV.fullmatch(k)
+            if m:
+                n = part[k].shape[0]
+                out[f"{m.group(1)}.norm.running_mean"] = torch.zeros(n)
+                out[f"{m.group(1)}.norm.running_var"] = torch.ones(n)
+        return out
+
+    if gen_state == 1:
+        return {"2": with_buffers(sd)}
+    return {half: with_buffers({k[2:]: v for k, v in sd.items()
+                                if k.startswith(f"{half}.")})
+            for half in ("a", "b")}
+
+
 def load_segmenter_checkpoint(path: str) -> StateDict:
     """The reference's Cityscapes ResNet34-8s ``.pth`` (a state dict of
     ``resnet34_8s.*`` keys, ``semantic_ckpt_path`` in the config) or an
@@ -384,3 +465,92 @@ def load_segmenter_checkpoint(path: str) -> StateDict:
         raise ValueError(f"{path}: expected a state dict of resnet34_8s.* "
                          "keys (the reference's Resnet34_8s)")
     return sd
+
+
+# -------------------------------------------------------------- InceptionV3
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """An unpickler that builds numpy arrays, numpy scalars and plain
+    containers, and refuses every other global: a pickle can name any
+    callable, so an untrusted one must not be loaded whole."""
+
+    ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
+               ("collections", "OrderedDict"), ("_codecs", "encode")}
+    ALLOWED |= {(f"numpy.{core}.multiarray", name)
+                for core in ("core", "_core")
+                for name in ("_reconstruct", "scalar")}
+    ALLOWED |= {(f"numpy.{core}.numeric", "_frombuffer")
+                for core in ("core", "_core")}
+
+    def find_class(self, module, name):
+        if (module, name) in self.ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"refusing {module}.{name}: an InceptionV3 pickle may hold only "
+            "numpy arrays in plain dicts, lists and tuples (the JAX CLIs' "
+            "flax variables with numpy leaves)")
+
+
+def _load_numpy_pickle(path: str):
+    """A pickle of numpy arrays in plain containers; anything else is
+    refused (``_NumpyUnpickler``)."""
+    with open(path, "rb") as f:
+        return _NumpyUnpickler(f).load()
+
+
+def from_jax_inception(variables) -> StateDict:
+    """The JAX package's InceptionV3 ``{params, batch_stats}`` → torchvision
+    ``inception_v3`` keys: the inverse of ``convert_inception_state_dict``.
+    Each BasicConv2d scope (a stem conv, or a Mixed block's branch) holds
+    ``kernel`` (HWIO → OIHW ``conv.weight``), ``bn_scale``/``bn_bias``
+    (``bn.weight``/``bn.bias``) and its statistics ``mean``/``var``
+    (``bn.running_mean``/``bn.running_var``); ``fc_kernel`` is (in, out)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict = {"fc.weight": np.asarray(params["fc_kernel"]).T,
+                "fc.bias": np.asarray(params["fc_bias"])}
+
+    def walk(p, s, prefix):
+        if "kernel" in p:
+            sd[f"{prefix}.conv.weight"] = np.transpose(
+                np.asarray(p["kernel"]), (3, 2, 0, 1))
+            sd[f"{prefix}.bn.weight"] = np.asarray(p["bn_scale"])
+            sd[f"{prefix}.bn.bias"] = np.asarray(p["bn_bias"])
+            sd[f"{prefix}.bn.running_mean"] = np.asarray(s["mean"])
+            sd[f"{prefix}.bn.running_var"] = np.asarray(s["var"])
+            return
+        for k, v in p.items():
+            walk(v, s[k], f"{prefix}.{k}" if prefix else k)
+
+    walk({k: v for k, v in params.items() if not k.startswith("fc_")},
+         stats, "")
+    return _tensors(sd)
+
+
+def load_inception_checkpoint(path: str) -> StateDict:
+    """InceptionV3 weights in any of the JAX CLIs' formats → the port's
+    state_dict (torchvision keys, CPU tensors):
+
+    - a torchvision ``inception_v3`` state dict (``.pt``/``.pth``);
+    - an ``.npz`` of its entries (``sd::``-prefixed or not);
+    - else a pickle of the JAX package's flax variables ``{params,
+      batch_stats}`` with numpy leaves, read by ``_NumpyUnpickler``.
+
+    The auxiliary classifier (``AuxLogits.*``) and BatchNorm's
+    ``num_batches_tracked`` counters are dropped: nothing reads them."""
+    path = str(path)
+    if path.endswith((".pt", ".pth")):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    elif path.endswith(".npz"):
+        with np.load(path) as blob:
+            sd = {k.removeprefix("sd::"): torch.from_numpy(blob[k])
+                  for k in blob.files}
+    else:
+        variables = _load_numpy_pickle(path)
+        if not (isinstance(variables, dict)
+                and {"params", "batch_stats"} <= set(variables)):
+            raise ValueError(f"{path}: expected the JAX package's InceptionV3 "
+                             "variables {'params', 'batch_stats'}")
+        sd = from_jax_inception(variables)
+    return {k: v.float() for k, v in sd.items()
+            if not k.startswith("AuxLogits.")
+            and not k.endswith("num_batches_tracked")}

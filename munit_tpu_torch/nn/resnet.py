@@ -55,10 +55,12 @@ def dilated_padding(dilation: int) -> int:
 
 
 class FrozenBN(nn.Module):
-    """Inference-mode batch norm with the reference BatchNorm2d's names."""
+    """Inference-mode batch norm with the reference BatchNorm2d's names
+    (InceptionV3's with eps 1e-3)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = ops.EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
@@ -67,7 +69,7 @@ class FrozenBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ops.batch_norm_inference(x, self.running_mean,
                                         self.running_var, self.weight,
-                                        self.bias)
+                                        self.bias, self.eps)
 
 
 class _Downsample(nn.Module):

@@ -17,7 +17,10 @@ Per iteration (config_256 in parens), through
   ``images_per_sec`` over each written window and the card's memory
   (``hbm_gb_in_use``, ``hbm_gb_peak``);
 - sample grids at image_save_iter / image_display_iter, a checkpoint at
-  snapshot_save_iter; the stop event snapshots and returns.
+  snapshot_save_iter and, with ``eval_fid`` and the loaders' "fid" and
+  "fid_metrics" (``cli/train.py::attach_fid_metrics``), the FID of the
+  generator at that point, logged as ``FID``; the stop event snapshots and
+  returns.
 
 On a card the trainer's steps run as CUDA graphs (``train/graphs.py``):
 each step kind's first call runs eagerly, its second captures, later ones
@@ -25,8 +28,12 @@ replay.
 
 A non-finite logged loss raises ``TrainingDiverged`` when its window is
 written, which happens before any checkpoint is committed, so the last
-checkpoint is never a poisoned one. In-training FID (``eval_fid``) is not
-ported: the loop refuses it.
+checkpoint is never a poisoned one. The FID runs eagerly under no_grad
+after the checkpoint is queued: it reads the generator and writes nothing
+the steps read (no optimizer state, no graph input, no random stream), so
+a run with it takes the same steps as one without (on the CPU bit for
+bit; on a card as closely as any two runs, whose reflect-pad backward adds
+with atomics).
 """
 
 from __future__ import annotations
@@ -52,14 +59,6 @@ class TrainingDiverged(RuntimeError):
     every later step is garbage; stop instead of training on."""
 
 
-def check_loop_ported(conf) -> None:
-    """Raise NotImplementedError for the loop branches the port lacks."""
-    if conf.get("eval_fid", 0) > 0:
-        raise NotImplementedError(
-            "eval_fid > 0 (in-training FID) is not ported; ROADMAP queue 1 "
-            "item 14")
-
-
 def device_memory_stats(device) -> Optional[dict]:
     """{hbm_gb_in_use, hbm_gb_peak} of a CUDA device; None on the CPU."""
     device = torch.device(device)
@@ -82,7 +81,11 @@ def _check_finite(metrics, step):
 
 class _Profile:
     """The --profile window: torch.profiler over ``n`` iterations from
-    ``first``, its chrome trace written to ``<out>/trace``."""
+    ``first``, its chrome trace written to ``<out>/trace``. The profiler
+    drops device records that the clocks' skew puts outside its window, so
+    the window opens and closes with PAD_S of idle."""
+
+    PAD_S = 0.01
 
     def __init__(self, window, output_directory):
         self.first, self.n = window
@@ -97,6 +100,7 @@ class _Profile:
                 acts.append(ProfilerActivity.CUDA)
             self.prof = profile(activities=acts)
             self.prof.__enter__()
+            time.sleep(self.PAD_S)
         elif self.prof is not None and iteration >= self.first + self.n:
             self.stop()
 
@@ -106,6 +110,7 @@ class _Profile:
         prof, self.prof = self.prof, None
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        time.sleep(self.PAD_S)
         prof.__exit__(None, None, None)
         os.makedirs(self.dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
@@ -125,8 +130,9 @@ def train_loop(trainer, conf, loaders, output_directory: str,
 
     loaders: {"a", "b"}, image-and-mask loaders, and "synth", the
     synthetic-pair loader, if any (``iter_from`` gives exact data order on
-    resume). display_batches: (train_a, train_b, test_a,
-    test_b) tensors for the sample grids. profile: (first iteration,
+    resume); "fid", the FID pairs, and "fid_metrics", the metric function
+    (``eval/fid.py::prepare_inception_metrics``), if any. display_batches:
+    (train_a, train_b, test_a, test_b) tensors for the sample grids. profile: (first iteration,
     iterations). stop: a threading.Event; when set, the loop snapshots the
     whole state and returns. device: where the batches go (the trainer's
     when None). host_seconds: a dict to which the host's seconds in each
@@ -134,7 +140,6 @@ def train_loop(trainer, conf, loaders, output_directory: str,
     "step" (issuing the steps), "bookkeeping" (the rest: metrics, their
     flush, which waits for the card, grids, checkpoints), and
     "iterations"."""
-    check_loop_ported(conf)
     device = torch.device(device if device is not None else trainer.device)
     logger = logger or MetricLogger(output_directory)
     ckpt_dir = os.path.join(output_directory, "checkpoints")
@@ -221,6 +226,11 @@ def train_loop(trainer, conf, loaders, output_directory: str,
                 # a NaN since the last flush must not reach a checkpoint
                 flush()
                 writer().save(trainer.state_dict(), iterations + 1)
+                # in-training FID (train.py:119-130 prepared it, never ran
+                # it; the JAX loop's hook at snapshot time)
+                if conf.get("eval_fid", 0) > 0 and loaders.get("fid_metrics"):
+                    fid = loaders["fid_metrics"](trainer, loaders["fid"])
+                    logger.log_metrics({"FID": fid}, iterations + 1)
 
             iterations += 1
             if host_seconds is not None:

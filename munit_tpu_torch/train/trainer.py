@@ -132,6 +132,7 @@ import torch
 
 from munit_tpu_torch.config import dis_pyramid_floor, pyramid_message
 from munit_tpu_torch.core import ops
+from munit_tpu_torch.eval.fid import guided_a2b
 from munit_tpu_torch.eval.segmap import decode_segmap
 from munit_tpu_torch.losses import losses
 from munit_tpu_torch.nn import classifiers, discriminator
@@ -1089,6 +1090,14 @@ class MUNITTrainer:
         x_ba = gen.decode(gen.encode_content(x_b, 2), self.display_s_a[:n], 1)
         x_ab = gen.decode(gen.encode_content(x_a, 1), self.display_s_b[:n], 2)
         return x_ab, x_ba
+
+    @torch.no_grad()
+    def sample_fid(self, x_a, x_b) -> torch.Tensor:
+        """The FID translation (trainer.py:1465-1472): a's content decoded
+        with b's style into domain b, for either gen_state and guided
+        setting; eager, outside the captured steps, and no draw from any
+        generator."""
+        return guided_a2b(self.gen, x_a, x_b)
 
     @torch.no_grad()
     def sample(self, x_a, x_b) -> Tuple[torch.Tensor, ...]:

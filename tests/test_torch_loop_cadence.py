@@ -224,16 +224,28 @@ def _both_loops(conf_of, loaders, tmp_path, iters):
     ("adaptation", {"output_classifier_lambda": 1.0}, "item 11"),
     ("eval_fid", 1, "item 14")])
 def test_loop_refuses_unported_branches(tmp_path, key, value, item):
-    """In-training FID (ROADMAP item 14) is refused before the first step.
-    The DANN, seg-head and output-level branches, refused until ROADMAP
-    item 11 was ported, now run: with a synthetic loader both loops make
-    the same calls, the branch's step among them."""
+    """The branches refused until their ROADMAP item was ported now run.
+    The DANN, seg-head and output-level branches (item 11): with a
+    synthetic loader both loops make the same calls, the branch's step
+    among them. In-training FID (item 14): both loops call the FID metric
+    once a snapshot, after it, and log its value as ``FID``."""
     if item == "item 14":
-        conf = _conf(validate, **{key: value})
-        with pytest.raises(NotImplementedError, match=item):
-            train_loop(SpyTrainer(conf), conf,
-                       {"a": FakeLoader(), "b": FakeLoader()},
-                       str(tmp_path), max_iter=2, device="cpu")
+        def fid_metrics(trainer, loader):
+            assert loader == "fid pairs"
+            trainer.calls.append((trainer.iterations, "fid"))
+            return 10.0 + trainer.iterations
+
+        iters = CADENCE["snapshot_save_iter"] + 1
+        calls = _both_loops(
+            lambda vfn: _conf(vfn, **{key: value}),
+            lambda: {"a": FakeLoader(), "b": FakeLoader(),
+                     "fid": "fid pairs", "fid_metrics": fid_metrics},
+            tmp_path, iters)
+        assert calls["port"] == calls["jax"]
+        assert [it for it, n in calls["port"] if n == "fid"] == [iters - 2]
+        for name in ("jax", "port"):
+            assert [m for m in _metrics(str(tmp_path / name)) if "FID" in m
+                    ] == [{"step": iters - 1, "FID": 10.0 + iters - 2}]
         return
     calls = _both_loops(
         lambda vfn: _conf(vfn, synthetic_frequency=1, **{key: value}),

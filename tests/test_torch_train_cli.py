@@ -301,12 +301,13 @@ def test_translate_reads_the_cli_snapshot(cli_runs, data, tmp_path):
             np.testing.assert_array_equal(out, want)
 
 
-def test_cli_refuses_what_it_cannot_run(data, tmp_path, monkeypatch):
+def test_cli_refuses_what_it_cannot_run(data, tmp_path, monkeypatch,
+                                        capsys):
     """Another --trainer exits as the reference does; the card by default,
-    with no fallback; in-training FID names its ROADMAP item. A synthetic
-    list, refused until ROADMAP item 11 was ported, now gets its loader
-    (seed + 2), whose batches hold both images, the mask and both
-    semantic maps."""
+    with no fallback. A synthetic list, refused until ROADMAP item 11 was
+    ported, now gets its loader (seed + 2), whose batches hold both
+    images, the mask and both semantic maps; in-training FID (item 14) its
+    FID pairs' loader."""
     cfg = tmp_path / "c.yaml"
     cfg.write_text(yaml.safe_dump(_loop_spec(data)))
     with pytest.raises(SystemExit, match="Only support MUNIT"):
@@ -330,12 +331,27 @@ def test_cli_refuses_what_it_cannot_run(data, tmp_path, monkeypatch):
         "image_a": (2, 32, 32, 3), "image_b": (2, 32, 32, 3),
         "mask": (2, 32, 32, 1), "sem_a": (2, 32, 32), "sem_b": (2, 32, 32)}
     assert set(np.unique(batch["sem_a"])) <= {0, 8}
-    # in-training FID: the loop refuses it before its first step
-    cfg.write_text(yaml.safe_dump(_loop_spec(data, eval_fid=1)))
-    try:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            cli_train.main(["--config", str(cfg), "--output_path",
-                            str(tmp_path), "--device", "cpu"])
-    finally:
-        ops.set_conv_compute(None)
-    assert _losses(str(tmp_path / "outputs" / "c")) == {}
+    # in-training FID, refused until ROADMAP item 14 was ported: with
+    # eval_fid and an existing moments file the FID pairs' loader, as the
+    # JAX CLI builds it; without an Inception checkpoint no metric, with
+    # the JAX CLI's warning; without the moments file neither
+    moments = tmp_path / "moments.npz"
+    np.savez(moments, mu=np.zeros(2048))
+    fid = {"eval_fid": 1, "inception_moment_path": str(moments),
+           "data_list_fid_a": data["data_list_train_a"],
+           "data_list_fid_b": data["data_list_train_b"], "batch_size_fid": 2}
+    loaders = cli_train.build_loaders(validate(_loop_spec(data, **fid)))
+    want = jax_build_loaders(jvalidate(_loop_spec(data, **fid)))
+    assert sorted(loaders) == sorted(want) == ["a", "b", "fid"]
+    got_b, want_b = (list(ld["fid"].batches()) for ld in (loaders, want))
+    assert len(got_b) == len(want_b) == 4    # two aspect ratios: batches of 1
+    for g, w in zip(got_b, want_b):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k])
+    cli_train.attach_fid_metrics(validate(_loop_spec(data, **fid)), loaders,
+                                 "cpu")
+    assert "fid_metrics" not in loaders
+    assert "in-training FID disabled" in capsys.readouterr().out
+    fid["inception_moment_path"] = str(tmp_path / "missing.npz")
+    assert "fid" not in cli_train.build_loaders(
+        validate(_loop_spec(data, **fid)))

@@ -47,14 +47,18 @@ from munit_tpu_torch.cli import translate_batch
 from munit_tpu_torch.config import validate
 from munit_tpu_torch.core import ops
 from munit_tpu_torch.data.datasets import ImageFolder
+from munit_tpu_torch.eval.inception import inception_probs, load_inception
+from munit_tpu_torch.eval.scores import (conditional_inception_score,
+                                         inception_score)
 from munit_tpu_torch.io import checkpoint
 from munit_tpu_torch.nn.vgg import convert_vgg16_state_dict
 from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
 from tests.torch_port_util import (CROP, SMALL_GEN,  # noqa: F401
-                                   check_update, jax_draws, net_groups,
-                                   one_torch_thread, port_state,
-                                   small_train_spec, train_batch,
-                                   update_errors, vgg_ref_weights)
+                                   check_update, inception_ref_weights,
+                                   jax_draws, net_groups, one_torch_thread,
+                                   port_state, save_torch, small_train_spec,
+                                   train_batch, update_errors,
+                                   vgg_ref_weights)
 
 LR = 1e-4
 SPEC = small_train_spec(gen_state=0, guided=0, vgg_w=1)
@@ -300,12 +304,14 @@ def _images(folder, n=2, seed=0):
             folder / f"x{i}.png")
 
 
-def test_translate_batch_matches_jax(lockstep, tmp_path):
+def test_translate_batch_matches_jax(lockstep, tmp_path, capsys):
     """The JAX trainer's generator as a reference {"a", "b"} .pt: the
     port's translate_batch writes input<i>.jpg and num_style folders, and
     each image's decodes equal JAX GenBundle's with the same styles (the
     port's seeded draws) within atol 1e-4; --synchronized takes the same
-    styles for every image; the refused options name their ROADMAP item."""
+    styles for every image; the refused options name their ROADMAP item;
+    --compute_IS/--compute_CIS print the scores of the same translations'
+    Inception predictions."""
     jtr, params = lockstep["jtr"], lockstep["init"]["gen"]
     ckpt = tmp_path / "gen.pt"
     torch.save({h: {k: torch.from_numpy(np.array(v)) for k, v in
@@ -348,11 +354,30 @@ def test_translate_batch_matches_jax(lockstep, tmp_path):
                               jnp.asarray(fixed.numpy()), 2)
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
     for flag, item in ((["--trainer", "UNIT"], "item 18"),
-                       (["--compute_IS"], "item 14"),
-                       (["--compute_CIS"], "item 14"),
                        (["--mesh", "auto"], "item 16")):
         with pytest.raises(SystemExit, match=item):
             translate_batch.main(args + ["--output_folder", out] + flag)
+    # --compute_IS and --compute_CIS (ROADMAP item 14, refused until it was
+    # ported) score the same translations with the given Inception
+    incep = save_torch(inception_ref_weights(0), tmp_path / "incep.pth")
+    for flag in ("--compute_IS", "--compute_CIS"):
+        with pytest.raises(SystemExit, match="needs --inception_ckpt"):
+            translate_batch.main(args + ["--output_folder", out, flag])
+    capsys.readouterr()
+    scored = translate_batch.main(args + [
+        "--output_folder", out, "--compute_IS", "--compute_CIS",
+        "--inception_ckpt", incep])
+    net = load_inception(incep, "cpu")
+    with torch.no_grad():
+        preds = [inception_probs(net, (torch.from_numpy(y) + 1) / 2).numpy()
+                 for y in scored]
+    printed = capsys.readouterr().out
+    assert f"Inception Score: {inception_score(np.concatenate(preds))}" \
+        in printed
+    assert ("conditional Inception Score: "
+            f"{conditional_inception_score(np.stack(preds))}") in printed
+    for got, want in zip(scored, outs):
+        np.testing.assert_array_equal(got, want)
 
 
 def _train_data(root):

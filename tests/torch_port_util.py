@@ -27,6 +27,18 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(scope="module")
+def one_blas_thread():
+    """numpy's BLAS and LAPACK on one thread: more threads barely speed up a
+    2048² ``scipy.linalg.sqrtm`` (each FID of fewer images than
+    dimensions), and a full thread pool in each of the suite's workers
+    oversubscribes the host's cores. Import this fixture into a module and
+    request it."""
+    from threadpoolctl import threadpool_limits
+    with threadpool_limits(1):
+        yield
+
+
 SMALL_GEN = dict(dim=16, mlp_dim=32, style_dim=8, activ="relu",
                  n_downsample=2, n_res=2, pad_type="reflect")
 # tests/torch_mirror.py::small_dis_params
@@ -224,6 +236,45 @@ def seg_ref_weights(seed: int = 0) -> dict:
             a = rng.randn(*shape) * 0.1
         out[k] = a.astype(np.float32)
     return out
+
+
+def _frozen_net_weights(module, rng) -> dict:
+    """Kaiming-scaled convs, an N(0, 0.01) fc, and batch norms near the
+    identity (scales and running variances U[0.8, 1.2), shifts and running
+    means N(0, 0.05)): activations stay of order 1 through a deep frozen
+    net, and every statistic's place in the layout shows."""
+    out = {}
+    for k, v in sorted(module.state_dict().items()):
+        shape = tuple(v.shape)
+        if k.startswith("fc."):
+            a = rng.randn(*shape) * 0.01
+        elif len(shape) == 4:
+            a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif k.endswith(("running_var", ".weight")):
+            a = rng.uniform(0.8, 1.2, shape)
+        else:                   # BN shifts and running means
+            a = rng.randn(*shape) * 0.05
+        out[k] = a.astype(np.float32)
+    return out
+
+
+def inception_ref_weights(seed: int = 0) -> dict:
+    """Every parameter and buffer of InceptionV3 in torchvision's
+    ``inception_v3`` layout, float32 numpy (``_frozen_net_weights``)."""
+    from munit_tpu_torch.eval.inception import InceptionV3
+    return _frozen_net_weights(InceptionV3(), np.random.RandomState(seed))
+
+
+def resnet18_ref_weights(seed: int = 0) -> dict:
+    """The flood classifier's torchvision ``resnet18`` layout (2-way fc),
+    float32 numpy (``_frozen_net_weights``)."""
+    from munit_tpu_torch.nn.resnet18 import FloodClassifier
+    return _frozen_net_weights(FloodClassifier(), np.random.RandomState(seed))
+
+
+def save_torch(sd: dict, path) -> str:
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(path))
+    return str(path)
 
 
 # --------------------------------------------- updates held against JAX's
