@@ -28,11 +28,15 @@ Phases, each raising on failure (exit code 1):
 4. the main path: the translate CLI on the card at the full width of
    configs/config_256.yaml with seeded random weights (a style image and 4
    content images), the kernels' launch counts of that run, and the same
-   translation on the CPU, which the card must match; then the same
+   translation on the CPU, which the card must match; the translate CLI
+   again, as a user runs it, in a fresh process that sets no numerics
+   (the CLI sets float32 with TF32 off itself), against the CPU within
+   1e-4; then the same
    weights packed as the JAX package's bf16 inference .npz (written here
    with numpy), translated from that file on the card and on the CPU;
-5. translation time per image at batch 1 and 8, TF32 off and on, and a
-   profile of where a translation spends its device time at each batch;
+5. translation time per image at batch 1 and 8, TF32 off (the inference
+   CLIs' numerics) and on, and a profile of where a translation spends
+   its device time at each batch, TF32 off;
 6. each backward kernel against the plain closed-form backward and against
    autograd of the plain forward, at every norm shape of the training path
    (the wide decodes at twice the batch), f32 and bf16, ReLU on and off;
@@ -177,7 +181,24 @@ Phases, each raising on failure (exit code 1):
    every later one within 1e-5 relative (no two card runs are bitwise),
    and the logged FID that of evaluate fid on the last snapshot; (d) checkpoint_tools import → export
    → pack on the card; (e) a config_HD translation through the 512 → 299
-   preprocessing and InceptionV3, card against CPU.
+   preprocessing and InceptionV3, card against CPU;
+17. serving (ROADMAP 15) and the int8 tier (17's) at config_256's full
+   width, seeded generator, two seeded JPEG styles, phase 12's JPEGs as
+   requests: (a) the service in this process, max_batch 8: each bucket's
+   CUDA graph (1, 2, 4, 8) against an eager call bit for bit, 11 IN, 8
+   AdaIN and 2 LN launches a replay, ms a dispatch captured and eager; 16
+   requests through the micro-batcher, their launches by design (the
+   kernel line's ``launches_serve``) and within 1 uint8 step of the direct
+   path; (b) `python -m munit_tpu_torch serve` in a process of its own,
+   f32 and `--quant int8`: 64 POSTs from 1 and from 16 client threads,
+   every answer 200 and 256x256, requests/s, p50/p99, the mean batch from
+   /stats (above 1 under 16 clients), each process's launches by design;
+   (c) the int8 product at its two config_256 sites, batch 8: int32 sums
+   card against CPU bit for bit, timed against F.conv2d f32; `translate
+   --quant int8` within 0.05 mean |d| of f32; int8 and f32 ms an image at
+   batch 8; config_256 in bf16, captured, with MUNIT_INT8_DIS off and on
+   (losses finite, dis steps replayed, ms); and, beside the card's work, a
+   CPU service over 4 of the images, within 1 uint8 step of the card's.
 Earlier lines are JSON objects, each with ``at_s``, the seconds since the
 script started. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
@@ -192,7 +213,13 @@ comparison of two trees (parent, change, change, parent).
     python3 chip_smoke.py --sim2real
 
 builds the kernels and runs phase 13 alone; ``--vanilla`` phase 14 alone;
-``--hd`` phase 15 alone; ``--eval`` phase 16 alone.
+``--hd`` phase 15 alone; ``--eval`` phase 16 alone; ``--serve`` phase 17
+alone.
+
+    python3 chip_smoke.py --cli-numerics TREE [TREE ...]
+
+runs phase 4's fresh-process translation in each given checkout, against
+this checkout's CPU translation of the same seeded weights and images.
 
     python3 chip_smoke.py --profiler [N]
 
@@ -757,6 +784,9 @@ def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
     check(by_design == want_design,
           f"launches by design {by_design}, expected {want_design}")
 
+    # the fresh process runs beside the CPU translations here and in the
+    # packed phase
+    sub = unforced_start(ROOT, args, tmp / "sub")
     out_cpu = translate.main(args + ["--output_folder", str(tmp / "cpu"),
                                      "--device", "cpu"])
     errs = [float(np.abs(g - c).max()) for g, c in zip(out_gpu, out_cpu)]
@@ -770,7 +800,86 @@ def main_path_phase(norms, translate, GenBundle, get_config, tmp: Path):
           "card outputs are not finite 256x256x3 images")
     check(max(errs) <= 1e-3, f"card and CPU differ by {max(errs)}")
     packed_phase(translate, gen, args[2:], tmp)
+    sub = unforced_finish(*sub, out_cpu)
+    emit(phase="translate_unforced_subprocess", **sub)
+    check(sub["max_abs_err"] <= UNFORCED_TOL,
+          f"translate in a fresh process: card and CPU differ by "
+          f"{sub['max_abs_err']}")
+    check(not any(sub["flags_after"].values()),
+          f"translate left TF32 on: {sub['flags_after']}")
     return conf, by_design, tmp / "gen.pt"
+
+
+# The translate CLI as a user runs it: a fresh process that sets nothing,
+# so the card's defaults (cuDNN's TF32 on) hold until the CLI sets its own
+# numerics; its outputs into an .npy, the TF32 flags after it as JSON.
+UNFORCED_RUNNER = """
+import json, sys
+import numpy as np, torch
+from munit_tpu_torch.cli import translate
+out = translate.main(sys.argv[2:])
+np.save(sys.argv[1], np.stack(out))
+print(json.dumps({"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                  "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}))
+"""
+# f32 with TF32 off reads ~2e-6 card against CPU; TF32 rounds each conv's
+# operands to 10 mantissa bits, ~1e-3 of a value
+UNFORCED_TOL = 1e-4
+
+
+def unforced_start(tree, args, out: Path):
+    """``translate`` of checkout ``tree`` on the card in a fresh process
+    (UNFORCED_RUNNER), started: (tree, process, outputs file)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", UNFORCED_RUNNER, f"{out}.npy", *args,
+         "--output_folder", str(out), "--device", "cuda"],
+        cwd=tree, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return tree, proc, Path(f"{out}.npy")
+
+
+def unforced_finish(tree, proc, out: Path, cpu_outs) -> dict:
+    """The started translation against ``cpu_outs``: the largest
+    difference and the TF32 flags the process ended with."""
+    stdout, stderr = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"{tree}: translate exit "
+                                f"{proc.returncode}: {stderr[-3000:]}")
+    got = np.load(out)
+    return {"tree": str(tree), "images": len(got),
+            "max_abs_err": max(float(np.abs(g - c).max())
+                               for g, c in zip(got, cpu_outs)),
+            "tol": UNFORCED_TOL,
+            "flags_after": json.loads(stdout.strip().splitlines()[-1])}
+
+
+def cli_numerics(trees) -> int:
+    """``python3 chip_smoke.py --cli-numerics TREE ...``: phase 4's fresh-
+    process translation in each given checkout, on this checkout's seeded
+    weights and images, against this checkout's CPU translation; nothing
+    checked, each reading emitted."""
+    from munit_tpu_torch.cli import translate
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.nn.generator import GenBundle
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gen = GenBundle(get_config(str(CONFIG)), "cpu")
+        gen.init(torch.Generator().manual_seed(SEED))
+        torch.save({"2": gen.state_dict()}, tmp / "gen.pt")
+        write_images(tmp, np.random.RandomState(SEED))
+        args = ["--checkpoint", str(tmp / "gen.pt"), "--config",
+                str(CONFIG), "--input", str(tmp / "input"), "--style",
+                str(tmp / "style.png")]
+        cpu = translate.main(args + ["--output_folder", str(tmp / "cpu"),
+                                     "--device", "cpu"])
+        for i, tree in enumerate(trees):
+            emit(phase="cli_numerics", **unforced_finish(
+                *unforced_start(Path(tree).resolve(), args, tmp / f"sub{i}"),
+                cpu))
+    return 0
 
 
 def bf16_bits(a) -> np.ndarray:
@@ -870,10 +979,13 @@ def timing_phase(GenBundle, load_reference_checkpoint, conf, ckpt):
                 ms = float(np.median(rounds))
                 result[(b, tf32)] = ms
                 emit(phase="translate_time", batch=b, tf32=tf32,
+                     numerics="tf32" if tf32 else "f32, TF32 off (the "
+                     "inference CLIs' own)",
                      ms_per_image=ms, rounds_ms_per_image=rounds, iters=iters,
                      note="encode_content + decode, style encoded once; "
                           "median of the rounds")
-            profile(step, b, result[(b, True)])
+            parity_mode(True)
+            profile(step, b, result[(b, False)], tf32=False)
         parity_mode(False)
     return result
 
@@ -937,14 +1049,15 @@ def grouped(rows, per=1.0):
     return groups
 
 
-def profile(step, b, ms_per_image):
-    """Device time by kernel per image over 5 batch-b steps, TF32 on; the
-    idle share is against the unprofiled time per image."""
+def profile(step, b, ms_per_image, tf32):
+    """Device time by kernel per image over 5 batch-b steps in the numerics
+    set (``tf32`` says which); the idle share is against the unprofiled
+    time per image."""
     for _ in range(3):
         step()
     rows, wall_ms = device_profile(step, 5)
     busy = sum(r[0] for r in rows) / b
-    emit(phase="profile", batch=b, tf32=True,
+    emit(phase="profile", batch=b, tf32=tf32,
          profiled_wall_ms_per_image=wall_ms / b,
          device_busy_ms_per_image=busy if rows else "not measured",
          device_idle_share=(1 - busy / ms_per_image) if rows
@@ -3547,8 +3660,7 @@ def vanilla_translate_phase(norms, run: Path, cfg: Path, data: dict,
         folder.mkdir()
         for p in paths[:VANILLA_CPU_IMAGES] if key == "cpu" else paths:
             shutil.copy(p, folder)
-    set_numerics("tf32_off")     # as a fresh process runs
-    ckpts = str(run / "checkpoints")
+    ckpts = str(run / "checkpoints")    # the CLI sets f32, TF32 off
 
     def tb(folder, out, device):
         return translate_batch.main([
@@ -3583,8 +3695,9 @@ def vanilla_translate_phase(norms, run: Path, cfg: Path, data: dict,
               "start, the checkpoint's load, decode, 10 JPEG writes an "
               "image), the second run timed; model_ms_per_image: one "
               "image's content encode and 10-style decode alone, median of "
-              "10; card (TF32 off) against the CPU on the first images, the "
-              "same seeded styles")
+              "10, in the numerics the CLI set (f32, TF32 off); card "
+              "against the CPU on the first images, the same seeded "
+              "styles")
     check(all(w == sorted(Path(p).name for p in paths) for w in written),
           "translate_batch did not write every image into every folder")
     check(all(a.shape == (VANILLA_STYLES, 256, 256, 3) for a in card),
@@ -4786,6 +4899,497 @@ def profiler_alone(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 17
+
+SERVE_MAX_BATCH = 8
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_REQUESTS = 64          # POSTs at each client count
+SERVE_CLIENTS = (1, 16)
+SERVE_CPU_IMAGES = 4         # translated by the CPU service as well
+SERVE_TIME_REPS = 10
+SERVE_INT8_ITERS = 15        # timed bf16 iterations, after the warm-up
+INT8_INPUT_TOL = 0.05        # translate --quant int8 against f32, mean |d|
+# norm launches of one dispatch, whatever its batch: a content encode (11
+# IN) and a decode (8 AdaIN, 2 LN); the style encoder has no norm
+SERVE_PER_DISPATCH = {"instance_norm": 11, "adain": 8,
+                      "whole_layer_norm": 2}
+# the conv sites the int8 shape rule takes at config_256: (padded input
+# H, W, C), (kh, kw, cin, cout) of the res blocks' 3x3 and the first up
+# stage's 5x5
+INT8_SITES = {"res 3x3": ((66, 66, 256), (3, 3, 256, 256)),
+              "up 5x5": ((132, 132, 256), (5, 5, 256, 128))}
+INT8_OPS_PER_S = 1979e12     # H100 SXM int8 tensor cores, dense
+# the CPU side: a direct (max_batch 1) service on the CPU over the same
+# images, its uint8 outputs into an .npz
+SERVE_CPU_RUNNER = """
+import json, sys
+import numpy as np, torch
+from PIL import Image
+from munit_tpu_torch.serve import server
+out, images = sys.argv[1], sys.argv[2].split(",")
+svc = server.build_service(server.parse_args(sys.argv[3:]))
+np.savez(out, *[np.asarray(svc.translate(Image.open(p)))
+                for p in images])
+"""
+
+
+def write_styles(folder: Path) -> list:
+    """Two seeded 300x280 JPEG styles, smooth and noisy."""
+    from PIL import Image
+    rng = np.random.RandomState(SEED + 170)
+    paths = []
+    for i in range(2):
+        low = (rng.rand(6, 6, 3) * 255).astype(np.uint8)
+        img = np.asarray(Image.fromarray(low).resize((280, 300)), np.float32)
+        img = np.clip(img + rng.randn(300, 280, 3) * 10, 0, 255)
+        paths.append(folder / f"style{i}.jpg")
+        Image.fromarray(img.astype(np.uint8)).save(paths[-1], quality=92)
+    return paths
+
+
+def serve_args(cfg, ckpt, styles, *extra):
+    return ["--config", str(cfg), "--checkpoint", str(ckpt), "--style",
+            str(styles[0]), "--style", f"wet={styles[1]}", *extra]
+
+
+def start_server(tmp: Path, name, args):
+    """``python -m munit_tpu_torch serve`` in a process of its own on a
+    free port (through CLI_RUNNER, which writes its norm launches at
+    exit): (process, counts file)."""
+    counts = tmp / f"{name}_counts.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_RUNNER, str(counts), "serve", *args,
+         "--port", "0", "--max-batch", str(SERVE_MAX_BATCH)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, counts
+
+
+def wait_ready(proc, timeout=300):
+    """The port of a started server, once it answers /healthz."""
+    import urllib.request
+    t0 = time.perf_counter()
+    line = proc.stdout.readline()
+    check(line.startswith("serving on :"),
+          f"server did not start: {line!r} {proc.stderr.read()[-3000:]}"
+          if proc.poll() is not None else f"server said {line!r}")
+    port = int(line.strip().rsplit(":", 1)[1])
+    while time.perf_counter() - t0 < timeout:
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                return port, json.loads(r.read())
+        except OSError:
+            time.sleep(0.2)
+    raise RuntimeError("server did not answer /healthz")
+
+
+def stop_server(proc, counts: Path) -> dict:
+    """SIGINT, then the launch counts it wrote on its way out."""
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return json.loads(counts.read_text()) if counts.exists() else {}
+
+
+def http_load(port, bodies, clients):
+    """SERVE_REQUESTS POSTs of ``bodies`` (JPEG bytes, in turn) from
+    ``clients`` threads: each answer's status and size, the latencies, the
+    wall time and /stats before and after."""
+    import io
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    base = f"http://127.0.0.1:{port}"
+
+    def stats():
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            return json.loads(r.read())
+
+    def post(i):
+        req = urllib.request.Request(base + "/translate",
+                                     data=bodies[i % len(bodies)],
+                                     method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            data, status = r.read(), r.status
+        ms = (time.perf_counter() - t0) * 1e3
+        return status, Image.open(io.BytesIO(data)).size, ms
+
+    before = stats()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        res = list(pool.map(post, range(SERVE_REQUESTS)))
+    wall = time.perf_counter() - t0
+    after = stats()
+    ms = [r[2] for r in res]
+    n = after["requests"] - before["requests"]
+    b = after["batches"] - before["batches"]
+    return {"clients": clients, "requests": len(res),
+            "statuses": sorted({r[0] for r in res}),
+            "sizes": sorted({r[1] for r in res}),
+            "requests_per_s": len(res) / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mean_batch": n / max(b, 1), "batches": b,
+            "batch_hist": {k: after["batch_hist"].get(k, 0)
+                           - before["batch_hist"].get(k, 0)
+                           for k in after["batch_hist"]}}
+
+
+def bucket_inputs(svc, paths, b):
+    """The first b request images, prepped, and the default style, on the
+    card: a bucket's batch."""
+    from PIL import Image
+    x = np.concatenate([svc._prep(Image.open(p))
+                        for p in (paths * b)[:b]])
+    s = np.repeat(svc.styles["default"], b, axis=0)
+    return (torch.from_numpy(x).to(svc.device),
+            torch.from_numpy(s).to(svc.device))
+
+
+def serve_graph_phase(norms, svc, paths):
+    """17(a): each bucket's replay against its eager call, bit for bit; the
+    norm launches of one replay by design; ms per dispatch, captured
+    (copy in, replay, copy out) and eager, median of SERVE_TIME_REPS."""
+    out = {}
+    with svc._on_device():
+        for b in SERVE_BUCKETS:
+            x, s = bucket_inputs(svc, paths, b)
+            key = svc.graph_key(x, s)
+            check(key in svc.graphs._steps, f"bucket {b} not captured")
+            eager = svc._translate(x, s).clone()
+            norms.reset_launches()
+            replay = svc.dispatch(x, s)
+            torch.cuda.synchronize()
+            launches = counts_of(norms)
+            by_design = launches_by_design(norms)
+            diff = float((replay - eager).abs().max())
+            cap_ms, _ = host_ms(lambda: svc.dispatch(x, s), SERVE_TIME_REPS)
+            eager_ms, _ = host_ms(lambda: svc._translate(x, s),
+                                  SERVE_TIME_REPS)
+            out[b] = {"bitwise": bool(torch.equal(replay, eager)),
+                      "max_abs_diff": diff, "launches": launches,
+                      "launches_by_design": by_design,
+                      "captured_ms": cap_ms, "eager_ms": eager_ms,
+                      "captured_ms_per_image": cap_ms / b,
+                      "eager_ms_per_image": eager_ms / b}
+    return out
+
+
+def serve_translate_many(svc, paths, n):
+    """n requests (the images in turn, styles alternating) from n threads
+    at once through the service: its outputs as uint8 arrays."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    imgs = [Image.open(p) for p in paths]
+    with ThreadPoolExecutor(n) as pool:
+        return [np.asarray(o, np.int16) for o in pool.map(
+            lambda i: svc.translate(imgs[i % len(imgs)],
+                                    ("default", "wet")[i % 2]), range(n))]
+
+
+def int8_product_phase(ops):
+    """17(c): at each int8 site of config_256 at batch 8, the int32 sums of
+    seeded int8 operands on the card against the CPU, bit for bit; the
+    whole int8 conv (quantize, gather, torch._int_mm, scale back) on the
+    card against the CPU on one float input; ms of the sums alone and of
+    the whole int8 conv, against F.conv2d in float32 (TF32 off) of the same
+    conv, after an L2 flush; the bound of the int8 product."""
+    flush = torch.empty(100 * 2**20 // 4, device="cuda")
+    g = torch.Generator().manual_seed(SEED + 171)
+    rows = {}
+    b = SERVE_MAX_BATCH
+    for name, ((h, w, c), (kh, kw, cin, cout)) in INT8_SITES.items():
+        xq = torch.randint(-127, 128, (b, h, w, c), generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cout, cin, kh, kw), generator=g,
+                           dtype=torch.int8)
+        want = ops.int8_conv_sums(xq, wq)
+        got = ops.int8_conv_sums(xq.cuda(), wq.cuda())
+        x = torch.randn((b, h, w, c), generator=g)
+        wf = torch.randn((cout, cin, kh, kw), generator=g) * 0.02
+        with ops.conv_quant(all_convs=True):
+            y_cpu = ops.conv2d(x, wf)
+            xc, wc = x.cuda(), wf.cuda()
+            y_card = ops.conv2d(xc, wc)
+            full_ms = time_ms(lambda: ops.conv2d(xc, wc), flush, 10)
+        xqc, wqc = xq.cuda(), wq.cuda()
+        sums_ms = time_ms(lambda: ops.int8_conv_sums(xqc, wqc), flush, 10)
+        f32_ms = time_ms(lambda: ops.conv2d(xc, wc), flush, 10)
+        ho, wo = h - kh + 1, w - kw + 1
+        macs = b * ho * wo * kh * kw * cin * cout
+        nbytes = xq.numel() + wq.numel() + 4 * b * ho * wo * cout
+        t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {
+            "shape": [b, h, w, c], "kernel": [kh, kw, cin, cout],
+            "sums_bitwise": bool(torch.equal(got.cpu(), want)),
+            "conv_max_abs_err": float((y_card.cpu() - y_cpu).abs().max()),
+            "sums_ms": sums_ms, "int8_conv_ms": full_ms,
+            "f32_conv_ms": f32_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        check(rows[name]["sums_bitwise"],
+              f"int8 sums of the {name} conv differ card against CPU")
+    return rows
+
+
+def int8_dis_phase(MUNITTrainer, train_steps, get_config):
+    """17(c): config_256 at batch 1 in bf16, captured, with MUNIT_INT8_DIS
+    off and on: capture_warmup iterations, then SERVE_INT8_ITERS timed (one
+    cycle of the cadence: 15 dis steps, 3 fused, 1 classifier_sr); the
+    losses finite, the dis steps replayed; ms an iteration (the cycle's
+    mean, and the median iteration) and a dis step (median of 10)."""
+    from munit_tpu_torch.train.trainer import capture_warmup
+    conf = get_config(str(CONFIG))
+    warm = capture_warmup(conf)
+    out = {}
+    for on in ("0", "1"):
+        set_numerics("bf16")
+        os.environ["MUNIT_INT8_DIS"] = on
+        try:
+            tr = new_trainer(MUNITTrainer, conf, "cuda")
+        finally:
+            del os.environ["MUNIT_INT8_DIS"]
+        batch = numerics_inputs(train_inputs(1, SEED + 172), "bf16")
+        train_steps(tr, *batch, range(warm))
+        torch.cuda.synchronize()
+        ms, metrics = [], []
+        for it in range(warm, warm + SERVE_INT8_ITERS):
+            t0 = time.perf_counter()
+            metrics += train_steps(tr, *batch, [it])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        finite = all(np.isfinite(float(v)) for m in metrics
+                     for v in m.values())
+        dis_replays = sum(n for k, n in tr._graphs.replays.items()
+                          if k[0] == "dis")
+        dis_ms, _ = host_ms(lambda: tr.dis_update(*batch[:2]), 10)
+        out[f"int8_dis {on}"] = {
+            "int8_dis_fakes": tr.int8_dis_fakes, "finite": finite,
+            "ms_per_iteration": float(np.mean(ms)),
+            "iteration_ms_median": float(np.median(ms)),
+            "dis_step_ms": dis_ms, "dis_replays": dis_replays,
+            "loss_dis_total_last": float(metrics[-1]["loss_dis_total"])}
+        check(tr.int8_dis_fakes == (on == "1"), "MUNIT_INT8_DIS not read")
+        check(finite, f"MUNIT_INT8_DIS={on}: a loss is not finite")
+        check(dis_replays > 0, f"MUNIT_INT8_DIS={on}: no dis step replayed")
+        del tr
+        torch.cuda.empty_cache()
+    set_numerics("tf32_off")
+    return out
+
+
+def serve_phase(norms, get_config, data, tmp: Path):
+    """17: serving config_256 at full width on the card (seeded generator,
+    two seeded JPEG styles, phase 12's JPEGs as requests)."""
+    from munit_tpu_torch.cli import translate
+    from munit_tpu_torch.cli.translate import load_generator
+    from munit_tpu_torch.core import ops
+    from munit_tpu_torch.nn.generator import GenBundle
+    from munit_tpu_torch.serve.server import TranslationService
+    from munit_tpu_torch.train.trainer import MUNITTrainer, train_steps
+    from PIL import Image
+    t0 = time.perf_counter()
+    root = tmp / "serve"
+    root.mkdir()
+    conf = get_config(str(CONFIG))
+    gen = GenBundle(conf, "cpu")
+    gen.init(torch.Generator().manual_seed(SEED + 170))
+    ckpt = root / "gen.pt"
+    torch.save({"2": gen.state_dict()}, ckpt)
+    styles = write_styles(root)
+    paths = Path(data["data_list_train_a"]).read_text().split()
+    bodies = [Path(p).read_bytes() for p in paths]
+    steps = {}
+
+    def mark(name):
+        steps[name] = time.perf_counter() - t0
+
+    servers = {name: start_server(root, name, serve_args(CONFIG, ckpt,
+                                                         styles, *extra))
+               for name, extra in (("f32", ()),
+                                   ("int8", ("--quant", "int8")))}
+    cpu_out = root / "cpu.npz"
+    cpu = subprocess.Popen(
+        [sys.executable, "-c", SERVE_CPU_RUNNER, str(cpu_out),
+         ",".join(paths[:SERVE_CPU_IMAGES]),
+         *serve_args(CONFIG, ckpt, styles, "--device", "cpu",
+                     "--max-batch", "1")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "4"})
+    try:
+        # (a) the in-process service: graphs against eager, batched against
+        # direct, launches of the path
+        ops.set_conv_compute(None)
+        parity_mode(True)
+        g = load_generator(str(ckpt), conf, "cuda")
+        svc = TranslationService(conf, g, max_batch=SERVE_MAX_BATCH,
+                                 mesh="off")
+        direct = TranslationService(conf, g, max_batch=1, mesh="off")
+        for s in (svc, direct):
+            s.add_style("default", Image.open(
+                styles[0]))
+            s.add_style("wet", Image.open(styles[1]))
+            s.warmup()
+        mark("warmed")
+        norms.reset_launches()
+        batched = serve_translate_many(svc, paths, 16)
+        launches = counts_of(norms)
+        path_by_design = launches_by_design(norms)
+        st = svc.batcher.stats_snapshot()
+        want = {k: n * st["batches"] for k, n in SERVE_PER_DISPATCH.items()}
+        want_design = designs_of_calls(
+            norms, {**want, **{k + "_bwd": 0 for k in want}},
+            PATH_DESIGN_SHARE)
+        singles = [np.asarray(direct.translate(
+            Image.open(paths[i % len(paths)]),
+            ("default", "wet")[i % 2]), np.int16) for i in range(16)]
+        step_err = max(int(np.abs(a - b).max())
+                       for a, b in zip(batched, singles))
+        graphs_res = serve_graph_phase(norms, svc, paths)
+        mark("graphs")
+        emit(phase="serve_graphs", buckets=graphs_res,
+             graphs=len(svc.graphs), replays=sum(svc.graphs.replays.values()),
+             note="per bucket: its replay against an eager call of the same "
+                  "batch; launches of one replay; ms per dispatch (captured: "
+                  "copy in, replay, copy out; eager: the model alone), "
+                  "median of 10")
+        emit(phase="serve_path", requests=16, batches=st["batches"],
+             batch_hist=st["batch_hist"], launches=launches, expected=want,
+             launches_by_design=path_by_design,
+             expected_by_design=want_design,
+             batched_vs_direct_max_uint8_step=step_err)
+        for b, r in graphs_res.items():
+            check(r["bitwise"], f"bucket {b}: replay against eager "
+                                f"{r['max_abs_diff']}")
+            check(r["launches"] == SERVE_PER_DISPATCH,
+                  f"bucket {b} launches {r['launches']}")
+        check(launches == want, f"serve launches {launches}, want {want}")
+        check(path_by_design == want_design,
+              f"serve launches by design {path_by_design}, "
+              f"want {want_design}")
+        check(step_err <= 1, f"batched against direct: {step_err} steps")
+        # (b) HTTP against the f32 process, then int8's
+        loads = {}
+        port, health = wait_ready(servers["f32"][0])
+        mark("f32_server_ready")
+        for clients in SERVE_CLIENTS:
+            loads[clients] = http_load(port, bodies, clients)
+        mark("http_load")
+        port8, health8 = wait_ready(servers["int8"][0])
+        int8_load = http_load(port8, bodies, 4)
+        mark("int8_http")
+        counts = {name: stop_server(*pr) for name, pr in servers.items()}
+        emit(phase="serve_http", health=health, loads=loads,
+             int8=int8_load, launches={k: c.get("launches")
+                                       for k, c in counts.items()},
+             note="64 POSTs of phase 12's 286x286 JPEGs at each client "
+                  "count; requests/s over the wall time; p50/p99 of each "
+                  "request's latency; mean batch from /stats")
+        for r in (*loads.values(), int8_load):
+            check(r["statuses"] == [200] and r["sizes"] == [(256, 256)],
+                  f"HTTP answers {r['statuses']} {r['sizes']}")
+        check(loads[16]["mean_batch"] > 1,
+              f"mean batch under 16 clients {loads[16]['mean_batch']}")
+        for name, c in counts.items():
+            n = loads[1]["batches"] + loads[16]["batches"] \
+                if name == "f32" else int8_load["batches"]
+            # warm-up: each bucket eager and captured; int8 also calibrates
+            n += 2 * len(SERVE_BUCKETS) + (name == "int8")
+            want_p = {k: v * n for k, v in SERVE_PER_DISPATCH.items()}
+            got_p = {k: v for k, v in c.get("launches", {}).items() if v}
+            check(got_p == want_p, f"{name} server launches {got_p}, "
+                                   f"want {want_p}")
+        # (c) int8
+        product = int8_product_phase(ops)
+        emit(phase="int8_product", sites=product,
+             note="batch 8; sums: gather + torch._int_mm; int8 conv: "
+                  "quantize, gather, _int_mm, scale back; f32: F.conv2d, "
+                  "TF32 off; bound of the int8 product: int8 operations at "
+                  "1979 TOP/s or its bytes at 3.35 TB/s")
+        q8 = TranslationService(conf, g, max_batch=SERVE_MAX_BATCH,
+                                quant="int8", mesh="off")
+        q8.add_style("default", Image.open(styles[0]))
+        q8.warmup()
+        with q8._on_device():
+            x, s = bucket_inputs(q8, paths, SERVE_MAX_BATCH)
+            ms = {"int8_captured": host_ms(lambda: q8.dispatch(x, s),
+                                           SERVE_TIME_REPS)[0],
+                  "int8_eager": host_ms(lambda: q8._translate(x, s),
+                                        SERVE_TIME_REPS)[0]}
+        with svc._on_device():
+            ms.update({"f32_captured": host_ms(lambda: svc.dispatch(x, s),
+                                               SERVE_TIME_REPS)[0],
+                       "f32_eager": host_ms(lambda: svc._translate(x, s),
+                                            SERVE_TIME_REPS)[0]})
+        cli = tmp / "serve_cli"
+        cli.mkdir()
+        for i, p in enumerate(paths[:4]):
+            shutil.copy(p, cli / f"input{i}.jpg")
+        args = ["--config", str(CONFIG), "--checkpoint", str(ckpt),
+                "--input", str(cli), "--style", str(styles[0])]
+        f32_out = translate.main(args + ["--output_folder",
+                                         str(root / "t32")])
+        int8_out = translate.main(args + ["--output_folder",
+                                          str(root / "t8"),
+                                          "--quant", "int8"])
+        d8 = [float(np.abs(a - b).mean()) for a, b in zip(int8_out, f32_out)]
+        emit(phase="serve_int8", ms_per_image={k: v / SERVE_MAX_BATCH
+                                               for k, v in ms.items()},
+             batch=SERVE_MAX_BATCH, sites=len(q8._scales),
+             translate_int8_vs_f32_mean_abs=d8, tol=INT8_INPUT_TOL)
+        check(max(d8) < INT8_INPUT_TOL, f"int8 translation off f32 by {d8}")
+        mark("int8")
+        dis = int8_dis_phase(MUNITTrainer, train_steps, get_config)
+        emit(phase="serve_int8_dis", runs=dis)
+        mark("int8_dis")
+        # the CPU service, beside the card's work
+        _, err = cpu.communicate(timeout=600)
+        check(cpu.returncode == 0, f"CPU service exit {cpu.returncode}: "
+                                   f"{err[-3000:]}")
+        with np.load(cpu_out) as z:
+            cpu_imgs = [z[f"arr_{i}"].astype(np.int16)
+                        for i in range(SERVE_CPU_IMAGES)]
+        card = [np.asarray(direct.translate(Image.open(
+            p)), np.int16) for p in paths[:SERVE_CPU_IMAGES]]
+        cpu_err = max(int(np.abs(a - b).max()) for a, b in zip(card, cpu_imgs))
+        emit(phase="serve_cpu_vs_card", images=SERVE_CPU_IMAGES,
+             max_uint8_step=cpu_err)
+        check(cpu_err <= 1, f"serve card against CPU: {cpu_err} steps")
+        svc.batcher.close()
+        q8.batcher.close()
+    finally:
+        for proc in [cpu] + [pr[0] for pr in servers.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    mark("cpu_waited")
+    emit(phase="serve_seconds", seconds=time.perf_counter() - t0,
+         steps=steps)
+    return path_by_design
+
+
+def serve_alone() -> int:
+    """``python3 chip_smoke.py --serve``: the build and phase 17 alone."""
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.kernels import build, norms
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_train_data(Path(tmp) / "data")
+        serve_phase(norms, get_config, data, Path(tmp))
+    return 0
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -4844,12 +5448,14 @@ def hd_fields(name, hd):
 
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                  mom_err, mom_times, probe_launches, cli_launches,
-                 sim_launches, vanilla_launches, hd, eval_launches):
+                 sim_launches, vanilla_launches, hd, eval_launches,
+                 serve_launches):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
     backward, then the moments kernels of the probes. The grid kernels
     also carry their config_HD figures (``*_hd``, phase 15), the forward
-    ones their launches in phase 16's evaluate run (``launches_eval``)."""
+    ones their launches in phase 16's evaluate run (``launches_eval``) and
+    in phase 17's served requests (``launches_serve``)."""
     def total(rows, key):
         return sum(n * row[key] for n, row in rows)
 
@@ -4882,7 +5488,8 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
         f = hd_fields(name, hd)
         errs = hd["bwd_err" if name.endswith("_bwd") else "err"]
         extra = ({} if name.endswith("_bwd") else
-                 {"launches_eval": eval_launches[name]["grid"]})
+                 {"launches_eval": eval_launches[name]["grid"],
+                  "launches_serve": serve_launches[name]["grid"]})
         return entry(name, "grid", hd_rows(name, hd), errs, **f, **extra,
                      replaces=replaces, also_replaces=also,
                      launches=f["launches_hd"],
@@ -4911,6 +5518,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_sim2real=sim_launches[name][design],
                 launches_vanilla=vanilla_launches[name][design],
                 launches_eval=eval_launches[name][design],
+                launches_serve=serve_launches[name][design],
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
@@ -4928,7 +5536,8 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "1) and its train CLI (phase 15b), "
                     "launches_hd_fused_step: one replayed fused step's; "
                     "launches_eval: evaluate fid --kid over 32 pairs "
-                    "(phase 16)"))
+                    "(phase 16); launches_serve: 16 requests through the "
+                    "micro-batched service, replays (phase 17a)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -5020,6 +5629,10 @@ def main() -> int:
         return hd_alone()
     if sys.argv[1:] == ["--eval"]:
         return eval_alone()
+    if sys.argv[1:] == ["--serve"]:
+        return serve_alone()
+    if sys.argv[1:2] == ["--cli-numerics"]:
+        return cli_numerics(sys.argv[2:])
     if sys.argv[1:2] == ["--profiler"]:
         return profiler_alone(sys.argv[2:])
     # a checkout of the repo: the port and its sources must be here
@@ -5112,11 +5725,12 @@ def main() -> int:
                                          Path(tmp))
         hd = hd_phase(norms, get_config, validate, Path(tmp))
         eval_launches = eval_phase(norms, get_config, Path(tmp))
+        serve_launches = serve_phase(norms, get_config, data, Path(tmp))
 
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
         mom_times, probe_launches, cli_launches, sim_launches,
-        vanilla_launches, hd, eval_launches)}), flush=True)
+        vanilla_launches, hd, eval_launches, serve_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,17 +11,17 @@ the port's training checkpoints, and the packed inference ``.npz``.
   python -m munit_tpu_torch checkpoint_tools export --config c.yaml \\
       --ckpt ckpt_dir --out gen_exported.pt [--device cpu]
 
-  # pack: any generator source → the bf16 packed inference .npz, which
-  # translate and the JAX package's load_gen_params read
+  # pack: any generator source → the packed inference .npz (bf16, or int8
+  # with per-channel scales), which translate and the JAX package's
+  # load_gen_params read
   python -m munit_tpu_torch checkpoint_tools pack --config c.yaml \\
-      --ckpt gen.pt --out gen.npz [--device cpu]
+      --ckpt gen.pt --out gen.npz [--quant int8] [--device cpu]
 
 ``import`` writes ``<out>/ckpt_<step>.pt``, which ``train --resume`` and
 ``translate`` read; the other nets and the optimizers are the trainer's
 fresh ones (seed 0). Each command builds the config's nets on ``--device``
 (the card by default), so a file that does not fit the config stops it.
-Not ported, and refused: ``pack --quant int8`` and ``export-aot`` (ROADMAP
-queue 1 item 17).
+Not ported, and refused: ``export-aot`` (ROADMAP queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -68,12 +68,11 @@ def cmd_export(opts):
 
 def cmd_pack(opts):
     """A training checkpoint, reference .pt or inference .npz → the
-    compact bf16 serving .npz."""
-    if opts.quant == "int8":
-        raise SystemExit(f"pack --quant int8 is not ported; {ITEM_17}")
+    compact serving .npz, bf16 or int8."""
     conf = get_config(opts.config)
     gen = load_generator(opts.ckpt, conf, resolve_device(opts.device))
-    save_packed_params(opts.out, to_jax_params(gen.state_dict()))
+    save_packed_params(opts.out, to_jax_params(gen.state_dict()),
+                       opts.quant)
     print(f"packed → {opts.out} ({os.path.getsize(opts.out) / 1e6:.1f} MB)")
 
 
@@ -97,14 +96,16 @@ def parse_args(argv=None):
     e.add_argument("--ckpt", required=True,
                    help="a training checkpoint file or directory")
     e.add_argument("--out", required=True)
-    k = sub.add_parser("pack", help="params-only bf16 serving artifact")
+    k = sub.add_parser("pack", help="params-only bf16 or int8 serving "
+                                    "artifact")
     k.add_argument("--config", required=True)
     k.add_argument("--ckpt", required=True,
                    help="training checkpoint, reference .pt, or inference "
                         ".npz")
     k.add_argument("--out", required=True)
     k.add_argument("--quant", choices=["bf16", "int8"], default="bf16",
-                   help="int8 is not ported (ROADMAP item 17)")
+                   help="int8: per-output-channel int8 weights, "
+                        "dequantized at load")
     a = sub.add_parser("export-aot", help="not ported (ROADMAP item 17)")
     a.add_argument("--config", required=True)
     a.add_argument("--ckpt", required=True)

@@ -22,7 +22,9 @@ interpolated styles, frame by frame:
   python -m munit_tpu_torch evaluate sweep --config c.yaml \\
       --checkpoint gen.pt --input img.jpg [--nb_interp 8] [--device cpu]
 
-The generator comes from any file ``translate`` reads; the Inception from
+The generator comes from any file ``translate`` reads, its convolutions in
+float32 with TF32 off (``ops.set_conv_compute(None)``) as the JAX CLI's
+``Precision.HIGHEST``; the Inception from
 a torchvision ``inception_v3`` ``.pth``, an ``.npz`` or the JAX CLIs'
 pickle. ``--mesh auto`` (several cards) is not ported: ROADMAP queue 1
 item 16.
@@ -39,6 +41,7 @@ import torch
 from munit_tpu_torch.cli.translate import (load_generator, load_image,
                                            resolve_device, save_image01)
 from munit_tpu_torch.config import get_config
+from munit_tpu_torch.core import ops
 
 MESH_REFUSED = ("--mesh auto (several cards) is not ported; ROADMAP queue 1 "
                 "item 16")
@@ -64,6 +67,7 @@ def cmd_fid(opts):
     if opts.mesh == "auto":
         raise SystemExit(MESH_REFUSED)
     device = resolve_device(opts.device)
+    ops.set_conv_compute(None)
     conf = get_config(opts.config)
     gen = load_generator(opts.checkpoint, conf, device)
     net = load_inception(opts.inception_ckpt, device)
@@ -94,6 +98,7 @@ def cmd_sweep(opts):
     """Writes sweep<i>.jpg; returns the frames, (N, H, W, 3) in [-1, 1]."""
     from munit_tpu_torch.eval.slerp import get_slerp_interp
     device = resolve_device(opts.device)
+    ops.set_conv_compute(None)
     conf = get_config(opts.config)
     gen = load_generator(opts.checkpoint, conf, device)
     c = gen.encode_content(load_image(opts.input, conf["new_size"], device),

@@ -14,6 +14,13 @@ of ``gen_state: 0``), an ``.npz`` of ``sd::`` entries or a packed inference
 (``io/checkpoint.py``): a ``ckpt_<step>.pt`` file or a directory of them,
 whose latest is read.
 
+Convolutions run in float32 with TF32 off (``ops.set_conv_compute(None)``),
+the JAX CLI's ``Precision.HIGHEST``. ``--quant int8`` runs the generator's
+worthwhile convs in int8 (``ops.conv_quant``): a record pass over the first
+8 inputs calibrates one scale per conv site (their largest max|x|, x1.1),
+then every input runs with those static scales; the style is encoded in
+float32.
+
 Usage:
   python -m munit_tpu_torch translate --config configs/config_256.yaml \\
       --checkpoint gen.pt --input input_folder/ --style style.png \\
@@ -31,6 +38,7 @@ import torch
 from PIL import Image
 
 from munit_tpu_torch.config import get_config
+from munit_tpu_torch.core import ops
 from munit_tpu_torch.data import transforms as T
 from munit_tpu_torch.io import checkpoint
 from munit_tpu_torch.io.weights import load_reference_checkpoint
@@ -89,9 +97,24 @@ def parse_args(argv=None):
     p.add_argument("--output_path", default=".",
                    help="accepted for reference test.py compatibility (no-op)")
     p.add_argument("--quant", choices=["none", "int8"], default="none",
-                   help="int8 is not ported yet")
+                   help="int8: calibrated static W8A8 on the worthwhile "
+                        "generator convs")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p.parse_args(argv)
+
+
+def calibrate(body, inputs) -> list:
+    """Static int8 scales of ``body``'s conv sites: a record pass over each
+    input, the largest max|x| of each site across them, x1.1
+    (``munit_tpu/cli/translate.py:119-131``)."""
+    mx = None
+    for x in inputs:
+        rec = []
+        with ops.conv_quant(record=rec):
+            body(x)
+        m = torch.stack(rec).cpu().numpy()
+        mx = m if mx is None else np.maximum(mx, m)
+    return [1.1 * float(v) for v in mx]
 
 
 @torch.inference_mode()
@@ -99,9 +122,8 @@ def main(argv=None):
     """Translate the folder; returns the raw outputs, each (H, W, 3) float32
     in [-1, 1], in file order."""
     opts = parse_args(argv)
-    if opts.quant == "int8":
-        raise SystemExit("--quant int8 is not ported to the PyTorch port yet")
     device = resolve_device(opts.device)
+    ops.set_conv_compute(None)
     conf = get_config(opts.config)
     files = sorted(glob.glob(os.path.join(opts.input, "*")))
     if not files:
@@ -112,13 +134,22 @@ def main(argv=None):
     new_size = conf["new_size"]
 
     s_b = gen.encode_style(load_image(opts.style, new_size, device), 2)
+
+    def body(x_a):
+        return gen.decode(gen.encode_content(x_a, 1), s_b, 2)
+
+    scales = None
+    if opts.quant == "int8":
+        scales = calibrate(body, (load_image(p, new_size, device)
+                                  for p in files[:8]))
     outs = []
     for j, path in enumerate(files):
         x_a = load_image(path, new_size, device)
         if opts.save_input:
             save_image01(((x_a[0] + 1) / 2).cpu().numpy(),
                          os.path.join(opts.output_folder, f"input{j:03d}.jpg"))
-        x_ab = gen.decode(gen.encode_content(x_a, 1), s_b, 2)[0].cpu().numpy()
+        with ops.conv_quant(scales is not None, scales=scales):
+            x_ab = body(x_a)[0].cpu().numpy()
         save_image01((x_ab + 1) / 2,
                      os.path.join(opts.output_folder, f"output{j:03d}.jpg"))
         outs.append(x_ab)

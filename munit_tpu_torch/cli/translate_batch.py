@@ -23,6 +23,9 @@ the reference's flags): each image's ``num_style`` outputs' softmax
 predictions, then the Inception Score over all of them and the
 conditional one per input image (test_batch.py:138-208).
 
+The generator's convolutions run in float32 with TF32 off
+(``ops.set_conv_compute(None)``), the JAX CLI's ``Precision.HIGHEST``.
+
 Not ported, and refused: ``--trainer UNIT`` (ROADMAP queue 1 item 18) and
 ``--mesh auto`` (item 16).
 
@@ -44,6 +47,7 @@ import torch
 from munit_tpu_torch.cli.translate import (load_generator, resolve_device,
                                            save_image01)
 from munit_tpu_torch.config import get_config
+from munit_tpu_torch.core import ops
 from munit_tpu_torch.data.datasets import ImageFolder
 from munit_tpu_torch.eval.inception import inception_probs, load_inception
 from munit_tpu_torch.eval.scores import (conditional_inception_score,
@@ -110,6 +114,7 @@ def main(argv=None):
     if scoring and opts.inception_ckpt is None:
         raise SystemExit("--compute_IS/CIS needs --inception_ckpt")
     device = resolve_device(opts.device)
+    ops.set_conv_compute(None)
     conf = get_config(opts.config)
     style_dim = conf["gen"]["style_dim"]
     new_size = conf.get("new_size_a") or conf["new_size"]

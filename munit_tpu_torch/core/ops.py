@@ -1,9 +1,10 @@
 """Plain PyTorch ops of the networks, on NHWC tensors.
 
-Counterparts of ``munit_tpu/core/ops.py`` in plain math: no space-to-depth,
-lane packing or int8 rewrites. Tensors are NHWC as in the JAX package; a
-convolution views its input as channels-last NCHW (the same bytes) for
-``F.conv2d`` and hands back NHWC.
+Counterparts of ``munit_tpu/core/ops.py`` in plain math: no space-to-depth
+or lane packing. Tensors are NHWC as in the JAX package; a convolution views
+its input as channels-last NCHW (the same bytes) for ``F.conv2d`` and hands
+back NHWC. ``conv_quant`` is the JAX package's int8 inference tier (W8A8
+convolutions, ``munit_tpu/core/ops.py:183-314``).
 
 ``instance_norm``, ``adain`` and ``whole_layer_norm`` are the plain versions
 of the Hopper kernels in ``munit_tpu_torch/kernels``: the kernels' wrappers
@@ -14,6 +15,7 @@ kernels against them. Statistics are two-pass in (at least) float32.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +69,151 @@ def conv_compute_dtype():
     return _CONV_DTYPE
 
 
+# --- int8 (W8A8) convolutions, inference only -----------------------------
+#
+# ``conv_quant`` scopes int8 convs around a region of code, in one of three
+# modes, as the JAX package's (read there at trace time, here at call time):
+# - dynamic: a per-tensor activation scale max(max|x|, 1e-6)/127 computed
+#   on the device at each call (never read back, so a captured step holds
+#   it);
+# - record: full-precision convs that append each site's max|x| (a device
+#   scalar) to a caller's list, every site in call order: the calibration;
+# - static: one scale per site from a record pass (its max, usually x1.1),
+#   the sites counted in call order; a site the heuristic leaves in full
+#   precision still takes its index.
+# Weights take a scale per output channel over (kh, kw, cin). Rounding is
+# half to even, clipped to ±127. The product is the int8 taps of each
+# output pixel, gathered in the HWIO weight's flattening order, times the
+# int8 weight matrix, summed exactly in int32 by ``torch._int_mm`` (cuBLASLt
+# on the card), then scaled back: ``y.float() * (sx * sw)``.
+# The state is per thread: a scope covers the code run inside it.
+_QUANT = threading.local()
+
+
+def _quant_state():
+    return getattr(_QUANT, "state", None)
+
+
+@contextlib.contextmanager
+def conv_quant(enabled: bool = True, scales=None, record: list | None = None,
+               all_convs: bool = False):
+    """Scope int8 convs around the code run inside it.
+
+    ``scales``: per-site max|activation| floats (a record pass's) → static
+    mode. ``record``: a list that gets each site's max|x| → record mode.
+    Neither → dynamic mode. ``enabled=False`` turns quantization off inside
+    the scope. ``all_convs`` skips the ``_quant_worthwhile`` heuristic."""
+    old = _quant_state()
+    if not enabled:
+        _QUANT.state = None
+    elif record is not None:
+        _QUANT.state = {"mode": "record", "record": record, "all": all_convs}
+    elif scales is not None:
+        _QUANT.state = {"mode": "static", "scales": list(scales), "idx": 0,
+                        "all": all_convs}
+    else:
+        _QUANT.state = {"mode": "dynamic", "all": all_convs}
+    try:
+        yield
+    finally:
+        _QUANT.state = old
+
+
+def _quant_worthwhile(x_shape, k_shape, stride: int) -> bool:
+    """The JAX package's shape rule for a conv worth quantizing: stride 1,
+    at least 128 channels in and out, at most 160x160 input pixels.
+    ``x_shape`` is the padded NHWC input, ``k_shape`` the HWIO kernel's."""
+    kh, kw, cin, cout = k_shape
+    if stride != 1:
+        return False
+    if min(cin, cout) < 128:
+        return False
+    if x_shape[1] * x_shape[2] > 160 * 160:
+        return False
+    return True
+
+
+# The scales' /127 as the JAX package's jitted programs compute it: XLA
+# turns a division by the constant 127 into a multiply by its float32
+# reciprocal, which can round a scale one bit away from a true division.
+INV127 = 1.0 / 127.0
+
+
+def quantize(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """round(xf / scale), half to even, clipped to ±127, as int8."""
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+
+
+def weight_scales(weight: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel scales of an OIHW weight: max|w| over (kh, kw,
+    cin), at least 1e-8, over 127 (``INV127``)."""
+    return torch.clamp(weight.float().abs().amax(dim=(1, 2, 3)),
+                       min=1e-8) * INV127
+
+
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (K, N) int8 → (M, N) int32 through ``torch._int_mm``.
+    On the card its shape rules (M > 16, K and N multiples of 8) are met by
+    zero rows and columns, which add nothing to a sum."""
+    m, k = a.shape
+    n = b.shape[1]
+    if a.is_cuda:
+        pm, pk, pn = max(m, 17) - m, _ceil8(k) - k, _ceil8(n) - n
+        if pm or pk:
+            a = F.pad(a, (0, pk, 0, pm))
+        if pk or pn:
+            b = F.pad(b, (0, pn, 0, pk))
+        return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
+    return torch._int_mm(a.contiguous(), b.contiguous())
+
+
+def int8_conv_sums(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
+                   dilation: int = 1) -> torch.Tensor:
+    """The exact int32 sums of a VALID conv of an int8 NHWC input with an
+    int8 OIHW weight, as NHWC: each output pixel's taps gathered as one row
+    in the HWIO weight's (kh, kw, cin) order."""
+    b, h, w, c = xq.shape
+    cout, _, kh, kw = wq.shape
+    ho = (h - dilation * (kh - 1) - 1) // stride + 1
+    wo = (w - dilation * (kw - 1) - 1) // stride + 1
+    xq = xq.contiguous()
+    sb, sh, sw, sc = xq.stride()
+    taps = xq.as_strided((b, ho, wo, kh, kw, c),
+                         (sb, sh * stride, sw * stride, sh * dilation,
+                          sw * dilation, sc)).reshape(b * ho * wo,
+                                                      kh * kw * c)
+    mat = wq.permute(2, 3, 1, 0).reshape(kh * kw * c, cout)
+    return int8_matmul(taps, mat).view(b, ho, wo, cout)
+
+
+def _conv2d_int8(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                 dilation: int) -> torch.Tensor:
+    """W8A8 conv of a padded NHWC input: quantize both operands, sum in
+    int32, scale back. Returns float32."""
+    st = _quant_state()
+    xf = x.float()
+    if st["mode"] == "static":
+        if st["idx"] >= len(st["scales"]):
+            raise ValueError(
+                f"conv_quant: site {st['idx']} has no calibrated scale "
+                f"({len(st['scales'])} recorded) — the body run must match "
+                "the calibration body")
+        amax = max(float(st["scales"][st["idx"]]), 1e-6)
+        st["idx"] += 1
+        sx = torch.full((), amax / 127.0, dtype=torch.float32,
+                        device=x.device)
+    else:
+        sx = torch.clamp(xf.abs().amax(), min=1e-6) * INV127
+    sw = weight_scales(weight)
+    wq = quantize(weight.float(), sw[:, None, None, None])
+    acc = int8_conv_sums(quantize(xf, sx), wq, stride, dilation)
+    return acc.float() * (sx * sw)
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None = None, stride: int = 1,
            dilation: int = 1, padding: int = 0) -> torch.Tensor:
@@ -77,7 +224,23 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     Under ``set_conv_compute(torch.bfloat16)`` both operands are cast to
     bf16, the output is cast back to x's type and the bias is added in that
     type, as the JAX package does: a bias in f32 would promote every bf16
-    activation downstream."""
+    activation downstream. Inside a ``conv_quant`` scope a conv is recorded
+    or run in int8 as the scope says; its shape rule reads the padded
+    input."""
+    st = _quant_state()
+    if st is not None:
+        if padding:
+            x, padding = pad2d(x, padding, "zero"), 0
+        if st["mode"] == "record":
+            st["record"].append(x.float().abs().amax())
+        elif st["all"] or _quant_worthwhile(
+                x.shape, (*weight.shape[2:], *weight.shape[1::-1]), stride):
+            y = _conv2d_int8(x, weight, stride, dilation).to(x.dtype)
+            if bias is not None:
+                y = y + bias.to(x.dtype)
+            return y
+        elif st["mode"] == "static":
+            st["idx"] += 1
     if _CONV_DTYPE is None:
         y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride, padding,
                      dilation)

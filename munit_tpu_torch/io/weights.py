@@ -352,12 +352,18 @@ def bf16_bits(a) -> np.ndarray:
     return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
 
 
-def save_packed_params(path: str, tree: dict) -> None:
+def save_packed_params(path: str, tree: dict, quant: str = "bf16") -> None:
     """A JAX param tree → the packed inference ``.npz`` that
     ``load_packed_params`` and the JAX package's ``load_inference_params``
-    read (``save_inference_params`` with ``quant="bf16"``): leaves sorted
-    by their "/"-joined path, each float32 leaf of two or more dimensions
-    stored as bfloat16 bits, every other leaf as it is."""
+    read (``save_inference_params``): leaves sorted by their "/"-joined
+    path, each float32 leaf of two or more dimensions stored as bfloat16
+    bits (``quant="bf16"``) or as int8 with a float32 scale per last-axis
+    channel, max|v| over the other axes (at least 1e-8) over 127
+    (``quant="int8"``, rounded half to even, clipped to ±127); every other
+    leaf as it is."""
+    if quant not in ("bf16", "int8"):
+        raise ValueError(f"unknown quant mode {quant!r}")
+
     def flat(t, prefix=""):
         for k, v in t.items():
             key = f"{prefix}/{k}" if prefix else str(k)
@@ -366,7 +372,14 @@ def save_packed_params(path: str, tree: dict) -> None:
     arrays, keys = {}, {}
     for i, (key, v) in enumerate(sorted(flat(tree))):
         name, v = f"a{i}", np.asarray(v)
-        if v.ndim >= 2 and v.dtype == np.float32:
+        if v.ndim >= 2 and v.dtype == np.float32 and quant == "int8":
+            s = np.maximum(np.abs(v).max(axis=tuple(range(v.ndim - 1))),
+                           np.float32(1e-8)) / np.float32(127.0)
+            arrays[name] = np.clip(np.round(v / s), -127,
+                                   127).astype(np.int8)
+            arrays[name + "s"] = s.astype(np.float32)
+            keys[key] = {"name": name, "dtype": "int8", "scale": name + "s"}
+        elif v.ndim >= 2 and v.dtype == np.float32:
             arrays[name] = bf16_bits(v)
             keys[key] = {"name": name, "dtype": "bfloat16"}
         else:

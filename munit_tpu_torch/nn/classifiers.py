@@ -70,19 +70,20 @@ class _Downsample(nn.Module):
 
 class BasicBlock(nn.Module):
     """conv3x3 → BN → ReLU → conv3x3 → BN, plus the input or, where the
-    widths differ, a 1x1-conv + BN shortcut, then ReLU. Convs have no bias;
-    zero padding, ``dilation`` of it on each side (the seg head's blocks
-    are dilated)."""
+    widths differ or ``shortcut`` says so, a 1x1-conv + BN shortcut, then
+    ReLU. Convs have no bias; zero padding, ``dilation`` of it on each side
+    (the seg head's blocks are dilated)."""
 
-    def __init__(self, in_dim: int, planes: int, dilation: int = 1):
+    def __init__(self, in_dim: int, planes: int, dilation: int = 1,
+                 shortcut: bool = False):
         super().__init__()
         self.dilation = dilation
         self.conv1 = nn.Conv2d(in_dim, planes, 3, bias=False)
         self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, bias=False)
         self.bn2 = BatchNorm(planes)
-        self.downsample = (_Downsample(in_dim, planes) if in_dim != planes
-                           else None)
+        self.downsample = (_Downsample(in_dim, planes)
+                           if shortcut or in_dim != planes else None)
 
     def _conv(self, x, conv):
         return ops.conv2d(x, conv.weight, dilation=self.dilation,
@@ -109,8 +110,11 @@ class DomainClassifier(nn.Module):
 
     def __init__(self, in_dim: int = 256, content_hw=(64, 64)):
         super().__init__()
-        self.BasicBlock1 = BasicBlock(in_dim, 128)
-        self.BasicBlock2 = BasicBlock(128, 64)
+        # the JAX package's blocks always take the 1x1-conv shortcut
+        # (munit_tpu/nn/classifiers.py::_ClsBasicBlock), also where a
+        # content code of 128 channels meets the first block's 128
+        self.BasicBlock1 = BasicBlock(in_dim, 128, shortcut=True)
+        self.BasicBlock2 = BasicBlock(128, 64, shortcut=True)
         h, w = content_hw
         self.fc = nn.Linear(64 * pooled_size(h) * pooled_size(w), 1)
 

@@ -114,6 +114,13 @@ a CUDA device the bodies run as CUDA graphs, captured once per key and
 replayed (``train/graphs.py``); on the CPU they run eagerly.
 ``dis_gen_grads`` and ``sample`` always run eagerly.
 
+``MUNIT_INT8_DIS=1`` (trainer.py:332-335) runs the generator forward that
+makes D's detached fakes in dynamic int8 (``ops.conv_quant``): the dis
+step's and, at K > 1, the exact fused step's phase A (trainer.py:700-705,
+984), the ``_dis_chunk`` both run; the fakes of the K = 1 and shared-forward
+fused steps stay in full precision, as JAX's. The switch is read once per
+trainer (``int8_dis_fakes``) and is part of each step's graph key.
+
 ``check_ported`` reads the JAX trainer's switches and refuses, naming its
 ROADMAP item, each that this port lacks.
 """
@@ -207,10 +214,6 @@ def check_ported(conf: Dict) -> None:
         raise NotImplementedError(
             "MUNIT_FUSED=0 (separate dis and gen steps on gen iterations) is "
             "not ported; ROADMAP queue 1 item 21")
-    if os.environ.get("MUNIT_INT8_DIS", "0") == "1":
-        raise NotImplementedError(
-            "MUNIT_INT8_DIS=1 (int8 discriminator fakes) is not ported; "
-            "ROADMAP queue 1 item 17")
     if str(conf.get("remat", "")).lower() in _REMAT_ON:
         raise NotImplementedError(
             f"remat: {conf['remat']} (rematerialisation) is not ported; "
@@ -260,6 +263,7 @@ class MUNITTrainer:
                                         "accum_shared_fwd", 0)
         self.accum_chunk_dis = _switch("MUNIT_ACCUM_CHUNK_DIS", conf,
                                        "accum_chunk_dis", 0)
+        self.int8_dis_fakes = os.environ.get("MUNIT_INT8_DIS", "0") == "1"
         if self.grad_accum > 1 and (ad["adv_lambda"] > 0
                                     or conf["domain_adv_w"] > 0):
             warnings.warn(
@@ -794,7 +798,8 @@ class MUNITTrainer:
         if self._capture:
             key = graphs.step_key(kind, extrapolate,
                                   [o.has_copy for o in states], tensors,
-                                  static)
+                                  static + (("int8_dis",
+                                             self.int8_dis_fakes),))
             m = self._graphs.run(key, run, tensors)
         else:
             m = {k: v.detach() for k, v in run(*tensors).items()}
@@ -829,8 +834,9 @@ class MUNITTrainer:
                           ("dis",), lr_metric=True)
 
     def _dis_chunk(self, x_a, x_b, *styles):
-        """D's gradients and metrics on detached cross decodes."""
-        with torch.no_grad():
+        """D's gradients and metrics on detached cross decodes (int8 with
+        ``MUNIT_INT8_DIS=1``)."""
+        with torch.no_grad(), ops.conv_quant(self.int8_dis_fakes):
             x_ba, x_ab = self._cross_decode(x_a, x_b, styles)
         total, m = self._dis_loss(x_ba, x_ab, x_a, x_b)
         return self._grads(total, self.dis_params()), m

@@ -11,7 +11,10 @@ small width (32 px).
   same ``.pt`` array for array, manifest included; JAX's
   ``load_gen_params`` reads it, and its translation from it matches the
   port's (atol 1e-4, translation's bound).
-- ``pack --quant int8`` and ``export-aot`` are refused, naming item 17.
+- ``pack --quant int8``: the port's file equals the JAX CLI's array for
+  array (int8 weights and their per-channel scales bit for bit, manifest
+  included); both packages read it, to the same dequantized weights.
+- ``export-aot`` is refused, naming item 17.
 """
 
 import jax
@@ -175,9 +178,29 @@ def test_pack_as_jax_and_readable_by_jax(files):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("args", [["pack", "--quant", "int8"],
-                                  ["export-aot"]])
-def test_int8_and_aot_refused(files, args):
+def test_pack_int8_as_jax_and_readable_by_both(files):
+    root = files["root"]
+    _tools("pack", "--config", files["cfg"], "--ckpt", files["gen"],
+           "--out", str(root / "port8.npz"), "--quant", "int8")
+    jax_tools.main(["pack", "--config", files["cfg"], "--ckpt", files["gen"],
+                    "--out", str(root / "jax8.npz"), "--quant", "int8"])
+    got, want = np.load(root / "port8.npz"), np.load(root / "jax8.npz")
+    assert sorted(got.files) == sorted(want.files)
+    dtypes = {got[k].dtype for k in got.files}
+    assert np.dtype(np.int8) in dtypes and np.dtype(np.float32) in dtypes
+    for k in want.files:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # both packages dequantize it to the same weights
+    port_sd = load_reference_checkpoint(str(root / "port8.npz"))
+    jax_sd = from_jax_params(load_gen_params(str(root / "port8.npz"),
+                                             jvalidate(files["spec"])))
+    assert set(port_sd) == set(jax_sd)
+    for k, v in jax_sd.items():
+        assert torch.equal(port_sd[k], v), k
+
+
+def test_aot_refused(files):
     with pytest.raises(SystemExit, match="item 17"):
-        _tools(args[0], "--config", files["cfg"], "--ckpt", files["gen"],
-               "--out", str(files["root"] / "x"), *args[1:])
+        _tools("export-aot", "--config", files["cfg"], "--ckpt",
+               files["gen"], "--out", str(files["root"] / "x"))

@@ -289,7 +289,6 @@ def test_domain_classifier_at_the_content_size_matches_jax(content_hw):
 REFUSED = [
     ({"MUNIT_FUSED": "0"}, {}, "item 21"),
     ({}, {"fused": 0}, "item 21"),
-    ({"MUNIT_INT8_DIS": "1"}, {}, "item 17"),
     ({}, {"remat": True}, "item 13c"),
     ({}, {"remat": "hd"}, "item 13c"),
     ({}, {"remat": "pads"}, "item 13c"),
@@ -314,19 +313,22 @@ def test_unported_switch_raises(monkeypatch, env, over, item):
 
 @pytest.mark.parametrize("env,over", [
     ({"MUNIT_FUSED": "1"}, {}), ({}, {"fused": 1}),
-    ({"MUNIT_INT8_DIS": "0"}, {}), ({}, {"remat": False}),
+    ({"MUNIT_INT8_DIS": "0"}, {}), ({"MUNIT_INT8_DIS": "1"}, {}),
+    ({}, {"remat": False}),
     ({}, {"remat": "none"}), ({"MUNIT_SEG_REMAT": "0"}, {}),
     ({"MUNIT_WIDE": "1"}, {}), ({}, {"wide": 2, "gen_state": 0}),
     ({"MUNIT_PALLAS": "1", "MUNIT_PACKED_TAIL": "0",
       "MUNIT_CLS_STACKED": "1", "MUNIT_COMPILER_OPTS": "a=b"}, {})])
 def test_default_switches_are_taken(monkeypatch, env, over):
-    """Their defaults, and wide 2 with gen_state 0 (which JAX runs narrow),
-    build a trainer; the layout-only switches, whose plain math the port
+    """Their defaults, ``MUNIT_INT8_DIS=1`` (int8 fakes for D, read as
+    JAX reads it) and wide 2 with gen_state 0 (which JAX runs narrow) build
+    a trainer; the layout-only switches, whose plain math the port
     computes, are not read."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     tr = MUNITTrainer(validate(hd_raw(**over)), "cpu")
     assert tr.wide in (0, 1)
+    assert tr.int8_dis_fakes == (env.get("MUNIT_INT8_DIS") == "1")
 
 
 # ------------------------------------- classifier_sr with gen_state: 0

@@ -114,11 +114,25 @@ def test_translate_cli_needs_cuda_by_default(tiny_run, monkeypatch):
         translate.main(args + ["--output_folder", str(tmp_path / "out")])
 
 
-def test_translate_cli_rejects_int8(tiny_run):
+def test_translate_cli_int8_leaves_narrow_convs_in_float(tiny_run,
+                                                        monkeypatch):
+    """At this width no conv carries 128 channels both ways, so the int8
+    shape rule quantizes none: ``--quant int8`` calibrates (a record pass
+    over each input, every conv site) and translates bit for bit as
+    float32."""
     tmp_path, args, _ = tiny_run
-    with pytest.raises(SystemExit, match="int8"):
-        translate.main(args + ["--output_folder", str(tmp_path / "out"),
+    passes = []
+    calibrate = translate.calibrate
+    monkeypatch.setattr(translate, "calibrate", lambda body, xs: passes.append(
+        calibrate(body, list(xs))) or passes[-1])
+    q = translate.main(args + ["--output_folder", str(tmp_path / "q"),
                                "--device", "cpu", "--quant", "int8"])
+    f = translate.main(args + ["--output_folder", str(tmp_path / "f"),
+                               "--device", "cpu"])
+    # 7 content encoder and 7 decoder convs: a stem, 2 downs, 4 + 4 res
+    # block convs, 2 ups, the output conv
+    assert len(passes) == 1 and len(passes[0]) == 14
+    assert all(np.array_equal(a, b) for a, b in zip(q, f)) and len(q) == 2
 
 
 def test_module_entry_point(tiny_run, capsys):
