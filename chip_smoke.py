@@ -198,7 +198,25 @@ Phases, each raising on failure (exit code 1):
    --quant int8` within 0.05 mean |d| of f32; int8 and f32 ms an image at
    batch 8; config_256 in bf16, captured, with MUNIT_INT8_DIS off and on
    (losses finite, dis steps replayed, ms); and, beside the card's work, a
-   CPU service over 4 of the images, within 1 uint8 step of the card's.
+   CPU service over 4 of the images, within 1 uint8 step of the card's;
+18. the deployment artifact and UNIT (ROADMAP 17, 18) at config_256's full
+   width, phase 4's seeded generator and images: (a) `checkpoint_tools
+   export-aot` on the card three times, f32, bf16 and int8 (calibrated on
+   phase 4's images and style), the seconds of each; (b) each artifact
+   loaded in a fresh process that must import none of the port's `nn`,
+   `config`, `cli` or `train`, translating at batch 1 and 8 from the one
+   artifact: f32 within 1e-5 of the eager translation on the card (TF32
+   off), bf16 and int8 (the artifact's scales) bit for bit; (c) the norm
+   launches of each of those dispatches (11 IN, 8 AdaIN, 2 LN) beside the
+   traced graph's operator nodes, its int8 products and convs; (d) `serve
+   --artifact` (f32) for buckets 1-8 beside the config-built service on
+   the same weights: each bucket's replay bit for bit against its eager
+   call, its launches, the two services' replays within 1e-5, ms a
+   dispatch captured and eager of both; (e) `translate_batch --trainer
+   UNIT` (seeded VAE weights, slots a and b) over phase 12's 16 JPEGs on
+   the card, its launches by design (17 cluster and 2 grid IN, 2 LN an
+   image), ms an image (the command; the model alone), and the first two
+   against the CPU's (run beside the card's work) within 1 uint8 step.
 Earlier lines are JSON objects, each with ``at_s``, the seconds since the
 script started. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
@@ -214,7 +232,14 @@ comparison of two trees (parent, change, change, parent).
 
 builds the kernels and runs phase 13 alone; ``--vanilla`` phase 14 alone;
 ``--hd`` phase 15 alone; ``--eval`` phase 16 alone; ``--serve`` phase 17
-alone.
+alone; ``--aot`` phase 18 alone.
+
+    python3 chip_smoke.py --host-us TREE [TREE ...]
+
+times phase 2's host µs per wrapper call (no gradient: AdaIN at 64², IN
+at 128², LN at 256²) in each given checkout, in turns with the direct
+forward in the same process, one fresh process after another, with that
+checkout's own code.
 
     python3 chip_smoke.py --cli-numerics TREE [TREE ...]
 
@@ -239,6 +264,7 @@ import sys
 import tempfile
 import time
 import warnings
+import zipfile
 from collections import Counter
 from pathlib import Path
 
@@ -5390,6 +5416,440 @@ def serve_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 18
+
+# the three artifacts of phase 18: export-aot's arguments beyond the
+# weights (int8's calibration folder and style are filled in)
+AOT_KINDS = {"f32": ("--dtype", "f32"), "bf16": ("--dtype", "bf16"),
+             "int8": ("--dtype", "f32", "--quant", "int8")}
+AOT_BATCHES = (1, 8)
+AOT_F32_TOL = 1e-5           # f32, TF32 off: the artifact against eager
+UNIT_CPU_IMAGES = 2          # translated by the CPU as well
+# UNIT's norm calls an image at config_256: a content encode (11 IN: 9 at
+# 64², on the cluster design, 2 grid) and a decode (8 IN in its res blocks
+# at 64², 2 LN)
+UNIT_PER_IMAGE = {"instance_norm": {"cluster": 17, "grid": 2},
+                  "whole_layer_norm": {"grid": 2}}
+# a fresh process: load one artifact on the card, translate phase 4's
+# images at each batch (the norm launches of each dispatch counted), its
+# outputs into an .npz, and which of the port's modules it imported
+AOT_RUNNER = """
+import json, sys
+import numpy as np, torch
+from munit_tpu_torch.io import aot
+from munit_tpu_torch.kernels import norms
+art = aot.load_artifact(sys.argv[1], "cuda")
+z = np.load(sys.argv[2])
+s = art.encode_style(z["style"])
+out, counts = {"s": s.cpu().numpy()}, {}
+for b in [int(v) for v in sys.argv[4].split(",")]:
+    norms.reset_launches()
+    y = art.translate(z["x"][:b], s)
+    torch.cuda.synchronize()
+    counts[b] = {"launches": {k: norms.launches[k] for k in norms.NAMES},
+                 "by_design": {k: dict(norms.design_launches[k])
+                               for k in norms.NAMES}}
+    out[f"y{b}"] = y.cpu().numpy()
+np.savez(sys.argv[3], **out)
+print(json.dumps({"modules": sorted(m for m in sys.modules
+                                    if m.startswith("munit_tpu_torch")),
+                  "counts": counts}))
+"""
+AOT_BANNED = ("munit_tpu_torch.nn", "munit_tpu_torch.config",
+              "munit_tpu_torch.cli", "munit_tpu_torch.train")
+# the CPU side of UNIT: translate_batch --trainer UNIT on the CPU, its
+# returned translations into an .npz
+UNIT_CPU_RUNNER = """
+import sys
+import numpy as np
+from munit_tpu_torch.cli import translate_batch
+np.savez(sys.argv[1], *translate_batch.main(sys.argv[2:]))
+"""
+
+
+def vae_state(seed):
+    """Seeded weights of UNIT's VAEGen at config_256's widths, in the
+    reference layout: kaiming-scaled conv weights, small biases, U[0,1)
+    LayerNorm gammas."""
+    from munit_tpu_torch.nn.generator import VAEGen
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in VAEGen(3, 64, 2, 4).state_dict().items():
+        if k.endswith("norm.gamma"):
+            out[k] = torch.rand(v.shape, generator=g)
+        elif k.endswith("weight"):
+            fan_in = int(np.prod(v.shape[1:]))
+            out[k] = torch.randn(v.shape, generator=g) * (2.0 / fan_in) ** 0.5
+        else:
+            out[k] = torch.randn(v.shape, generator=g) * 0.1
+    return out
+
+
+def to_u8(y):
+    """A translation in [-1, 1] → uint8 as the CLIs save it (min-max
+    normalized, rounded), as int16 for differences."""
+    a = (y + 1.0) / 2.0
+    a = (a - a.min()) / max(a.max() - a.min(), 1e-5)
+    return (a * 255).round().astype(np.int16)
+
+
+def aot_exports(out: dict, root: Path, ckpt: Path, calib: Path,
+                style: Path):
+    """18(a): export-aot of config_256 on the card, f32, bf16 and int8 (its
+    calibration phase 4's images and style); each artifact's fresh process
+    started as soon as it is written. Fills ``out``: {kind: (path,
+    seconds, programs, (process, output))}."""
+    from munit_tpu_torch.cli import checkpoint_tools
+    batches = ",".join(str(b) for b in AOT_BATCHES)
+    for kind, extra in AOT_KINDS.items():
+        if kind == "int8":
+            extra += ("--calib-dir", str(calib), "--calib-style", str(style))
+        path = root / f"{kind}.pt2.zip"
+        t0 = time.perf_counter()
+        programs = checkpoint_tools.main(
+            ["export-aot", "--config", str(CONFIG), "--ckpt", str(ckpt),
+             "--out", str(path), *extra])
+        seconds = time.perf_counter() - t0
+        res = root / f"{kind}_fresh.npz"
+        proc = subprocess.Popen(
+            [sys.executable, "-c", AOT_RUNNER, str(path),
+             str(root / "inputs.npz"), str(res), batches],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        out[kind] = (path, seconds, programs["cuda"], (proc, res))
+
+
+def aot_eager(gen, x, style, kind, scales):
+    """The eager translation of ``kind``'s numerics on the card, at each
+    AOT_BATCHES: {batch: output}, the style code."""
+    from munit_tpu_torch.core import ops
+    ops.set_conv_compute(torch.bfloat16 if kind == "bf16" else None)
+    try:
+        ys = {}
+        with torch.no_grad():
+            s = gen.encode_style(style, 2)
+            for b in AOT_BATCHES:   # the static scales count sites a call
+                with ops.conv_quant(scales is not None, scales=scales):
+                    ys[b] = gen.decode(gen.encode_content(x[:b], 1),
+                                       s.expand(b, -1), 2).cpu().numpy()
+    finally:
+        ops.set_conv_compute(None)
+    return ys, s.cpu().numpy()
+
+
+def aot_fresh_check(norms, kind, started, want, programs):
+    """18(b, c): a fresh process's outputs against eager, its imports, and
+    the launches of each dispatch against the traced graph's nodes."""
+    from munit_tpu_torch.io import aot
+    (proc, res) = started
+    stdout, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"{kind} artifact in a fresh process: "
+                                f"{err[-3000:]}")
+    got = json.loads(stdout.strip().splitlines()[-1])
+    bad = [m for m in got["modules"] for p in AOT_BANNED
+           if m == p or m.startswith(p + ".")]
+    ops_count = aot.graph_ops(programs["translate"])
+    graph = {k.split(".")[1]: n for k, n in ops_count.items()
+             if k.startswith("munit_tpu_torch.")}
+    ys, s = want
+    with np.load(res) as z:
+        diffs = {b: float(np.abs(z[f"y{b}"] - ys[b]).max())
+                 for b in AOT_BATCHES}
+        bitwise = {b: bool(np.array_equal(z[f"y{b}"], ys[b]))
+                   for b in AOT_BATCHES}
+        style_bitwise = bool(np.array_equal(z["s"], s))
+        finite = all(np.isfinite(z[f"y{b}"]).all() for b in AOT_BATCHES)
+    counts = {int(b): c for b, c in got["counts"].items()}
+    row = {"max_abs_diff": diffs, "bitwise": bitwise,
+           "style_bitwise": style_bitwise, "finite": finite,
+           "banned_modules": bad, "modules": got["modules"],
+           "launches": {b: c["launches"] for b, c in counts.items()},
+           "graph_nodes": graph,
+           "graph_int8_products": ops_count.get("aten._int_mm.default", 0),
+           "graph_convs": ops_count.get("aten.conv2d.default", 0)}
+    check(not bad, f"{kind} artifact imported {bad}")
+    check(finite, f"{kind} artifact: outputs not finite")
+    for b, c in counts.items():
+        check(c["launches"] == SERVE_PER_DISPATCH,
+              f"{kind} artifact, batch {b}: launches {c['launches']}")
+    check(graph == SERVE_PER_DISPATCH, f"{kind} graph nodes {graph}")
+    if kind == "f32":
+        check(max(diffs.values()) <= AOT_F32_TOL,
+              f"f32 artifact against eager: {diffs}")
+    else:
+        check(all(bitwise.values()) and style_bitwise,
+              f"{kind} artifact against eager: {diffs}")
+    check((row["graph_int8_products"] > 0) == (kind == "int8"),
+          f"{kind}: {row['graph_int8_products']} int8 products in the graph")
+    return row, counts
+
+
+def aot_serve_phase(norms, conf, gen, path, style, paths):
+    """18(d): serve --artifact (f32) for buckets 1-8 beside the
+    config-built service on the same weights: each bucket's replay against
+    its eager call bit for bit, the launches of one replay, the artifact's
+    replay against the config-built one, ms a dispatch captured and eager
+    (median of SERVE_TIME_REPS) of both."""
+    from munit_tpu_torch.serve.server import TranslationService
+    from PIL import Image
+    art = TranslationService(artifact=str(path), device="cuda",
+                             max_batch=SERVE_MAX_BATCH, mesh="off")
+    ref = TranslationService(conf, gen, max_batch=SERVE_MAX_BATCH,
+                             mesh="off")
+    for svc in (art, ref):
+        svc.add_style("default", Image.open(style))
+        svc.warmup()
+    out = {}
+    try:
+        for b in SERVE_BUCKETS:
+            row = {}
+            for name, svc in (("artifact", art), ("config", ref)):
+                with svc._on_device():
+                    x, s = bucket_inputs(svc, paths, b)
+                    check(svc.graph_key(x, s) in svc.graphs._steps,
+                          f"{name} bucket {b} not captured")
+                    eager = svc._translate(x, s).clone()
+                    norms.reset_launches()
+                    replay = svc.dispatch(x, s)
+                    torch.cuda.synchronize()
+                    row[name] = {
+                        "bitwise": bool(torch.equal(replay, eager)),
+                        "launches": counts_of(norms),
+                        "captured_ms": host_ms(lambda: svc.dispatch(x, s),
+                                               SERVE_TIME_REPS)[0],
+                        "eager_ms": host_ms(lambda: svc._translate(x, s),
+                                            SERVE_TIME_REPS)[0],
+                        "out": replay.cpu()}
+            a, c = row["artifact"].pop("out"), row["config"].pop("out")
+            row["artifact_vs_config_max_abs_diff"] = float(
+                (a - c).abs().max())
+            out[b] = row
+            for name in ("artifact", "config"):
+                check(row[name]["bitwise"],
+                      f"{name} bucket {b}: replay against eager")
+                check(row[name]["launches"] == SERVE_PER_DISPATCH,
+                      f"{name} bucket {b} launches {row[name]['launches']}")
+            check(row["artifact_vs_config_max_abs_diff"] <= AOT_F32_TOL,
+                  f"bucket {b}: artifact against config service "
+                  f"{row['artifact_vs_config_max_abs_diff']}")
+    finally:
+        art.batcher.close()
+        ref.batcher.close()
+    return out
+
+
+def unit_phase(norms, root: Path, cpu_started):
+    """18(e): translate_batch --trainer UNIT on config_256 at full width
+    (seeded VAE weights, slots a and b) over phase 12's 16 JPEGs on the
+    card: its launches by design, ms an image (the command, and the model
+    alone at batch 1); the card's translations of the first
+    UNIT_CPU_IMAGES against the CPU's (started beside the card's work),
+    within 1 uint8 step."""
+    from munit_tpu_torch.cli import translate_batch
+    from munit_tpu_torch.cli.translate import load_image
+    from munit_tpu_torch.config import get_config
+    proc, cpu_out, args, folder = cpu_started
+    norms.reset_launches()
+    t0 = time.perf_counter()
+    outs = translate_batch.main(args + ["--input_folder", str(folder),
+                                        "--output_folder",
+                                        str(root / "unit_card")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts_of(norms)
+    by_design = {k: {d: n for d, n in v.items() if n}
+                 for k, v in launches_by_design(norms).items()
+                 if any(v.values())}
+    n = len(outs)
+    want = {k: {d: c * n for d, c in v.items()}
+            for k, v in UNIT_PER_IMAGE.items()}
+    opts = translate_batch.parse_args(args + ["--input_folder", str(folder),
+                                              "--output_folder", "-"])
+    tr = translate_batch.unit_translator(opts, get_config(str(CONFIG)),
+                                         torch.device("cuda"))
+    x = load_image(str(sorted(folder.iterdir())[0]), 256, "cuda")
+    with torch.inference_mode():
+        model_ms, _ = host_ms(lambda: tr(x, None), SERVE_TIME_REPS)
+    stdout, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"UNIT on the CPU: {err[-3000:]}")
+    with np.load(cpu_out) as z:
+        cpu = [z[f"arr_{i}"] for i in range(UNIT_CPU_IMAGES)]
+    steps = max(int(np.abs(to_u8(a[0]) - to_u8(b[0])).max())
+                for a, b in zip(outs, cpu))
+    finite = all(np.isfinite(o).all() for o in outs)
+    row = {"images": n, "seconds": wall, "ms_per_image": wall * 1e3 / n,
+           "model_ms_per_image": model_ms, "launches": launches,
+           "launches_by_design": by_design, "expected_by_design": want,
+           "card_vs_cpu_max_uint8_step": steps,
+           "card_vs_cpu_max_abs_diff": max(float(np.abs(a - b).max())
+                                           for a, b in zip(outs, cpu)),
+           "finite": finite, "shapes": sorted({tuple(o.shape) for o in outs})}
+    check(finite and row["shapes"] == [(1, 256, 256, 3)],
+          f"UNIT outputs {row['shapes']}")
+    check(by_design == want, f"UNIT launches by design {by_design}, "
+                             f"want {want}")
+    check(steps <= 1, f"UNIT card against CPU: {steps} uint8 steps")
+    return row, by_design
+
+
+def aot_phase(norms, get_config, data, tmp: Path):
+    """18: the deployment artifact and UNIT at config_256's full width
+    (phase 4's seeded generator and images; seeded VAE weights)."""
+    from munit_tpu_torch.cli.translate import load_generator, load_image
+    from munit_tpu_torch.nn.generator import GenBundle
+    t0 = time.perf_counter()
+    steps = {}
+
+    def mark(name):
+        steps[name] = time.perf_counter() - t0
+
+    root = tmp / "aot"
+    root.mkdir()
+    conf = get_config(str(CONFIG))
+    gen_cpu = GenBundle(conf, "cpu")
+    gen_cpu.init(torch.Generator().manual_seed(SEED))
+    ckpt = root / "gen.pt"
+    torch.save({"2": gen_cpu.state_dict()}, ckpt)
+    write_images(root, np.random.RandomState(SEED))
+    inputs = sorted((root / "input").iterdir())
+    x = torch.cat([load_image(str(p), 256, "cpu") for p in inputs])
+    x = x.repeat(-(-max(AOT_BATCHES) // len(inputs)), 1, 1, 1)
+    style = load_image(str(root / "style.png"), 256, "cpu")
+    np.savez(root / "inputs.npz", x=x.numpy(), style=style.numpy())
+    # UNIT's CPU side first, beside everything on the card
+    torch.save({"a": vae_state(SEED + 180), "b": vae_state(SEED + 181)},
+               root / "unit.pt")
+    paths = Path(data["data_list_train_a"]).read_text().split()
+    unit_in, few = root / "unit_in", root / "unit_in_cpu"
+    for folder, chosen in ((unit_in, sorted(paths)),
+                           (few, sorted(paths)[:UNIT_CPU_IMAGES])):
+        folder.mkdir()
+        for p in chosen:
+            shutil.copy(p, folder / Path(p).name)
+    unit_args = ["--config", str(CONFIG), "--checkpoint",
+                 str(root / "unit.pt"), "--trainer", "UNIT"]
+    unit_cpu = root / "unit_cpu.npz"
+    cpu = subprocess.Popen(
+        [sys.executable, "-c", UNIT_CPU_RUNNER, str(unit_cpu), *unit_args,
+         "--input_folder", str(few), "--output_folder",
+         str(root / "unit_cpu"), "--device", "cpu"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "4"})
+    exports = {}
+    try:
+        parity_mode(True)
+        aot_exports(exports, root, ckpt, root / "input", root / "style.png")
+        mark("exported")
+        gen = load_generator(str(ckpt), conf, "cuda")
+        xc, sc = x.cuda(), style.cuda()
+        fresh = {}
+        for kind, (path, seconds, programs, started) in exports.items():
+            with zipfile.ZipFile(path) as z:
+                meta = json.loads(z.read("meta.json"))
+            want = aot_eager(gen, xc, sc, kind, meta["quant_scales"])
+            row, counts = aot_fresh_check(norms, kind, started, want,
+                                          programs)
+            fresh[kind] = (counts, row)
+            emit(phase="aot_artifact", kind=kind, export_seconds=seconds,
+                 megabytes=path.stat().st_size / 1e6,
+                 conv_dtype=meta["conv_dtype"], quant=meta["quant"],
+                 int8_sites=len(meta["quant_scales"] or ()),
+                 batches=list(AOT_BATCHES), per_dispatch=SERVE_PER_DISPATCH,
+                 **row, note="the artifact in a fresh process against the "
+                             "eager translation of the same numerics on "
+                             "the card (TF32 off); launches per dispatch "
+                             "beside the traced graph's operator nodes")
+        mark("fresh")
+        served = aot_serve_phase(norms, conf, gen, exports["f32"][0],
+                                 root / "style.png", paths)
+        emit(phase="aot_serve", buckets=served,
+             note="serve --artifact (f32) beside the config-built service "
+                  "on the same weights: each bucket's replay against its "
+                  "eager call, launches of one replay, ms a dispatch "
+                  "(captured: copy in, replay, copy out; eager: the model "
+                  "alone), median of 10")
+        mark("served")
+        unit, unit_by_design = unit_phase(
+            norms, root, (cpu, unit_cpu, unit_args, unit_in))
+        emit(phase="aot_unit", **unit,
+             note="translate_batch --trainer UNIT over phase 12's 16 JPEGs "
+                  "on the card (ms an image: the command; the model alone "
+                  "at batch 1, median of 10); the first 2 against the CPU")
+        mark("unit")
+    finally:
+        for proc in [cpu] + [e[3][0] for e in exports.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # the artifact's launches: its dispatches in the fresh processes
+    aot_by_design = {}
+    for counts, _ in fresh.values():
+        for c in counts.values():
+            for k, v in c["by_design"].items():
+                for d, n in v.items():
+                    aot_by_design.setdefault(k, Counter())[d] += n
+    emit(phase="aot_seconds", seconds=time.perf_counter() - t0, steps=steps)
+    return ({k: dict(v) for k, v in aot_by_design.items()}, unit_by_design)
+
+
+def aot_alone() -> int:
+    """``python3 chip_smoke.py --aot``: the build and phase 18 alone."""
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.kernels import build, norms
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_train_data(Path(tmp) / "data")
+        aot_phase(norms, get_config, data, Path(tmp))
+    return 0
+
+
+# Phase 2's host µs per wrapper call without a gradient (through the
+# registered operators, where a checkout has them) in a checkout, through
+# its own chip_smoke.py, in turns with the direct forward
+# (``norms._forward``, the wrapper's path without the operators) in the
+# same process
+HOST_US_CODE = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from munit_tpu_torch.kernels import build, norms
+build.build_all()
+gen = torch.Generator(device="cuda").manual_seed(c.SEED + 2)
+out = {}
+for name, shape in (("adain", (1, 64, 64, 256)),
+                    ("instance_norm", (1, 128, 128, 128)),
+                    ("whole_layer_norm", (1, 256, 256, 64))):
+    a = c.make_inputs(*shape, torch.float32, gen)
+    g, b = c.affine_of(name, a) or (None, None)
+    row = out[name] = {"wrapper": [], "direct": []}
+    with torch.no_grad():
+        for _ in range(5):
+            row["wrapper"].append(c.host_us(
+                lambda: c.call(norms, name, a, True)))
+            row["direct"].append(c.host_us(
+                lambda: norms._forward(name, a["x"], g, b, True)))
+print(json.dumps(out))
+"""
+
+
+def host_us_trees(trees) -> int:
+    """``python3 chip_smoke.py --host-us TREE ...``: the host µs per wrapper
+    call and per direct forward (five means of HOST_CALLS calls each, in
+    turns) in each checkout, in order, each in a process of its own."""
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", HOST_US_CODE], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        check(out.returncode == 0, f"{tree}: {out.stderr[-2000:]}")
+        emit(phase="host_us_tree", tree=tree, calls=HOST_CALLS,
+             forward_us=json.loads(out.stdout.strip().splitlines()[-1]))
+    return 0
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -5449,13 +5909,20 @@ def hd_fields(name, hd):
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                  mom_err, mom_times, probe_launches, cli_launches,
                  sim_launches, vanilla_launches, hd, eval_launches,
-                 serve_launches):
+                 serve_launches, aot_launches, unit_launches):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
     backward, then the moments kernels of the probes. The grid kernels
     also carry their config_HD figures (``*_hd``, phase 15), the forward
-    ones their launches in phase 16's evaluate run (``launches_eval``) and
-    in phase 17's served requests (``launches_serve``)."""
+    ones their launches in phase 16's evaluate run (``launches_eval``), in
+    phase 17's served requests (``launches_serve``), in phase 18's
+    artifact dispatches (``launches_aot``) and UNIT run
+    (``launches_unit``)."""
+
+    def later(name, design):
+        return {"launches_aot": aot_launches.get(name, {}).get(design, 0),
+                "launches_unit": unit_launches.get(name, {}).get(design, 0)}
+
     def total(rows, key):
         return sum(n * row[key] for n, row in rows)
 
@@ -5489,7 +5956,8 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
         errs = hd["bwd_err" if name.endswith("_bwd") else "err"]
         extra = ({} if name.endswith("_bwd") else
                  {"launches_eval": eval_launches[name]["grid"],
-                  "launches_serve": serve_launches[name]["grid"]})
+                  "launches_serve": serve_launches[name]["grid"],
+                  **later(name, "grid")})
         return entry(name, "grid", hd_rows(name, hd), errs, **f, **extra,
                      replaces=replaces, also_replaces=also,
                      launches=f["launches_hd"],
@@ -5519,6 +5987,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_vanilla=vanilla_launches[name][design],
                 launches_eval=eval_launches[name][design],
                 launches_serve=serve_launches[name][design],
+                **later(name, design),
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
@@ -5537,7 +6006,11 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "launches_hd_fused_step: one replayed fused step's; "
                     "launches_eval: evaluate fid --kid over 32 pairs "
                     "(phase 16); launches_serve: 16 requests through the "
-                    "micro-batched service, replays (phase 17a)"))
+                    "micro-batched service, replays (phase 17a); "
+                    "launches_aot: the f32, bf16 and int8 artifacts' "
+                    "dispatches at batch 1 and 8 in fresh processes (phase "
+                    "18b); launches_unit: translate_batch --trainer UNIT "
+                    "over 16 images (phase 18e)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -5631,6 +6104,10 @@ def main() -> int:
         return eval_alone()
     if sys.argv[1:] == ["--serve"]:
         return serve_alone()
+    if sys.argv[1:] == ["--aot"]:
+        return aot_alone()
+    if sys.argv[1:2] == ["--host-us"]:
+        return host_us_trees(sys.argv[2:])
     if sys.argv[1:2] == ["--cli-numerics"]:
         return cli_numerics(sys.argv[2:])
     if sys.argv[1:2] == ["--profiler"]:
@@ -5726,11 +6203,14 @@ def main() -> int:
         hd = hd_phase(norms, get_config, validate, Path(tmp))
         eval_launches = eval_phase(norms, get_config, Path(tmp))
         serve_launches = serve_phase(norms, get_config, data, Path(tmp))
+        aot_launches, unit_launches = aot_phase(norms, get_config, data,
+                                                Path(tmp))
 
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
         mom_times, probe_launches, cli_launches, sim_launches,
-        vanilla_launches, hd, eval_launches, serve_launches)}), flush=True)
+        vanilla_launches, hd, eval_launches, serve_launches, aot_launches,
+        unit_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,7 +20,7 @@ COMMANDS = {
                         "Inception pool moments of a real-image set"),
     "checkpoint_tools": ("munit_tpu_torch.cli.checkpoint_tools",
                          "reference .pt <-> training checkpoint; packed "
-                         "bf16/int8 .npz"),
+                         "bf16/int8 .npz; AOT deployment artifact"),
     "serve": ("munit_tpu_torch.serve.server",
               "HTTP translation service with micro-batching"),
 }

@@ -26,14 +26,24 @@ conditional one per input image (test_batch.py:138-208).
 The generator's convolutions run in float32 with TF32 off
 (``ops.set_conv_compute(None)``), the JAX CLI's ``Precision.HIGHEST``.
 
-Not ported, and refused: ``--trainer UNIT`` (ROADMAP queue 1 item 18) and
-``--mesh auto`` (item 16).
+``--trainer UNIT`` (test_batch.py:210-234) translates with UNIT's VAE
+generators (``nn.generator.VAEGen``) from a ``.pt`` of reference state
+dicts {"a": sd, "b": sd}: ``--a2b 1`` encodes with slot ``a`` and decodes
+with slot ``b``, ``--a2b 0`` the other way. One deterministic decode of the
+hiddens an image (the encoder's noise, drawn from a generator on the device
+seeded by ``--seed``, is dropped, as the JAX command drops it), written as
+style ``_00``.
+
+Not ported, and refused: ``--mesh auto`` (ROADMAP queue 1 item 16).
 
 Usage:
   python -m munit_tpu_torch translate_batch --config configs/config.yaml \\
       --checkpoint gen.pt --input_folder in/ --output_folder out/ \\
       [--num_style 10] [--seed 1] [--synchronized] [--device cpu] \\
       [--compute_IS] [--compute_CIS] [--inception_ckpt inception.pth]
+  python -m munit_tpu_torch translate_batch --trainer UNIT \\
+      --config configs/config.yaml --checkpoint unit_gen.pt \\
+      --input_folder in/ --output_folder out/ [--a2b 0] [--device cpu]
 """
 
 from __future__ import annotations
@@ -52,11 +62,11 @@ from munit_tpu_torch.data.datasets import ImageFolder
 from munit_tpu_torch.eval.inception import inception_probs, load_inception
 from munit_tpu_torch.eval.scores import (conditional_inception_score,
                                          inception_score)
+from munit_tpu_torch.io.weights import drop_adain_buffers
+from munit_tpu_torch.nn.generator import VAEGen
 
-REFUSED = (("trainer", "UNIT", "--trainer UNIT (VAEGen) is not ported; "
-            "ROADMAP queue 1 item 18"),
-           ("mesh", "auto", "--mesh auto (several cards) is not ported; "
-            "ROADMAP queue 1 item 16"))
+REFUSED = (("mesh", "auto", "--mesh auto (several cards) is not ported; "
+            "ROADMAP queue 1 item 16"),)
 
 
 def parse_args(argv=None):
@@ -91,11 +101,33 @@ def parse_args(argv=None):
     p.add_argument("--inception_b", default=None,
                    help="the Inception of --a2b 1")
     p.add_argument("--trainer", default="MUNIT", choices=["MUNIT", "UNIT"],
-                   help="UNIT is not ported (ROADMAP item 18)")
+                   help="UNIT: VAE generators from a .pt of slots a and b, "
+                        "one decode an image")
     p.add_argument("--mesh", choices=["off", "auto"], default="off",
                    help="auto is not ported (ROADMAP item 16)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p.parse_args(argv)
+
+
+def load_vae(sd, conf, device) -> VAEGen:
+    """A reference VAEGen state dict (its InstanceNorm buffers, if an old
+    checkpoint has them, dropped) → a frozen ``VAEGen`` on ``device``."""
+    g = conf["gen"]
+    vae = VAEGen(conf["input_dim_a"], g["dim"], g["n_downsample"], g["n_res"],
+                 g["activ"], g["pad_type"])
+    vae.load_state_dict(drop_adain_buffers(sd))
+    return vae.requires_grad_(False).eval().to(
+        device=device, memory_format=torch.channels_last)
+
+
+def unit_translator(opts, conf, device):
+    """UNIT's translate(x, styles): slot a's encoder and slot b's decoder
+    with ``--a2b 1``, the other way with 0; the styles are not read."""
+    blob = torch.load(opts.checkpoint, map_location="cpu", weights_only=True)
+    enc_slot, dec_slot = ("a", "b") if opts.a2b else ("b", "a")
+    enc, dec = (load_vae(blob[k], conf, device) for k in (enc_slot, dec_slot))
+    noise = torch.Generator(device).manual_seed(opts.seed)
+    return lambda x, styles: dec.decode(enc.encode(x, noise)[0])
 
 
 @torch.inference_mode()
@@ -118,8 +150,17 @@ def main(argv=None):
     conf = get_config(opts.config)
     style_dim = conf["gen"]["style_dim"]
     new_size = conf.get("new_size_a") or conf["new_size"]
-    gen = load_generator(opts.checkpoint, conf, device)
-    enc_dom, dec_dom = (1, 2) if opts.a2b else (2, 1)
+    if opts.trainer == "UNIT":
+        opts.num_style = 1
+        translate = unit_translator(opts, conf, device)
+    else:
+        gen = load_generator(opts.checkpoint, conf, device)
+        enc_dom, dec_dom = (1, 2) if opts.a2b else (2, 1)
+
+        def translate(x, styles):
+            c = gen.encode_content(x, enc_dom)
+            return gen.decode(c.repeat(opts.num_style, 1, 1, 1),
+                              styles.to(device), dec_dom)
     net = load_inception(opts.inception_ckpt, device) if scoring else None
 
     dataset = ImageFolder(opts.input_folder, new_size, new_size, new_size,
@@ -134,9 +175,7 @@ def main(argv=None):
         x = torch.from_numpy(sample["image"])[None].to(device)
         styles = (style_fixed if opts.synchronized else
                   torch.randn((opts.num_style, style_dim), generator=g))
-        c = gen.encode_content(x, enc_dom)
-        y = gen.decode(c.repeat(opts.num_style, 1, 1, 1),
-                       styles.to(device), dec_dom)
+        y = translate(x, styles)
         if net is not None:
             preds.append(inception_probs(net, (y + 1.0) / 2.0).cpu().numpy())
         y = y.cpu().numpy()

@@ -155,14 +155,26 @@ def _ceil8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _row_pad(m, least_m: int) -> int:
+    """Zero rows that lift M above 16. In a program traced with a symbolic
+    batch M is symbolic, and ``least_m`` is the fewest rows any batch
+    gives: above 16 none are needed for any batch, else 17 serve every
+    batch, with no guard on it."""
+    if isinstance(m, int):
+        return max(m, 17) - m
+    return 0 if least_m >= 17 else 17
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor,
+                least_m: int = 0) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 → (M, N) int32 through ``torch._int_mm``.
     On the card its shape rules (M > 16, K and N multiples of 8) are met by
-    zero rows and columns, which add nothing to a sum."""
+    zero rows and columns, which add nothing to a sum (``least_m``: see
+    ``_row_pad``)."""
     m, k = a.shape
     n = b.shape[1]
     if a.is_cuda:
-        pm, pk, pn = max(m, 17) - m, _ceil8(k) - k, _ceil8(n) - n
+        pm, pk, pn = _row_pad(m, least_m), _ceil8(k) - k, _ceil8(n) - n
         if pm or pk:
             a = F.pad(a, (0, pk, 0, pm))
         if pk or pn:
@@ -187,7 +199,7 @@ def int8_conv_sums(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
                           sw * dilation, sc)).reshape(b * ho * wo,
                                                       kh * kw * c)
     mat = wq.permute(2, 3, 1, 0).reshape(kh * kw * c, cout)
-    return int8_matmul(taps, mat).view(b, ho, wo, cout)
+    return int8_matmul(taps, mat, ho * wo).view(b, ho, wo, cout)
 
 
 def _conv2d_int8(x: torch.Tensor, weight: torch.Tensor, stride: int,

@@ -1,12 +1,19 @@
 """The generator's norms as Hopper kernels: wrappers, plain versions and
 launch counts, forward and backward.
 
-Each wrapper takes an NHWC tensor and, where a gradient is wanted, runs
-through a ``torch.autograd.Function``. On a CPU tensor it computes its plain
-version: the forward of ``munit_tpu_torch.core.ops`` and the closed-form
-backward below, which mirrors the JAX package's rules. On a CUDA tensor it
-launches the CUDA kernels of ``csrc/norms.cu`` on the current stream,
-forward and backward, or raises: there is no fallback. Each forward launch adds one to
+Each wrapper takes an NHWC tensor. Where a gradient is wanted it runs
+through a ``torch.autograd.Function``; every other call (serving,
+translation, evaluation, a forward under ``no_grad``, a program traced by
+``torch.export``) runs one registered operator of the ``munit_tpu_torch``
+namespace: ``munit_tpu_torch::instance_norm(x, relu)``,
+``::adain(x, gamma, beta, relu)`` and ``::whole_layer_norm(x, gamma, beta,
+relu)``. A traced program holds each call as one node of that operator,
+and a program loaded elsewhere reaches the kernel through it once this
+module is imported. On a CPU tensor either way computes the plain version:
+the forward of ``munit_tpu_torch.core.ops`` and the closed-form backward
+below, which mirrors the JAX package's rules. On a CUDA tensor it launches
+the CUDA kernels of ``csrc/norms.cu`` on the current stream, forward and
+backward, or raises: there is no fallback. Each forward launch adds one to
 ``launches[<wrapper>]``, each backward launch to ``launches[<wrapper>_bwd]``;
 ``bf16_launches`` counts those of them on a bf16 x.
 
@@ -554,6 +561,59 @@ def _forward(name, x, gamma, beta, relu):
     return _launch(name, x, gamma, beta, relu, whole=name == "whole_layer_norm")
 
 
+# ------------------------------------------------------------ registered ops
+#
+# The forwards as operators of the dispatcher, so that ``torch.export``
+# records each call as one node (the fake kernel gives y the shape, type and
+# strides of x) and a loaded program dispatches it by device: the plain
+# version on the CPU, the kernel on the card. ``torch.library.Library``
+# with Python kernels costs a few µs of host time a call; a
+# ``torch.library.custom_op`` wraps the same registration in more Python.
+_LIB = torch.library.Library("munit_tpu_torch", "DEF")
+_SCHEMAS = {
+    "instance_norm": "instance_norm(Tensor x, bool relu) -> Tensor",
+    "adain": "adain(Tensor x, Tensor gamma, Tensor beta, bool relu) -> Tensor",
+    "whole_layer_norm": "whole_layer_norm(Tensor x, Tensor gamma, "
+                        "Tensor beta, bool relu) -> Tensor",
+}
+
+
+def _register(name: str):
+    """Define ``munit_tpu_torch::<name>`` with its CPU, CUDA and fake
+    kernels; returns a call of it with the wrappers' (x, gamma, beta, relu)
+    arguments."""
+    _LIB.define(_SCHEMAS[name])
+    whole = name == "whole_layer_norm"
+    if name == "instance_norm":
+        def cpu(x, relu):
+            return _plain_forward(name, x, None, None, relu)
+
+        def cuda(x, relu):
+            return _launch(name, x, None, None, relu, whole)[0]
+
+        def fake(x, relu):
+            return torch.empty_like(x)
+    else:
+        def cpu(x, gamma, beta, relu):
+            return _plain_forward(name, x, gamma, beta, relu)
+
+        def cuda(x, gamma, beta, relu):
+            return _launch(name, x, gamma, beta, relu, whole)[0]
+
+        def fake(x, gamma, beta, relu):
+            return torch.empty_like(x)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"munit_tpu_torch::{name}", fake, lib=_LIB)
+    op = getattr(torch.ops.munit_tpu_torch, name).default
+    if name == "instance_norm":
+        return lambda x, gamma, beta, relu: op(x, relu)
+    return op
+
+
+OPS = {name: _register(name) for name in NAMES}
+
+
 class _Norm(torch.autograd.Function):
     """One norm (+ReLU) with its gradient: the plain forms on a CPU tensor,
     the kernels on a CUDA tensor."""
@@ -580,12 +640,15 @@ class _Norm(torch.autograd.Function):
 
 def _apply(name, x, gamma, beta, relu):
     """Through the autograd Function where a gradient is wanted; otherwise
-    (serving, no_grad) the forward alone, without the Function's host
-    bookkeeping on every call."""
+    (serving, no_grad, a traced program) through the registered operator,
+    without the Function's host bookkeeping."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, gamma, beta)):
         return _Norm.apply(name, x, gamma, beta, relu)
-    return _forward(name, x, gamma, beta, relu)[0]
+    if x.device.type not in ("cpu", "cuda"):
+        # the meta device would reach the fake kernel: no kernel, no result
+        raise ValueError(f"{name}: no kernel for a tensor on {x.device}")
+    return OPS[name](x, gamma, beta, relu)
 
 
 # ----------------------------------------------------------------- wrappers

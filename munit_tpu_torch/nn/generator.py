@@ -13,7 +13,7 @@ with paramless placeholders where the reference has a pool or an upsample.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -83,15 +83,18 @@ class ContentEncoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """networks.py:515-563. n_res AdaIN res blocks → n_upsample ×
-    [2x nearest upsample, 5x5 conv + whole-tensor LN + act] → 7x7 conv +
-    tanh."""
+    """networks.py:515-563. n_res res blocks (AdaIN, or IN with ``res_norm
+    "in"``: UNIT's decoder) → n_upsample × [2x nearest upsample, 5x5 conv +
+    whole-tensor LN + act] → 7x7 conv + tanh."""
 
     def __init__(self, n_upsample: int, n_res: int, dim: int, output_dim: int,
-                 activ: str = "relu", pad_type: str = "reflect"):
+                 activ: str = "relu", pad_type: str = "reflect",
+                 res_norm: str = "adain"):
         super().__init__()
-        self.dim, self.n_res = dim, n_res
-        layers = [ResBlocks(n_res, dim, "adain", activ, pad_type)]
+        if res_norm not in ("adain", "in"):
+            raise ValueError(f"res_norm must be adain or in, got {res_norm!r}")
+        self.dim, self.n_res, self.res_norm = dim, n_res, res_norm
+        layers = [ResBlocks(n_res, dim, res_norm, activ, pad_type)]
         for _ in range(n_upsample):
             layers += [Upsample(),
                        ConvBlock(dim, dim // 2, 5, 1, 2, "ln", activ, pad_type)]
@@ -103,7 +106,7 @@ class Decoder(nn.Module):
     @property
     def num_adain_params(self) -> int:
         # 2 AdaIN layers per res block, 2*dim parameters each
-        return self.n_res * 2 * 2 * self.dim
+        return self.n_res * 2 * 2 * self.dim if self.res_norm == "adain" else 0
 
     def split_adain_params(self, adain_params: torch.Tensor) -> List[AdainPair]:
         """Split the MLP output (B, num_adain) into per-layer (gamma, beta).
@@ -116,8 +119,10 @@ class Decoder(nn.Module):
                 for off in range(0, self.n_res * 4 * d, 2 * d)]
 
     def forward(self, x: torch.Tensor,
-                adain_params: torch.Tensor) -> torch.Tensor:
-        x = self.model[0](x, self.split_adain_params(adain_params))
+                adain_params: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pairs = (self.split_adain_params(adain_params)
+                 if self.res_norm == "adain" else None)
+        x = self.model[0](x, pairs)
         for layer in self.model[1:]:
             x = layer(x)
         return x
@@ -151,6 +156,32 @@ class AdaINGen(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.decode(*self.encode(images))
+
+
+class VAEGen(nn.Module):
+    """UNIT's VAE generator (networks.py:391-434), inference only
+    (docs/PARITY.md #13): a content encoder and a decoder with IN res
+    blocks, no style. Keys follow the reference ``enc.*``, ``dec.*``
+    layout (``munit_tpu/io/torch_import.py::convert_vae_gen_state_dict``)."""
+
+    def __init__(self, input_dim: int, dim: int, n_downsample: int,
+                 n_res: int, activ: str = "relu", pad_type: str = "reflect"):
+        super().__init__()
+        self.enc = ContentEncoder(n_downsample, n_res, input_dim, dim, activ,
+                                  pad_type)
+        self.dec = Decoder(n_downsample, n_res, self.enc.output_dim,
+                           input_dim, activ, pad_type, res_norm="in")
+
+    def encode(self, images: torch.Tensor, generator: torch.Generator):
+        """(hiddens, noise): the noise N(0, I) of the hiddens' shape, drawn
+        from ``generator`` on its device."""
+        hiddens = self.enc(images)
+        noise = torch.randn(hiddens.shape, generator=generator,
+                            device=generator.device, dtype=hiddens.dtype)
+        return hiddens, noise.to(hiddens.device)
+
+    def decode(self, hiddens: torch.Tensor) -> torch.Tensor:
+        return self.dec(hiddens)
 
 
 class AdaINGenPair(nn.Module):

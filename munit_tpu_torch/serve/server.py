@@ -7,6 +7,8 @@ image → flooded-image requests over HTTP (stdlib ``http.server``):
 
   python -m munit_tpu_torch serve --config configs/config_256.yaml \\
       --checkpoint gen.pt --style style.png --port 8787 [--device cpu]
+  python -m munit_tpu_torch serve --artifact gen.pt2.zip \\
+      --style style.png --port 8787 [--device cpu]
 
 Concurrent requests are coalesced into one batched dispatch by a dynamic
 micro-batcher (``MicroBatcher``): up to ``--max-batch`` requests a
@@ -19,7 +21,11 @@ graph's input buffers, replays it and copies the output out. On the CPU
 everything runs eagerly. Convolutions run in float32 with TF32 off, the
 JAX server's ``Precision.HIGHEST``; ``--quant int8`` runs the worthwhile
 generator convs in int8 with static per-site scales calibrated on the
-style exemplars (or ``--calib-dir``).
+style exemplars (or ``--calib-dir``). ``--artifact`` serves a deployment
+artifact (``checkpoint_tools export-aot``, ``io/aot.py``) with no config,
+checkpoint or model code: its ``encode_style`` program encodes the styles,
+and each bucket's call of its ``translate`` program is captured and
+replayed as above; its conv numerics and int8 scales are in the program.
 
 API:
   GET  /healthz             → {"status": "ok", "device": ...}
@@ -27,10 +33,9 @@ API:
   POST /translate           → JPEG bytes (body: image file bytes)
   POST /translate?style=ID  → use a named preloaded style
 
-Not ported, and refused: ``--artifact`` (an ahead-of-time deployment
-artifact; ROADMAP queue 1 item 17) and ``--mesh auto`` with more than one
-card visible (data-parallel serving; item 16). One card serves as the JAX
-server does on one device.
+Not ported, and refused: ``--mesh auto`` with more than one card visible
+(data-parallel serving; ROADMAP queue 1 item 16). One card serves as the
+JAX server does on one device.
 """
 
 from __future__ import annotations
@@ -54,8 +59,6 @@ from munit_tpu_torch.core import ops
 from munit_tpu_torch.data import transforms as T
 from munit_tpu_torch.train import graphs
 
-ARTIFACT_REFUSED = ("--artifact (an ahead-of-time deployment artifact) is "
-                    "not ported; ROADMAP queue 1 item 17")
 MESH_REFUSED = ("--mesh auto with more than one card (data-parallel "
                 "serving) is not ported; ROADMAP queue 1 item 16: pass "
                 "--mesh off or make one card visible")
@@ -207,30 +210,45 @@ class MicroBatcher:
                     it["ev"].set()
 
 
-def check_ported(artifact: Optional[str], mesh: str, device) -> None:
+def check_ported(mesh: str, device) -> None:
     """Stop, naming the ROADMAP item, on what this port does not serve."""
-    if artifact is not None:
-        raise SystemExit(ARTIFACT_REFUSED)
     if (mesh != "off" and torch.device(device).type == "cuda"
             and torch.cuda.device_count() > 1):
         raise SystemExit(MESH_REFUSED)
 
 
 class TranslationService:
-    """The generator (a loaded ``GenBundle``, on its device), the encoded
-    styles and the translate dispatch: a CUDA graph per bucket on the card,
-    eager on the CPU."""
+    """The model (a loaded ``GenBundle``, on its device, or a deployment
+    artifact's programs for ``device``), the encoded styles and the
+    translate dispatch: a CUDA graph per bucket on the card, eager on the
+    CPU."""
 
-    def __init__(self, conf: Dict, gen, new_size: Optional[int] = None,
+    def __init__(self, conf: Optional[Dict] = None, gen=None,
+                 new_size: Optional[int] = None,
                  max_batch: int = 1, max_wait_ms: float = 4.0,
                  quant: str = "none", mesh: str = "auto",
                  artifact: Optional[str] = None,
-                 max_queue: Optional[int] = None):
-        self.device = gen.device
-        check_ported(artifact, mesh, self.device)
+                 max_queue: Optional[int] = None, device="cuda"):
         self.conf = conf
         self.gen = gen
-        self.new_size = new_size or conf["new_size"]
+        self.artifact = None
+        if artifact is not None:
+            if quant == "int8":
+                raise ValueError("int8 is baked at export time for AOT "
+                                 "artifacts; re-export instead of --quant")
+            from munit_tpu_torch.io import aot
+            self.artifact = aot.load_artifact(artifact, device)
+            if new_size and new_size != self.artifact.new_size:
+                # H and W are static in the programs
+                raise ValueError(
+                    f"artifact was exported at {self.artifact.new_size}px; "
+                    f"new_size={new_size} cannot be served from it")
+            self.device = self.artifact.device
+            self.new_size = self.artifact.new_size
+        else:
+            self.device = gen.device
+            self.new_size = new_size or conf["new_size"]
+        check_ported(mesh, self.device)
         self.quant = quant == "int8"
         self._scales = None  # per-site activation maxima (int8 calibration)
         # style codes (1, style_dim), on the host: a dispatch copies them to
@@ -263,6 +281,8 @@ class TranslationService:
                     yield
 
     def _body(self, x_a, s_b):
+        if self.artifact is not None:
+            return self.artifact.translate(x_a, s_b)
         return self.gen.decode(self.gen.encode_content(x_a, 1), s_b, 2)
 
     def _translate(self, x_a, s_b):
@@ -309,9 +329,11 @@ class TranslationService:
         """Encode the exemplar's style once, with branch 2's encoder."""
         prepped = self._prep(exemplar)
         self._style_imgs[name] = prepped
+        encode = (self.artifact.encode_style if self.artifact is not None
+                  else lambda x: self.gen.encode_style(x, 2))
         with self._on_device():
-            self.styles[name] = self.gen.encode_style(
-                torch.from_numpy(prepped).to(self.device), 2).cpu().numpy()
+            self.styles[name] = encode(
+                torch.from_numpy(prepped).to(self.device)).cpu().numpy()
 
     def calibrate(self, images=None):
         """Record per-site activation maxima for the static int8 path, on
@@ -456,11 +478,15 @@ def serve(service: TranslationService, port: int = 8787,
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m munit_tpu_torch serve")
-    p.add_argument("--config", default=None)
+    p.add_argument("--config", default=None,
+                   help="required unless --artifact is given")
     p.add_argument("--checkpoint", default=None,
-                   help="any generator file or directory translate reads")
+                   help="any generator file or directory translate reads; "
+                        "required unless --artifact is given")
     p.add_argument("--artifact", default=None,
-                   help="not ported (ROADMAP item 17)")
+                   help="deployment artifact (.pt2.zip from "
+                        "checkpoint_tools export-aot): serves without a "
+                        "config, a checkpoint or the model code")
     p.add_argument("--style", required=True, action="append",
                    help="style exemplar image, 'path' or 'name=path'; "
                         "repeatable — the first is also served as 'default'")
@@ -489,21 +515,24 @@ def parse_args(argv=None):
 def build_service(opts) -> TranslationService:
     """The service of parsed ``serve`` arguments, its styles added,
     calibrated and warmed up."""
-    from munit_tpu_torch.cli.translate import load_generator, resolve_device
-    from munit_tpu_torch.config import get_config
-    if opts.artifact is not None:
-        raise SystemExit(ARTIFACT_REFUSED)
-    if not (opts.config and opts.checkpoint):
-        raise SystemExit("--config and --checkpoint are required")
+    from munit_tpu_torch.cli.translate import resolve_device
+    if opts.artifact is None and not (opts.config and opts.checkpoint):
+        raise SystemExit("--config and --checkpoint are required without "
+                         "--artifact")
     device = resolve_device(opts.device)
-    check_ported(None, opts.mesh, device)
+    check_ported(opts.mesh, device)
     ops.set_conv_compute(None)
-    conf = get_config(opts.config)
-    svc = TranslationService(conf, load_generator(opts.checkpoint, conf,
-                                                  device),
-                             max_batch=opts.max_batch,
-                             max_wait_ms=opts.max_wait_ms, quant=opts.quant,
-                             mesh=opts.mesh, max_queue=opts.max_queue)
+    common = dict(max_batch=opts.max_batch, max_wait_ms=opts.max_wait_ms,
+                  quant=opts.quant, mesh=opts.mesh, max_queue=opts.max_queue)
+    if opts.artifact is not None:
+        svc = TranslationService(artifact=opts.artifact, device=device,
+                                 **common)
+    else:
+        from munit_tpu_torch.cli.translate import load_generator
+        from munit_tpu_torch.config import get_config
+        conf = get_config(opts.config)
+        svc = TranslationService(conf, load_generator(opts.checkpoint, conf,
+                                                      device), **common)
     for i, spec in enumerate(opts.style):
         name, _, path = spec.rpartition("=")
         img = Image.open(path or spec)

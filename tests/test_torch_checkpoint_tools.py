@@ -14,7 +14,8 @@ small width (32 px).
 - ``pack --quant int8``: the port's file equals the JAX CLI's array for
   array (int8 weights and their per-channel scales bit for bit, manifest
   included); both packages read it, to the same dequantized weights.
-- ``export-aot`` is refused, naming item 17.
+- ``export-aot`` refuses int8 without calibration images, and a cuda
+  program without a card.
 """
 
 import jax
@@ -201,6 +202,10 @@ def test_pack_int8_as_jax_and_readable_by_both(files):
 
 
 def test_aot_refused(files):
-    with pytest.raises(SystemExit, match="item 17"):
-        _tools("export-aot", "--config", files["cfg"], "--ckpt",
-               files["gen"], "--out", str(files["root"] / "x"))
+    args = ("export-aot", "--config", files["cfg"], "--ckpt", files["gen"],
+            "--out", str(files["root"] / "x"))
+    with pytest.raises(SystemExit, match="needs --calib-dir"):
+        _tools(*args, "--quant", "int8")
+    # a cuda program is traced on a card
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _tools(*args, "--devices", "cuda")

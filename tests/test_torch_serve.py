@@ -14,7 +14,7 @@
 - HTTP: ``/healthz``, ``/stats``, ``/translate`` and an unknown style's 400,
   through the service that ``serve``'s ``main`` builds (``build_service``)
   with ``--device cpu``.
-- The refusals: ``--artifact`` (item 17), ``--mesh auto`` with two cards
+- The refusals: ``--artifact`` with ``--quant int8``, ``--mesh auto`` with two cards
   (item 16), the card by default without one.
 - The inference CLIs (``translate``, ``translate_batch``, ``evaluate fid``
   and ``sweep``, ``serve``) set the JAX CLIs' conv numerics, float32 with
@@ -362,9 +362,10 @@ def test_direct_path_sheds_load_with_503(files):
 
 
 def test_artifact_refused(files):
-    with pytest.raises(SystemExit, match="item 17"):
+    # an artifact's int8 scales are in its program (export-aot --quant int8)
+    with pytest.raises(ValueError, match="baked at export"):
         server.main(["--artifact", "m.zip", "--style", files["style"],
-                     "--device", "cpu"])
+                     "--quant", "int8", "--device", "cpu"])
 
 
 def test_multi_card_mesh_refused(files, monkeypatch):
@@ -373,8 +374,8 @@ def test_multi_card_mesh_refused(files, monkeypatch):
     with pytest.raises(SystemExit, match="item 16"):
         server.main(_args(files))
     with pytest.raises(SystemExit, match="item 16"):
-        server.check_ported(None, "auto", "cuda")
-    server.check_ported(None, "off", "cuda")   # --mesh off serves on one
+        server.check_ported("auto", "cuda")
+    server.check_ported("off", "cuda")   # --mesh off serves on one
 
 
 def test_serve_needs_a_card_by_default(files, monkeypatch):

@@ -353,10 +353,9 @@ def test_translate_batch_matches_jax(lockstep, tmp_path, capsys):
         want = jtr.gen.decode(jparams, jnp.repeat(c, 3, axis=0),
                               jnp.asarray(fixed.numpy()), 2)
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
-    for flag, item in ((["--trainer", "UNIT"], "item 18"),
-                       (["--mesh", "auto"], "item 16")):
-        with pytest.raises(SystemExit, match=item):
-            translate_batch.main(args + ["--output_folder", out] + flag)
+    with pytest.raises(SystemExit, match="item 16"):
+        translate_batch.main(args + ["--output_folder", out, "--mesh",
+                                     "auto"])
     # --compute_IS and --compute_CIS (ROADMAP item 14, refused until it was
     # ported) score the same translations with the given Inception
     incep = save_torch(inception_ref_weights(0), tmp_path / "incep.pth")
