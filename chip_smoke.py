@@ -55,11 +55,11 @@ Phases, each raising on failure (exit code 1):
    off) against the CPU, and the agreement of their pseudo-labels;
 8. the training path: configs/config_256.yaml as it is (semantic_w 3),
    full width, seeded random weights, images and masks, first with TF32
-   (f32 activations and operands) and then (8b) in bench.py's production
-   bf16 mode (bf16 conv operands and images, every norm kernel on a bf16
-   x, which the launch counts assert); 15 iterations in
-   bench.py's cadence (12 dis steps, 3 fused dis+gen steps, 1
-   classifier_sr step) at batch 1 and 8, as the trainer runs them on a
+   (f32 activations and operands) at batch 1 and then (8b) in bench.py's
+   production bf16 mode (bf16 conv operands and images, every norm kernel
+   on a bf16 x, which the launch counts assert) at batch 1 and 8; 15
+   iterations in bench.py's cadence (12 dis steps, 3 fused dis+gen steps,
+   1 classifier_sr step), as the trainer runs them on a
    card (each step kind eager at its first call, captured as a CUDA graph
    at its second, replayed after), with every loss finite,
    loss_sem_seg above 0, and the wrappers' launch counts asserted (the
@@ -88,8 +88,8 @@ Phases, each raising on failure (exit code 1):
    card with TF32 off against the CPU, with TF32 on against float64, and in
    bf16 against the CPU's bf16 and float64, and the pseudo-label flips of
    each; then bench_torch.py at batch 8 and 30 iterations, bf16 and f32
-   (the CPU's runs go on in a process of their own beside 8c, the card's
-   runs and the bench);
+   (the CPU's runs go on in a process of their own, started after the
+   imports, beside phases 1-8, the card's runs and the bench);
 10. the moments kernels (sample_sums, sample_affine) against their plain
    versions at every whole-LN probe shape, f32 and bf16, ReLU on and off,
    timed against the byte bound, the plain version and one library call;
@@ -216,7 +216,29 @@ Phases, each raising on failure (exit code 1):
    UNIT` (seeded VAE weights, slots a and b) over phase 12's 16 JPEGs on
    the card, its launches by design (17 cluster and 2 grid IN, 2 LN an
    image), ms an image (the command; the model alone), and the first two
-   against the CPU's (run beside the card's work) within 1 uint8 step.
+   against the CPU's (run beside the card's work) within 1 uint8 step;
+19. data parallel (ROADMAP 16; dist/mesh.py), config_256 as it is, four
+   parts started together: (b) two processes on the one card in a gloo
+   group (eager, TF32 off), 4 rows each of a batch of 8, against this
+   process on the whole batch from the same seeded state: a dis, fused
+   and classifier_sr step each, losses within 8c's post-update rtol, each
+   updated net's weights past 1e-2 lr of the one-process update at most
+   1 %, the classifiers' running statistics within the rtol of each
+   vector's largest, the two ranks bit for bit; (c) `train --dist
+   localhost:<port>,1,0` (NCCL) at full width with the segmenter, batch
+   1, for 4 iterations and `--resume` to 6: each step logged once, the
+   losses finite, snapshots at 2, 4, 6; (d) in this process after (b)'s
+   reference, translate_batch's 10 decodes and the service's dispatch
+   through ``Replicas([cuda:0, cuda:0])`` against one replica on the same
+   parts, bit for bit, with their launches by design; and (a) a trainer
+   in a world-1 NCCL group, captured, in lockstep with two plain captured
+   trainers in 8c's test and numerics (batch 1, TF32 off), then, once (b)
+   is done, the lockstep at batch 8 in bf16 (the post-update losses
+   within 1e-3, DIST_BF16_POST_RTOL), its norm launches those of the
+   cadence, and alone on the card once (c) is done, ms an iteration of
+   each in turns, and a profile of a replayed dis, fused and fused +
+   classifier_sr iteration, each with NCCL kernels (the gradient, metric
+   and batch-norm means, ``ReduceOp.AVG``).
 Earlier lines are JSON objects, each with ``at_s``, the seconds since the
 script started. The line before the last is the kernel
 table; the last is the status line. Without a CUDA card, or outside a
@@ -232,7 +254,7 @@ comparison of two trees (parent, change, change, parent).
 
 builds the kernels and runs phase 13 alone; ``--vanilla`` phase 14 alone;
 ``--hd`` phase 15 alone; ``--eval`` phase 16 alone; ``--serve`` phase 17
-alone; ``--aot`` phase 18 alone.
+alone; ``--aot`` phase 18 alone; ``--dist`` phase 19 alone.
 
     python3 chip_smoke.py --host-us TREE [TREE ...]
 
@@ -1576,8 +1598,8 @@ def flips(a, b):
 
 
 # Phase 9's CPU runs (name, numerics, float64), in a process of their own
-# (GRADS_CPU_RUNNER) beside the card's runs, phase 8c and phase 9's bench,
-# on GRADS_CPU_THREADS of the host's 8 cores; each writes its gradients,
+# (GRADS_CPU_RUNNER) started after the imports, beside phases 1-8 and
+# phase 9's card runs and bench, on GRADS_CPU_THREADS of the host's 8 cores; each writes its gradients,
 # pseudo-labels and step seconds to the file it is given.
 GRADS_CPU_RUNS = (("cpu", "tf32_off", False), ("cpu_bf16", "bf16", False),
                   ("cpu_f64", "tf32_off", True))
@@ -2226,8 +2248,10 @@ def moments_phase(moments):
     """sample_sums (moments and the a·b form) and sample_affine against
     their plain versions at every probe shape, f32 and bf16, ReLU on and
     off; each timed (ReLU off) against the byte bound, the plain version
-    and one library call: torch.var_mean for the sums, the broadcast torch
-    expression for the apply."""
+    and one library call: torch.var_mean for the sums; the apply has none
+    (no one PyTorch call applies per-sample statistics and a per-channel
+    affine; the broadcast expression is the plain version itself), so its
+    library_ms is null."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2273,9 +2297,6 @@ def moments_phase(moments):
                     f"sample_affine {shape} {dname} relu={relu}: {e_aff}")
             torch.cuda.synchronize()
             xf_lib = lambda: torch.var_mean(x.float(), (1, 2, 3))  # noqa: E731
-            lib_aff = lambda: ((x.float() - mean[:, None, None, None])  # noqa: E731
-                               * inv[:, None, None, None] * gamma
-                               + beta).to(dtype)
             x_bytes = x.numel() * x.element_size()
             for name, fn, plain, lib, bnd, e in (
                     ("sample_sums", lambda: moments.sample_sums(x),
@@ -2286,13 +2307,13 @@ def moments_phase(moments):
                      lambda: moments.sample_affine(x, mean, inv, gamma, beta),
                      lambda: moments.sample_affine_plain(x, mean, inv, gamma,
                                                          beta),
-                     lib_aff,
+                     None,
                      moments_bound(2 * x_bytes + 8 * b + 8 * c, x.numel(),
                                    AFFINE_FLOPS_PER_ELEMENT), e_aff)):
                 row = {"kernel": name, "shape": list(shape), "dtype": dname,
                        "vec": vecs[name == "sample_affine"],
                        "ms": time_ms(fn, flush), "plain_ms": time_ms(plain, flush),
-                       "library_ms": time_ms(lib, flush),
+                       "library_ms": time_ms(lib, flush) if lib else None,
                        "bound_ms": bnd[0], "bound_by": bnd[1],
                        "max_abs_err": e}
                 if name == "sample_sums":
@@ -4288,6 +4309,7 @@ from munit_tpu_torch.cli import compute_moments, evaluate, translate_batch
 from munit_tpu_torch.cli.translate import load_generator
 from munit_tpu_torch.config import get_config
 from munit_tpu_torch.data.api import get_fid_data_loader
+from munit_tpu_torch.dist.mesh import Replicas
 from munit_tpu_torch.eval.inception import load_inception
 mode, out, cfg, images, incep, gen, folder, styles, batch = sys.argv[1:10]
 cpu = ["--device", "cpu"]
@@ -4308,8 +4330,9 @@ conf = get_config(cfg)
 g = load_generator(gen, conf, "cpu")
 loader = get_fid_data_loader(conf["data_list_fid_a"], conf["data_list_fid_b"],
                              int(batch), new_size=conf["new_size"])
-fakes = evaluate.fid_pools(g, load_inception(incep, "cpu"),
-                           [next(iter(loader.batches()))], "cpu")
+fakes = evaluate.fid_pools(Replicas(["cpu"]), [g],
+                           [load_inception(incep, "cpu")],
+                           [next(iter(loader.batches()))])
 np.savez(out + "_arrays.npz", outs=np.stack(outs), fakes=fakes)
 print(json.dumps({"printed": buf.getvalue()}))
 """
@@ -4346,8 +4369,8 @@ def _same(a, b):
     if isinstance(a, _torch.Tensor):
         return isinstance(b, _torch.Tensor) and _torch.equal(a, b)
     return a == b
-def _spy_attach(conf, loaders, device):
-    _attach(conf, loaders, device)
+def _spy_attach(conf, loaders, device, **kw):
+    _attach(conf, loaders, device, **kw)
     metric = loaders.get("fid_metrics")
     if metric is None:
         return
@@ -4702,6 +4725,7 @@ def eval_phase(norms, get_config, tmp: Path):
     import io
     from concurrent.futures import ThreadPoolExecutor
     from munit_tpu_torch.cli import compute_moments, evaluate, translate_batch
+    from munit_tpu_torch.dist.mesh import Replicas
     from munit_tpu_torch.eval import fid
     from munit_tpu_torch.eval.fid import guided_a2b
     from munit_tpu_torch.eval.inception import (InceptionV3,
@@ -4766,8 +4790,8 @@ def eval_phase(norms, get_config, tmp: Path):
                                real["mu"], real["sigma"], True, "cuda")
         loader = get_fid_data_loader(lists["a"], lists["b"], EVAL_BATCH,
                                      new_size=conf["new_size"])
-        fakes = evaluate.fid_pools(gen, net, [next(iter(loader.batches()))],
-                                   "cuda")
+        fakes = evaluate.fid_pools(Replicas(["cuda"]), [gen], [net],
+                                   [next(iter(loader.batches()))])
         # (b) IS and CIS on the card
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -5808,6 +5832,583 @@ def aot_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 19
+
+DIST_BATCH = 8          # 19(a) and the global batch of 19(b)
+DIST_WORLD = 2          # 19(b): gloo ranks on the one card
+DIST_LOCKSTEP = 15      # 19(a): iterations in lockstep, as 8c
+DIST_WARM = 45          # 19(a): iterations before the timed windows
+DIST_TIMED = 15         # 19(a): iterations a timed window
+# 19(a): iterations profiled after the timed windows, each a replay: a
+# dis step, a fused step, a fused and a classifier_sr step
+DIST_PROFILED = {"dis": 75, "fused": 79, "fused+classifier_sr": 89}
+DIST_B_STEPS = ("dis", "dis_gen", "classifier_sr")
+# 19(c): the CLI's outputs, checkpoints and resume under --dist on
+# config_256 as it is (full width, semantic_w 3, batch 1)
+DIST_CLI_KEYS = {"snapshot_save_iter": 2, "image_save_iter": 2,
+                 "image_display_iter": 1000, "log_iter": 1,
+                 "display_size": 2, "num_workers": 4}
+DIST_CLI_SPLIT, DIST_CLI_ITERS = 4, 6
+DIST_STYLES = 10        # 19(d): translate_batch's styles, 5 a replica
+UPDATE_SHARE_MAX = 0.01  # 19(b): weights past 1e-2 lr, per updated net
+# 19(a) in bf16 at batch 8: the losses a fused step takes after D's update
+# part between two plain trainers by up to ~1.6e-4 on an H100 (the reflect
+# pad's backward atomics through bf16 rounding), so 8c's
+# 1e-4 is held in 8c's own numerics (f32, TF32 off, batch 1) and the bf16
+# leg's post-update losses to ten times it; its pre-update losses stay bit
+# for bit and its state within twice the plain pair's difference
+DIST_BF16_POST_RTOL = 1e-3
+# `python -m chip_smoke`-free runner of a phase-19 function in a process of
+# its own: dist_<mode>(*args) → JSON into the file named first
+DIST_RUNNER = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as c
+out, mode, args = sys.argv[1], sys.argv[2], sys.argv[3:]
+res = getattr(c, "dist_" + mode)(*args)
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_dist(mode, out: Path, *args, env=None):
+    return subprocess.Popen(
+        [sys.executable, "-c", DIST_RUNNER, str(out), mode, *map(str, args)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+
+
+def wait_dist(proc, out: Path, label, timeout=600):
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    check(proc.returncode == 0,
+          f"{label}: exit {proc.returncode}: {stderr[-3000:]}")
+    return json.loads(out.read_text()), stdout
+
+
+class outside_group:
+    """No data-parallel group for the block: the plain trainers of 19(a)
+    run in the process that holds the world-1 group."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        self.saved, self.mesh._group = self.mesh._group, None
+
+    def __exit__(self, *exc):
+        self.mesh._group = self.saved
+
+
+def nccl_kernels(rows):
+    """(launches, names) of the NCCL kernels in a device profile's rows."""
+    mine = [(n, key) for _, key, n in rows
+            if "nccl" in key.lower() or "onerank" in key.lower()]
+    return sum(n for n, _ in mine), sorted({k for _, k in mine})
+
+
+def dist_trainers(conf):
+    """19(a)'s three seeded trainers: the group's and two plain ones."""
+    from munit_tpu_torch.train.trainer import MUNITTrainer
+    device = torch.device("cuda", torch.cuda.current_device())
+    return {name: new_trainer(MUNITTrainer, conf, device)
+            for name in ("plain", "plain_again", "group")}
+
+
+def dist_lockstep(trainers, conf, numerics, b, mesh):
+    """DIST_LOCKSTEP iterations of ``trainers`` (dist_trainers): the one in
+    the world-1 group and the two plain ones (outside the group), all
+    captured, in 8c's lockstep: each iteration from the first plain
+    trainer's state. Returns their run function, 8c's statistics and the
+    launches (the group's by design)."""
+    from munit_tpu_torch.kernels import norms
+    from munit_tpu_torch.train.trainer import (cadence_iteration,
+                                               cadence_steps)
+    set_numerics(numerics)
+    torch.backends.cudnn.deterministic = True
+    batch = numerics_inputs(train_inputs(b, SEED + 19), numerics)
+    plain = trainers["plain"]
+
+    def run(name, it):
+        tr = trainers[name]
+        tr.iterations = it
+        if name == "group":
+            return cadence_iteration(tr, conf, it, *batch)
+        with outside_group(mesh):
+            return cadence_iteration(tr, conf, it, *batch)
+
+    stats = {k: {"max_abs_leaf_diff": 0.0, "mean_abs_diff_sum": 0.0,
+                 "bitwise_leaf_iterations": 0, "pre_update_losses": 0,
+                 "pre_update_losses_differing": 0,
+                 "post_update_max_rel_diff": 0.0}
+             for k in ("group", "plain_again")}
+    launches = {}
+    by_design = {}
+    for it in range(DIST_LOCKSTEP):
+        for name in ("plain_again", "group"):
+            trainers[name].load_state_dict(plain.state_dict())
+        out = {}
+        for name in trainers:
+            norms.reset_launches()
+            out[name] = run(name, it)
+            launches.setdefault(name, Counter()).update(norms.launches)
+            if name == "group":
+                for k, d in norms.design_launches.items():
+                    for design, n in d.items():
+                        by_design.setdefault(k, Counter())[design] += n
+        torch.cuda.synchronize()
+        ref = state_leaves(plain)
+        late = post_update(conf, cadence_steps, it)
+        for name in ("group", "plain_again"):
+            st, m, w = stats[name], out[name], out["plain"]
+            state = state_leaves(trainers[name])
+            leaf = largest_difference(state, ref)
+            st["max_abs_leaf_diff"] = max(st["max_abs_leaf_diff"], leaf)
+            st["mean_abs_diff_sum"] += (
+                sum((v - ref[0][k]).abs().sum().item()
+                    for k, v in state[0].items())
+                / sum(v.numel() for v in ref[0].values()))
+            st["bitwise_leaf_iterations"] += leaf == 0
+            for k in w:
+                if k == "lr":
+                    continue
+                if k in late:
+                    st["post_update_max_rel_diff"] = max(
+                        st["post_update_max_rel_diff"],
+                        abs(float(m[k]) - float(w[k])) / abs(float(w[k])))
+                else:
+                    st["pre_update_losses"] += 1
+                    st["pre_update_losses_differing"] += not torch.equal(
+                        m[k], w[k])
+    torch.backends.cudnn.deterministic = False
+    return run, stats, {
+        "launches": {k: dict(v) for k, v in launches.items()},
+        "launches_by_design": {k: dict(v) for k, v in by_design.items()}}
+
+
+def wait_for(path, what):
+    deadline = time.monotonic() + 900
+    while not Path(path).exists():
+        check(time.monotonic() < deadline, f"19(a): no {what} from the phase")
+        time.sleep(0.05)
+
+
+def dist_world1(port, go_batch8, go_timed):
+    """19(a), in a process of its own, a trainer in a world-1 group over
+    NCCL, captured, against two plain captured trainers of config_256: 8c's
+    lockstep test in 8c's numerics and batch (f32, TF32 off, batch 1),
+    beside 19(b), (c) and (d); once the file ``go_batch8`` exists (19(b)'s
+    processes and reference are done), the lockstep at batch 8 in bf16
+    with the group trainer's norm launches and the iterations up to the
+    timed windows, beside (c); once ``go_timed`` exists (the card is this
+    process's alone), ms an iteration of each in turns and a profile of a
+    replayed iteration of each step kind with the NCCL kernels in it."""
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.dist import mesh
+    from munit_tpu_torch.kernels import build, norms
+    from munit_tpu_torch.train.trainer import cadence_steps
+    t0 = time.perf_counter()
+    build.build_all()
+    conf = get_config(str(CONFIG))
+    mesh.init_group(f"localhost:{port},1,0", "cuda")
+    _, stats_8c, _ = dist_lockstep(dist_trainers(conf), conf, "tf32_off", 1,
+                                   mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_numerics("bf16")
+    trainers = dist_trainers(conf)
+    beside = time.perf_counter() - t0
+    wait_for(go_batch8, "go at batch 8")
+    t0 = time.perf_counter()
+    run, stats, counted = dist_lockstep(trainers, conf, "bf16", DIST_BATCH,
+                                        mesh)
+    steps = cadence(conf, DIST_LOCKSTEP)
+    want = expected_launches(norms, conf, steps)
+    for it in range(DIST_LOCKSTEP, DIST_WARM):
+        for name in ("plain", "group"):
+            run(name, it)
+    torch.cuda.synchronize()
+    batch8 = time.perf_counter() - t0
+    wait_for(go_timed, "go to time")
+    t_alone = time.perf_counter()
+    ms = {"plain": [], "group": []}
+    start = DIST_WARM
+    for name in ("plain", "group", "group", "plain"):
+        first = start + DIST_TIMED * (len(ms[name]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(first, first + DIST_TIMED):
+            run(name, it)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / DIST_TIMED)
+    tr = trainers["group"]
+    at = DIST_WARM + 2 * DIST_TIMED
+    profiled = {}
+    for kind, it in DIST_PROFILED.items():
+        for skip in range(at, it):
+            run("group", skip)
+        before = sum(tr._graphs.replays.values())
+        rows, _ = device_profile(lambda it=it: run("group", it), 1)
+        n, names = nccl_kernels(rows)
+        profiled[kind] = {"iteration": it, "nccl_kernels": n,
+                          "nccl_kernel_names": names,
+                          "replays": sum(tr._graphs.replays.values())
+                          - before,
+                          "steps": len(cadence_steps(conf, it))}
+        at = it + 1
+    return {"stats_8c": stats_8c, "stats": stats, **counted,
+            "expected": want, "ms_per_iteration": ms, "profiled": profiled,
+            "seconds_batch1": beside, "seconds_batch8": batch8,
+            "seconds_alone": time.perf_counter() - t_alone,
+            "graphs": {k: len(t._graphs) for k, t in trainers.items()},
+            "world": mesh.world(), "backend": mesh.backend()}
+
+
+def dist_b_steps(tr, conf, batch):
+    """19(b)'s steps, each from the trainer's state now: {step: (metrics,
+    the nets it updates on the host)}."""
+    from munit_tpu_torch.io.checkpoint import to_host
+    start = to_host(tr.state_dict())
+    nets = {"dis": ("dis_a", "dis_b"), "dis_gen": ("gen", "dis_a", "dis_b"),
+            "classifier_sr": ("classifier_sr_a", "classifier_sr_b")}
+    out = {}
+    x_a, x_b, m_a, m_b = batch
+    for step in DIST_B_STEPS:
+        tr.load_state_dict(start)
+        tr.iterations = 0
+        if step == "dis":
+            m = tr.dis_update(x_a, x_b)
+        elif step == "dis_gen":
+            m = tr.dis_gen_update(x_a, x_b, m_a, m_b)
+        else:
+            m = tr.domain_classifier_sr_update(
+                x_a, x_b, domain_synth=False,
+                lamb=conf["adaptation"]["dfeat_lambda"])
+        state = to_host(tr.state_dict())["nets"]
+        out[step] = ({k: float(v) for k, v in m.items()},
+                     {k: state[k] for k in nets[step]})
+    return out, to_host(start)["nets"]
+
+
+def dist_rank(rank, port, out):
+    """19(b), one of two processes on the one card in a gloo group, eager:
+    config_256 in parity numerics on its 4 rows of the global batch of 8;
+    its steps' metrics and nets into ``out`` (torch.save)."""
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.dist import mesh
+    from munit_tpu_torch.train.trainer import MUNITTrainer
+    conf = get_config(str(CONFIG))
+    device = mesh.init_group(f"localhost:{port},{DIST_WORLD},{rank}",
+                             "cuda", _backend="gloo")
+    set_numerics("tf32_off")
+    torch.backends.cudnn.deterministic = True
+    per = DIST_BATCH // DIST_WORLD
+    r = int(rank)
+    batch = [t[r * per:(r + 1) * per] for t in
+             train_inputs(DIST_BATCH, SEED + 20)]
+    tr = MUNITTrainer(conf, device, _capture=False)
+    tr.init(torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    res, _ = dist_b_steps(tr, conf, batch)
+    seconds = time.perf_counter() - t0
+    torch.save(res, out)
+    mesh.shutdown()
+    return {"rank": r, "seconds": seconds}
+
+
+def update_share(before, want, got, lr):
+    """The share of a net's weights whose update parts from ``want``'s by
+    more than 1e-2 lr plus an ulp (``tests/torch_port_util.update_errors``'
+    rule), and the running statistics' largest |diff| over each vector's
+    largest."""
+    past, total, stats = 0, 0, 0.0
+    for k, w in want.items():
+        g, b = got[k].double(), before[k].double()
+        if "running" in k:
+            stats = max(stats, ((g - w.double()).abs().max()
+                                / w.double().abs().max()).item())
+            continue
+        gap = ((g - b) - (w.double() - b)).abs()
+        ulp = torch.maximum(b.abs(), w.double().abs()) * 2.0 ** -23
+        past += int((gap > 1e-2 * lr + ulp).sum())
+        total += gap.numel()
+    return {"share": past / max(total, 1), "stats_rel": stats}
+
+
+def dist_cli(cfg: Path, out: Path, counts: Path, *extra):
+    port = free_port()
+    return subprocess.Popen(
+        [sys.executable, "-c", CLI_RUNNER, str(counts), "train", "--config",
+         str(cfg), "--output_path", str(out), "--dist",
+         f"localhost:{port},1,0", *extra],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def dist_replicas_phase(norms, get_config, tmp: Path):
+    """19(d): translate_batch's decodes and the service's dispatch through
+    ``Replicas([cuda:0, cuda:0])`` against one replica on the same parts,
+    bit for bit; the launches of the two-replica dispatch."""
+    from types import SimpleNamespace
+    from munit_tpu_torch.cli import translate_batch
+    from munit_tpu_torch.core import ops
+    from munit_tpu_torch.nn.generator import GenBundle
+    from munit_tpu_torch.serve import server
+    conf = get_config(str(CONFIG))
+    ops.set_conv_compute(None)
+    parity_mode(True)
+    gen = GenBundle(conf, "cuda")
+    gen.init(torch.Generator().manual_seed(SEED + 21))
+    ckpt = tmp / "dist_gen.pt"
+    torch.save({"2": {k: v.cpu() for k, v in gen.state_dict().items()}},
+               ckpt)
+    two = [torch.device("cuda", 0)] * 2
+    g = torch.Generator().manual_seed(SEED + 22)
+    x = (torch.rand((1, 256, 256, 3), generator=g) * 2 - 1).cuda()
+    styles = torch.randn((DIST_STYLES, conf["gen"]["style_dim"]),
+                         generator=g)
+    def opts(num_style, mesh):
+        return SimpleNamespace(checkpoint=str(ckpt), a2b=1,
+                               num_style=num_style, mesh=mesh)
+    saved = translate_batch.mesh_devices
+    try:
+        translate_batch.mesh_devices = lambda mesh, device: two
+        pair = translate_batch.munit_translator(opts(DIST_STYLES, "auto"),
+                                                conf, "cuda")
+        with torch.inference_mode():
+            norms.reset_launches()
+            got = pair(x, styles)
+            torch.cuda.synchronize()
+            tb_launches = dict(norms.launches)
+    finally:
+        translate_batch.mesh_devices = saved
+    one = translate_batch.munit_translator(opts(DIST_STYLES // 2, "off"),
+                                           conf, "cuda")
+    whole = translate_batch.munit_translator(opts(DIST_STYLES, "off"), conf,
+                                             "cuda")
+    with torch.inference_mode():
+        half = DIST_STYLES // 2
+        want = torch.cat([one(x, styles[:half]), one(x, styles[half:])])
+        whole_out = whole(x, styles)
+    tb_bitwise = torch.equal(got, want)
+    tb_whole_diff = (got - whole_out).abs().max().item()
+
+    saved = server.mesh_devices
+    try:
+        server.mesh_devices = lambda mesh, device: two
+        svc2 = server.TranslationService(conf, gen, max_batch=8, mesh="auto")
+    finally:
+        server.mesh_devices = saved
+    svc1 = server.TranslationService(conf, gen, max_batch=8, mesh="off")
+    style = np.zeros((1, conf["gen"]["style_dim"]), np.float32)
+    for svc in (svc1, svc2):
+        svc.styles["default"] = style
+        svc.warmup()
+    rng = np.random.RandomState(SEED + 23)
+    xs = rng.uniform(-1, 1, (8, 256, 256, 3)).astype(np.float32)
+    ss = rng.randn(8, conf["gen"]["style_dim"]).astype(np.float32)
+    norms.reset_launches()
+    out2 = svc2._run_padded(xs, ss)
+    serve_launches = dict(norms.launches)
+    out1 = np.concatenate([svc1._run_padded(xs[:4], ss[:4]),
+                           svc1._run_padded(xs[4:], ss[4:])])
+    whole1 = svc1._run_padded(xs, ss)
+    graphs = [len(gr) for gr in svc2._graphs]
+    for svc in (svc1, svc2):
+        svc.batcher.close()
+    res = {"translate_batch_bitwise": tb_bitwise,
+           "translate_batch_vs_one_call_max_abs": tb_whole_diff,
+           "translate_batch_launches": tb_launches,
+           "serve_bitwise": bool(np.array_equal(out2, out1)),
+           "serve_vs_one_call_max_abs": float(np.abs(out2 - whole1).max()),
+           "serve_buckets": svc2.batcher.buckets,
+           "serve_min_batch": svc2.batcher.min_batch,
+           "serve_graphs_per_replica": graphs,
+           "serve_launches": serve_launches}
+    emit(phase="dist_replicas", devices=[str(d) for d in two], **res)
+    check(tb_bitwise, f"translate_batch on two replicas: {res}")
+    check(res["serve_bitwise"], f"serve on two replicas: {res}")
+    check(graphs == [3, 3] and res["serve_min_batch"] == 2
+          and res["serve_buckets"] == [2, 4, 8],
+          f"two-replica service's buckets and graphs: {res}")
+    # translate_batch: one content encode (11 IN), a decode a replica (8
+    # AdaIN, 2 LN each); the service: an encode and a decode a replica
+    want_tb = {"instance_norm": 11, "adain": 16, "whole_layer_norm": 4}
+    want_serve = {"instance_norm": 22, "adain": 16, "whole_layer_norm": 4}
+    for k in want_tb:
+        check(tb_launches[k] == want_tb[k]
+              and serve_launches[k] == want_serve[k],
+              f"two-replica launches of {k}: {tb_launches}, "
+              f"{serve_launches}")
+    return res
+
+
+def dist_phase(norms, get_config, data, tmp: Path):
+    """Phase 19: data parallel (ROADMAP item 16). (a)'s process, (b)'s two
+    gloo ranks and (c)'s train CLI under --dist start together, with (b)'s
+    reference and then (d) in this process; (a) runs its 8c leg beside
+    them, its batch-8 leg once (b) is done, and its timed part alone once
+    (c) is done. Returns the group trainer's norm launches by design
+    (19a)."""
+    t_phase = time.perf_counter()
+    conf = get_config(str(CONFIG))
+    root = tmp / "dist"
+    root.mkdir(parents=True, exist_ok=True)
+    go = (root / "world1_batch8.go", root / "world1_timed.go")
+    a_proc = start_dist("world1", root / "world1.json", free_port(), *go)
+    port = free_port()
+    ranks = [start_dist("rank", root / f"rank{r}.json", r, port,
+                        root / f"rank{r}.pt") for r in range(DIST_WORLD)]
+    cfg = write_config(root / "cli" / "config_256.yaml", data,
+                       {**DIST_CLI_KEYS, "max_iter": DIST_CLI_SPLIT})
+    t_cli = time.perf_counter()
+    cli = dist_cli(cfg, root / "cli", root / "cli_counts.json")
+    try:
+        return dist_checks(norms, get_config, conf, root, ranks, cli, cfg,
+                           t_cli, a_proc, go, t_phase)
+    finally:
+        for proc in (a_proc, *ranks, cli):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dist_checks(norms, get_config, conf, root, ranks, cli, cfg, t_cli,
+                a_proc, go, t_phase):
+    """dist_phase's waits and checks, the processes started."""
+    from munit_tpu_torch.io import checkpoint
+    from munit_tpu_torch.train.trainer import MUNITTrainer
+    # the one-process reference of (b), on the whole batch
+    set_numerics("tf32_off")
+    torch.backends.cudnn.deterministic = True
+    ref_tr = MUNITTrainer(conf, "cuda", _capture=False)
+    ref_tr.init(torch.Generator().manual_seed(SEED))
+    ref, before = dist_b_steps(ref_tr, conf,
+                               train_inputs(DIST_BATCH, SEED + 20))
+    torch.backends.cudnn.deterministic = False
+    del ref_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = dist_replicas_phase(norms, get_config, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rank_info = [wait_dist(p, root / f"rank{r}.json", f"19(b) rank {r}")[0]
+                 for r, p in enumerate(ranks)]
+    go[0].touch()
+    got = [torch.load(root / f"rank{r}.pt", weights_only=False)
+           for r in range(DIST_WORLD)]
+    b_res = {}
+    lr = float(conf["lr"])
+    ranks_equal = True
+    for step in DIST_B_STEPS:
+        (m_ref, nets_ref), (m0, nets0) = ref[step], got[0][step]
+        m1, nets1 = got[1][step]
+        ranks_equal &= m0 == m1 and all(
+            torch.equal(nets0[n][k], nets1[n][k])
+            for n in nets0 for k in nets0[n])
+        rel = max(abs(m0[k] - v) / max(abs(v), 1e-12)
+                  for k, v in m_ref.items() if k != "lr")
+        per_net = {n: update_share(before[n], nets_ref[n], nets0[n], lr)
+                   for n in nets_ref}
+        b_res[step] = {"losses_max_rel_diff": rel, "nets": per_net}
+    stdout, stderr = cli.communicate(timeout=600)
+    check(cli.returncode == 0, f"19(c) train --dist: {stderr[-3000:]}")
+    cfg.write_text(cfg.read_text().replace(
+        f"max_iter: {DIST_CLI_SPLIT}", f"max_iter: {DIST_CLI_ITERS}"))
+    resumed = dist_cli(cfg, root / "cli", root / "cli_counts2.json",
+                       "--resume")
+    r_out, r_err = resumed.communicate(timeout=600)
+    cli_seconds = time.perf_counter() - t_cli
+    check(resumed.returncode == 0, f"19(c) --resume: {r_err[-3000:]}")
+    run = root / "cli" / "outputs" / "config_256"
+    lines = [json.loads(ln) for ln in (run / "metrics.jsonl").open()]
+    logged = [m["step"] for m in lines if "loss_dis_total" in m]
+    finite = all(np.isfinite(v) for m in lines for k, v in m.items()
+                 if k.startswith("loss"))
+    sem = [m["loss_sem_seg"] for m in lines if "loss_sem_seg" in m]
+    snapshots = checkpoint.steps(str(run / "checkpoints"))
+    images = sorted(p.name for p in (run / "images").iterdir())
+    counts = [json.loads((root / n).read_text())["launches"]
+              for n in ("cli_counts.json", "cli_counts2.json")]
+    emit(phase="dist_gloo_ranks", world=DIST_WORLD, batch_each=DIST_BATCH
+         // DIST_WORLD, numerics="tf32_off", eager=True,
+         steps=b_res, ranks_bitwise_equal=ranks_equal, ranks=rank_info,
+         losses_rtol=POST_UPDATE_RTOL, update_share_max=UPDATE_SHARE_MAX)
+    emit(phase="dist_cli", world=1, backend="nccl", logged_steps=logged,
+         snapshots=snapshots, images=images, losses_finite=finite,
+         loss_sem_seg=sem, resumed="Resume from iteration" in r_out,
+         launches=counts, seconds_two_runs=cli_seconds)
+    check(ranks_equal, "19(b): the two ranks' states differ")
+    for step, r in b_res.items():
+        check(r["losses_max_rel_diff"] <= POST_UPDATE_RTOL,
+              f"19(b) {step}: {r}")
+        for net, e in r["nets"].items():
+            check(e["share"] <= UPDATE_SHARE_MAX
+                  and e["stats_rel"] <= POST_UPDATE_RTOL,
+                  f"19(b) {step} {net}: {e}")
+    check(logged == list(range(1, DIST_CLI_ITERS + 1)),
+          f"19(c) logged steps {logged}")
+    check(finite and sem and min(sem) > 0,
+          f"19(c) losses finite {finite}, loss_sem_seg {sem}")
+    check(snapshots == list(range(2, DIST_CLI_ITERS + 1, 2)),
+          f"19(c) snapshots {snapshots}")
+    check("Resume from iteration 4" in r_out, f"19(c) resume: {r_out[-2000:]}")
+    # the rest of (a), alone on the card: it is timed
+    go[1].touch()
+    a, _ = wait_dist(a_proc, root / "world1.json", "19(a)")
+    emit(phase="dist_world1", batch=DIST_BATCH, numerics="bf16",
+         lockstep_8c={"batch": 1, "numerics": "tf32_off",
+                      "cudnn_deterministic": True},
+         lockstep_iterations=DIST_LOCKSTEP, bf16_post_update_rtol=
+         DIST_BF16_POST_RTOL, **a)
+    check(a["world"] == 1 and a["backend"] == "nccl", f"19(a): {a}")
+    check(a["launches"]["group"] == a["launches"]["plain"] == a["expected"],
+          f"19(a) launches {a['launches']}, want {a['expected']}")
+    for key, post_rtol in (("stats_8c", POST_UPDATE_RTOL),
+                           ("stats", DIST_BF16_POST_RTOL)):
+        st, noise = a[key]["group"], a[key]["plain_again"]
+        check(st["pre_update_losses_differing"] == 0,
+              f"19(a) {key} pre-update losses differ: {st}")
+        check(st["post_update_max_rel_diff"] <= post_rtol,
+              f"19(a) {key} post-update losses: {st}")
+        if noise["bitwise_leaf_iterations"] == DIST_LOCKSTEP:
+            check(st["bitwise_leaf_iterations"] == DIST_LOCKSTEP,
+                  f"19(a) {key} state differs where plain is bitwise: {st}")
+        else:
+            check(st["mean_abs_diff_sum"] <= 2 * noise["mean_abs_diff_sum"],
+                  f"19(a) {key} state {st} against plain-to-plain {noise}")
+    for kind, p in a["profiled"].items():
+        check(p["nccl_kernels"] > 0 and p["replays"] == p["steps"],
+              f"19(a) profile of a replayed {kind} iteration: {p}")
+    emit(phase="dist_seconds", seconds=time.perf_counter() - t_phase)
+    return a["launches_by_design"], d
+
+
+def dist_alone() -> int:
+    """``python3 chip_smoke.py --dist``: the build and phase 19 alone."""
+    from munit_tpu_torch.config import get_config
+    from munit_tpu_torch.kernels import build, norms
+    print(subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_train_data(Path(tmp) / "data")
+        dist_phase(norms, get_config, data, Path(tmp))
+    return 0
+
+
 # Phase 2's host µs per wrapper call without a gradient (through the
 # registered operators, where a checkout has them) in a checkout, through
 # its own chip_smoke.py, in turns with the direct forward
@@ -5909,7 +6510,7 @@ def hd_fields(name, hd):
 def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                  mom_err, mom_times, probe_launches, cli_launches,
                  sim_launches, vanilla_launches, hd, eval_launches,
-                 serve_launches, aot_launches, unit_launches):
+                 serve_launches, aot_launches, unit_launches, dist_launches):
     """The kernel line: one entry per wrapper and design (the cluster and
     the grid kernels of a wrapper are separate kernels), forward and
     backward, then the moments kernels of the probes. The grid kernels
@@ -5917,11 +6518,15 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
     ones their launches in phase 16's evaluate run (``launches_eval``), in
     phase 17's served requests (``launches_serve``), in phase 18's
     artifact dispatches (``launches_aot``) and UNIT run
-    (``launches_unit``)."""
+    (``launches_unit``); every norm kernel its launches in phase 19's
+    data-parallel training (``launches_dist``)."""
 
     def later(name, design):
         return {"launches_aot": aot_launches.get(name, {}).get(design, 0),
                 "launches_unit": unit_launches.get(name, {}).get(design, 0)}
+
+    def dist(name, design):
+        return {"launches_dist": dist_launches.get(name, {}).get(design, 0)}
 
     def total(rows, key):
         return sum(n * row[key] for n, row in rows)
@@ -5959,6 +6564,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                   "launches_serve": serve_launches[name]["grid"],
                   **later(name, "grid")})
         return entry(name, "grid", hd_rows(name, hd), errs, **f, **extra,
+                     **dist(name, "grid"),
                      replaces=replaces, also_replaces=also,
                      launches=f["launches_hd"],
                      per="config_HD's calls of this design at batch 1, "
@@ -5987,7 +6593,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_vanilla=vanilla_launches[name][design],
                 launches_eval=eval_launches[name][design],
                 launches_serve=serve_launches[name][design],
-                **later(name, design),
+                **later(name, design), **dist(name, design),
                 per="one translated image: its calls of this design at "
                     "batch 1, float32; split_ms: the split design's time "
                     "for the same calls (the was); library_ms: one PyTorch "
@@ -6010,7 +6616,9 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "launches_aot: the f32, bf16 and int8 artifacts' "
                     "dispatches at batch 1 and 8 in fresh processes (phase "
                     "18b); launches_unit: translate_batch --trainer UNIT "
-                    "over 16 images (phase 18e)"))
+                    "over 16 images (phase 18e); launches_dist: 15 "
+                    "iterations at batch 8 in bf16 of a trainer in a world-1 "
+                    "NCCL group, captured (phase 19a)"))
     for name, calls in BWD_CALLS.items():
         rows = [(n, bwd_times[(name, *key, key[0])])
                 for key, n in calls.items()]
@@ -6029,6 +6637,7 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                 launches_cli=cli_launches[name + "_bwd"][design],
                 launches_sim2real=sim_launches[name + "_bwd"][design],
                 launches_vanilla=vanilla_launches[name + "_bwd"][design],
+                **dist(name + "_bwd", design),
                 per="one fused dis+gen step's backward calls of this design "
                     "at batch 1, float32; split_ms: the split design's "
                     "time for the same calls; launches(_bf16): 15 training "
@@ -6038,7 +6647,8 @@ def kernel_table(err, times, bwd_err, bwd_times, launches, train_launches,
                     "13), launches_vanilla: its 2 vanilla runs (phase 14); "
                     "*_hd: one narrow config_HD fused step's backward calls "
                     "at batch 1, float32 (phase 15a), launches_hd and "
-                    "launches_hd_fused_step as the forward's"))
+                    "launches_hd_fused_step as the forward's; "
+                    "launches_dist: phase 19a's, as the forward's"))
     for row, name, probe, dname, replaces in PROBE_KERNELS:
         t = mom_times[(name, PROBE_SHAPES[0], dname)]
         kernels.append({
@@ -6106,12 +6716,30 @@ def main() -> int:
         return serve_alone()
     if sys.argv[1:] == ["--aot"]:
         return aot_alone()
+    if sys.argv[1:] == ["--dist"]:
+        return dist_alone()
     if sys.argv[1:2] == ["--host-us"]:
         return host_us_trees(sys.argv[2:])
     if sys.argv[1:2] == ["--cli-numerics"]:
         return cli_numerics(sys.argv[2:])
     if sys.argv[1:2] == ["--profiler"]:
         return profiler_alone(sys.argv[2:])
+    grads_dir = Path(tempfile.mkdtemp())
+    grads_cpu = []
+    try:
+        return whole_run(grads_dir, grads_cpu)
+    finally:
+        for proc in grads_cpu:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(grads_dir)
+
+
+def whole_run(grads_dir: Path, started: list) -> int:
+    """Phases 1-19; phase 9's CPU runs start after the imports, beside
+    phases 1-8 (the card's phases leave most of the host's cores idle),
+    their process appended to ``started``."""
     # a checkout of the repo: the port and its sources must be here
     from munit_tpu_torch.cli import translate
     from munit_tpu_torch.config import get_config, validate
@@ -6131,6 +6759,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip()
     print(smi, flush=True)
+    grads_cpu = grads_cpu_start(grads_dir)
+    started.append(grads_cpu[0])
     t0 = time.perf_counter()
     libs = build.build_all()
     ptxas = [ln.strip() for name in libs for ln in
@@ -6164,8 +6794,11 @@ def main() -> int:
     train_conf = get_config(str(CONFIG))
     check(train_conf["semantic_w"] > 0, "config_256 trains with semantic_w")
     train_launches, fixed = {}, {}
-    for numerics in ("tf32", "bf16"):
-        for b in BATCHES:
+    # TF32 at batch 1 only: its batch-8 leg (~45 s) was cut to keep the
+    # script within its limit once phase 19 joined it; bf16, the
+    # production numerics, keeps batch 1 and 8
+    for numerics, batches in (("tf32", (1,)), ("bf16", BATCHES)):
+        for b in batches:
             tr, batch, counts = training_phase(
                 norms, MUNITTrainer, train_steps, train_conf, b, numerics)
             train_launches.setdefault(numerics, counts)
@@ -6174,18 +6807,10 @@ def main() -> int:
                 fixed[b] = res
             del tr, batch
             torch.cuda.empty_cache()
-    grads_dir = Path(tempfile.mkdtemp())
-    grads_cpu = grads_cpu_start(grads_dir)
-    try:
-        capture_parity_phase(MUNITTrainer, cadence_iteration, cadence_steps,
-                             train_conf)
-        grads_phase(MUNITTrainer, train_conf, removed_by_norm, grads_cpu,
-                    bench_phase)
-    finally:
-        if grads_cpu[0].poll() is None:
-            grads_cpu[0].kill()
-            grads_cpu[0].wait()
-        shutil.rmtree(grads_dir)
+    capture_parity_phase(MUNITTrainer, cadence_iteration, cadence_steps,
+                         train_conf)
+    grads_phase(MUNITTrainer, train_conf, removed_by_norm, grads_cpu,
+                bench_phase)
 
     parity_mode(True)
     mom_err, mom_times = moments_phase(moments)
@@ -6205,12 +6830,13 @@ def main() -> int:
         serve_launches = serve_phase(norms, get_config, data, Path(tmp))
         aot_launches, unit_launches = aot_phase(norms, get_config, data,
                                                 Path(tmp))
+        dist_launches, _ = dist_phase(norms, get_config, data, Path(tmp))
 
     print(json.dumps({"kernels": kernel_table(
         err, times, bwd_err, bwd_times, launches, train_launches, mom_err,
         mom_times, probe_launches, cli_launches, sim_launches,
         vanilla_launches, hd, eval_launches, serve_launches, aot_launches,
-        unit_launches)}), flush=True)
+        unit_launches, dist_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,8 +12,11 @@ so either package's ``evaluate`` reads either's file.
   python -m munit_tpu_torch compute_moments --images trainB.txt \\
       --inception_ckpt inception.pth --out moments.npz [--device cpu]
 
-``--images``: a txt list of paths or a folder. ``--mesh auto`` (several
-cards) is not ported: ROADMAP queue 1 item 16.
+``--images``: a txt list of paths or a folder. ``--mesh auto`` pools on
+every visible card (``dist.Replicas``, the JAX command's ``--mesh auto``):
+an Inception on each, every batch padded to a multiple of the cards by
+repeating its last image and split, the pools gathered and the pad's rows
+sliced off. With one card, or on the CPU, it is the run without it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from PIL import Image
 from munit_tpu_torch.cli.translate import resolve_device
 from munit_tpu_torch.data import transforms as T
 from munit_tpu_torch.data.datasets import read_filelist, scan_folder
+from munit_tpu_torch.dist.mesh import Replicas, mesh_devices
 from munit_tpu_torch.eval.inception import load_inception, pool_and_logits
 
 
@@ -43,7 +47,7 @@ def parse_args(argv=None):
     p.add_argument("--new_size", type=int, default=256)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--mesh", choices=["off", "auto"], default="off",
-                   help="auto is not ported (ROADMAP item 16)")
+                   help="auto: every batch split over every visible card")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p.parse_args(argv)
 
@@ -60,18 +64,17 @@ def load_square(path: str, size: int) -> np.ndarray:
 def main(argv=None):
     """Writes the moments file; returns its arrays {mu, sigma, pool}."""
     opts = parse_args(argv)
-    if opts.mesh == "auto":
-        raise SystemExit("--mesh auto (several cards) is not ported; "
-                         "ROADMAP queue 1 item 16")
     device = resolve_device(opts.device)
     paths = (scan_folder(opts.images) if os.path.isdir(opts.images)
              else read_filelist(opts.images))
-    net = load_inception(opts.inception_ckpt, device)
+    reps = Replicas(mesh_devices(opts.mesh, device))
+    nets = [load_inception(opts.inception_ckpt, d) for d in reps.devices]
     pools = []
     for i in range(0, len(paths), opts.batch_size):
         x = np.stack([load_square(p, opts.new_size)
                       for p in paths[i:i + opts.batch_size]])
-        pool, _ = pool_and_logits(net, torch.from_numpy(x).to(device))
+        pool = reps(lambda j, x_j: pool_and_logits(nets[j], x_j)[0],
+                    torch.from_numpy(x))
         pools.append(pool.cpu().numpy())
     pool = np.concatenate(pools, axis=0)
     out = {"mu": pool.mean(axis=0), "sigma": np.cov(pool, rowvar=False),

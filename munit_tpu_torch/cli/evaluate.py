@@ -26,8 +26,15 @@ The generator comes from any file ``translate`` reads, its convolutions in
 float32 with TF32 off (``ops.set_conv_compute(None)``) as the JAX CLI's
 ``Precision.HIGHEST``; the Inception from
 a torchvision ``inception_v3`` ``.pth``, an ``.npz`` or the JAX CLIs'
-pickle. ``--mesh auto`` (several cards) is not ported: ROADMAP queue 1
-item 16.
+pickle.
+
+``--mesh auto`` runs on every visible card (``dist.Replicas``, the JAX
+command's ``--mesh auto``): a generator and an Inception on each, every
+FID batch padded to a multiple of the cards by repeating its last pair and
+split, each card translating and pooling its contiguous part, the pools
+gathered and the pad's rows sliced off; a sweep decodes as many frames at
+once as there are cards, one a card. With one card, or on the CPU, either
+command is the run without it.
 """
 
 from __future__ import annotations
@@ -42,19 +49,20 @@ from munit_tpu_torch.cli.translate import (load_generator, load_image,
                                            resolve_device, save_image01)
 from munit_tpu_torch.config import get_config
 from munit_tpu_torch.core import ops
-
-MESH_REFUSED = ("--mesh auto (several cards) is not ported; ROADMAP queue 1 "
-                "item 16")
+from munit_tpu_torch.dist.mesh import Replicas, mesh_devices
 
 
-def fid_pools(gen, inception, batches, device) -> np.ndarray:
+def fid_pools(reps: Replicas, gens, inceptions, batches) -> np.ndarray:
     """The pool-3 vectors (N, 2048) of each batch's guided a→b
-    translations."""
+    translations, each batch split over ``reps``' devices, with their
+    generators ``gens`` and Inceptions ``inceptions``."""
     from munit_tpu_torch.eval.fid import accumulate_activations, guided_a2b
     from munit_tpu_torch.eval.inception import pool_and_logits
-    return accumulate_activations(
-        lambda x_a, x_b: guided_a2b(gen, x_a, x_b),
-        lambda fake: pool_and_logits(inception, fake)[0], batches, device)
+
+    def pool(i, x_a, x_b):
+        return pool_and_logits(inceptions[i],
+                               guided_a2b(gens[i], x_a, x_b))[0]
+    return accumulate_activations(reps, pool, batches)
 
 
 def cmd_fid(opts):
@@ -64,18 +72,17 @@ def cmd_fid(opts):
     from munit_tpu_torch.eval.inception import load_inception
     from munit_tpu_torch.eval.kid import kid
 
-    if opts.mesh == "auto":
-        raise SystemExit(MESH_REFUSED)
     device = resolve_device(opts.device)
     ops.set_conv_compute(None)
     conf = get_config(opts.config)
-    gen = load_generator(opts.checkpoint, conf, device)
-    net = load_inception(opts.inception_ckpt, device)
+    reps = Replicas(mesh_devices(opts.mesh, device))
+    gens = [load_generator(opts.checkpoint, conf, d) for d in reps.devices]
+    nets = [load_inception(opts.inception_ckpt, d) for d in reps.devices]
     loader = get_fid_data_loader(
         conf["data_list_fid_a"], conf["data_list_fid_b"],
         max(conf["batch_size_fid"], 1), new_size=conf["new_size"],
         num_workers=conf["num_workers"])
-    pool = fid_pools(gen, net, loader.batches(), device)
+    pool = fid_pools(reps, gens, nets, loader.batches())
     with np.load(conf["inception_moment_path"]) as z:
         moments = {k: z[k] for k in z.files}
     fid = compute_fid_from_pools(pool, moments["mu"], moments["sigma"],
@@ -100,19 +107,23 @@ def cmd_sweep(opts):
     device = resolve_device(opts.device)
     ops.set_conv_compute(None)
     conf = get_config(opts.config)
-    gen = load_generator(opts.checkpoint, conf, device)
-    c = gen.encode_content(load_image(opts.input, conf["new_size"], device),
-                           1)
+    reps = Replicas(mesh_devices(opts.mesh, device))
+    gens = [load_generator(opts.checkpoint, conf, d) for d in reps.devices]
+    c = gens[0].encode_content(
+        load_image(opts.input, conf["new_size"], device), 1)
     styles = get_slerp_interp(opts.nb_latents, opts.nb_interp,
                               conf["gen"]["style_dim"],
                               np.random.RandomState(opts.seed))
     os.makedirs(opts.output_folder, exist_ok=True)
-    frames = []
-    for i, s in enumerate(styles):
-        out = gen.decode(c, torch.from_numpy(s)[None].to(device), 2)
-        frames.append(out[0].cpu().numpy())
-        save_image01((frames[-1] + 1) / 2.0,
-                     os.path.join(opts.output_folder, f"sweep{i:03d}.jpg"))
+    frames, k = [], len(reps)
+    for at in range(0, len(styles), k):
+        s = torch.from_numpy(np.stack(styles[at:at + k]))
+        out = reps(lambda i, c_i, s_i: gens[i].decode(c_i, s_i, 2),
+                   c.expand(s.shape[0], *c.shape[1:]), s)
+        for j, frame in enumerate(out.cpu().numpy()):
+            frames.append(frame)
+            save_image01((frame + 1) / 2.0, os.path.join(
+                opts.output_folder, f"sweep{at + j:03d}.jpg"))
     print(f"Wrote {len(styles)} sweep frames to {opts.output_folder}")
     return np.stack(frames)
 
@@ -128,7 +139,8 @@ def parse_args(argv=None):
                    help="also report Kernel Inception Distance (needs a "
                         "moments file with the raw real `pool`)")
     f.add_argument("--mesh", choices=["off", "auto"], default="off",
-                   help="auto is not ported (ROADMAP item 16)")
+                   help="auto: every FID batch split over every visible "
+                        "card")
     f.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     s = sub.add_parser("sweep")
     s.add_argument("--config", required=True)
@@ -138,6 +150,8 @@ def parse_args(argv=None):
     s.add_argument("--nb_latents", type=int, default=1)
     s.add_argument("--nb_interp", type=int, default=8)
     s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--mesh", choices=["off", "auto"], default="off",
+                   help="auto: as many frames at once as visible cards")
     s.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p.parse_args(argv)
 

@@ -34,7 +34,12 @@ hiddens an image (the encoder's noise, drawn from a generator on the device
 seeded by ``--seed``, is dropped, as the JAX command drops it), written as
 style ``_00``.
 
-Not ported, and refused: ``--mesh auto`` (ROADMAP queue 1 item 16).
+``--mesh auto`` splits each image's ``num_style`` decodes over every
+visible card (``dist.Replicas``, the JAX command's ``--mesh auto``): the
+content encoded once on the first card, the styles padded to a multiple of
+the cards by repeating the last one, each card decoding its contiguous
+part, the outputs gathered and the pad sliced off. With one card, or on the
+CPU, it is the run without it. UNIT's one decode an image takes one device.
 
 Usage:
   python -m munit_tpu_torch translate_batch --config configs/config.yaml \\
@@ -59,15 +64,12 @@ from munit_tpu_torch.cli.translate import (load_generator, resolve_device,
 from munit_tpu_torch.config import get_config
 from munit_tpu_torch.core import ops
 from munit_tpu_torch.data.datasets import ImageFolder
+from munit_tpu_torch.dist.mesh import Replicas, mesh_devices
 from munit_tpu_torch.eval.inception import inception_probs, load_inception
 from munit_tpu_torch.eval.scores import (conditional_inception_score,
                                          inception_score)
 from munit_tpu_torch.io.weights import drop_adain_buffers
 from munit_tpu_torch.nn.generator import VAEGen
-
-REFUSED = (("mesh", "auto", "--mesh auto (several cards) is not ported; "
-            "ROADMAP queue 1 item 16"),)
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
@@ -104,7 +106,8 @@ def parse_args(argv=None):
                    help="UNIT: VAE generators from a .pt of slots a and b, "
                         "one decode an image")
     p.add_argument("--mesh", choices=["off", "auto"], default="off",
-                   help="auto is not ported (ROADMAP item 16)")
+                   help="auto: each image's decodes split over every "
+                        "visible card")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p.parse_args(argv)
 
@@ -130,14 +133,31 @@ def unit_translator(opts, conf, device):
     return lambda x, styles: dec.decode(enc.encode(x, noise)[0])
 
 
+def draw_styles(g: torch.Generator, n: int, style_dim: int) -> torch.Tensor:
+    """n N(0, I) style codes from ``g``, on the CPU."""
+    return torch.randn((n, style_dim), generator=g)
+
+
+def munit_translator(opts, conf, device):
+    """MUNIT's translate(x, styles): the content of x once, on the first
+    device of ``--mesh``'s, decoded with each style, the styles split over
+    the devices."""
+    reps = Replicas(mesh_devices(opts.mesh, device))
+    gens = [load_generator(opts.checkpoint, conf, d) for d in reps.devices]
+    enc_dom, dec_dom = (1, 2) if opts.a2b else (2, 1)
+
+    def translate(x, styles):
+        c = gens[0].encode_content(x, enc_dom)
+        return reps(lambda i, c_i, s_i: gens[i].decode(c_i, s_i, dec_dom),
+                    c.repeat(opts.num_style, 1, 1, 1), styles)
+    return translate
+
+
 @torch.inference_mode()
 def main(argv=None):
     """Translate the folder; returns, per image in file order, its
     (num_style, H, W, 3) float32 translations in [-1, 1]."""
     opts = parse_args(argv)
-    for key, value, msg in REFUSED:
-        if getattr(opts, key) == value:
-            raise SystemExit(msg)
     if opts.inception_ckpt is None:
         # IS/CIS measure the target domain (test_batch.py:98-102)
         opts.inception_ckpt = (opts.inception_b if opts.a2b
@@ -154,13 +174,7 @@ def main(argv=None):
         opts.num_style = 1
         translate = unit_translator(opts, conf, device)
     else:
-        gen = load_generator(opts.checkpoint, conf, device)
-        enc_dom, dec_dom = (1, 2) if opts.a2b else (2, 1)
-
-        def translate(x, styles):
-            c = gen.encode_content(x, enc_dom)
-            return gen.decode(c.repeat(opts.num_style, 1, 1, 1),
-                              styles.to(device), dec_dom)
+        translate = munit_translator(opts, conf, device)
     net = load_inception(opts.inception_ckpt, device) if scoring else None
 
     dataset = ImageFolder(opts.input_folder, new_size, new_size, new_size,
@@ -168,13 +182,13 @@ def main(argv=None):
     if len(dataset) == 0:
         raise SystemExit("Image list is empty.")
     g = torch.Generator().manual_seed(opts.seed)
-    style_fixed = torch.randn((opts.num_style, style_dim), generator=g)
+    style_fixed = draw_styles(g, opts.num_style, style_dim)
     outs, preds = [], []
     for i in range(len(dataset)):
         sample = dataset.get(i, np.random.default_rng(0))
         x = torch.from_numpy(sample["image"])[None].to(device)
         styles = (style_fixed if opts.synchronized else
-                  torch.randn((opts.num_style, style_dim), generator=g))
+                  draw_styles(g, opts.num_style, style_dim))
         y = translate(x, styles)
         if net is not None:
             preds.append(inception_probs(net, (y + 1.0) / 2.0).cpu().numpy())

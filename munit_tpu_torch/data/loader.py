@@ -7,7 +7,11 @@ batch to the card on a side CUDA stream from a pump thread, so the copy of
 the next batch overlaps the current step.
 
 Sharding: ``shard_index``/``shard_count`` give each process a disjoint
-slice of every epoch's permutation.
+slice of every epoch's permutation (the JAX package's ``--dist``: each
+process a batch of its own). ``row_index``/``row_count`` give a process its
+contiguous rows of each batch, batch_size / row_count of them, and decode
+only those (one loader's batch split over the cards of a one-process
+``--mesh``, which the port runs as one process a card).
 """
 
 from __future__ import annotations
@@ -36,9 +40,15 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  num_workers: int = 4, seed: int = 0,
                  shard_index: int = 0, shard_count: int = 1,
-                 prefetch: int = 4):
+                 prefetch: int = 4, row_index: int = 0, row_count: int = 1):
+        if batch_size % row_count:
+            raise ValueError(f"batch_size {batch_size} does not split into "
+                             f"{row_count} equal parts")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.row_index = row_index
+        self.row_count = row_count
+        self.rows = batch_size // row_count   # the rows a batch yields
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.seed = seed
@@ -100,7 +110,7 @@ class DataLoader:
     def _in_flight_window(self) -> int:
         """Max decode futures submitted but not yet consumed: bounds the
         decoded samples held in RAM."""
-        return max(2 * self.batch_size, 2 * self.num_workers)
+        return max(2 * self.rows, 2 * self.num_workers)
 
     def _iterate(self, start_batch: int = 0, single_epoch: bool = False):
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -122,8 +132,10 @@ class DataLoader:
                 if skip >= usable > 0:
                     skip -= usable          # whole epoch already consumed
                 else:
-                    for i in idx[skip:usable]:
-                        yield epoch, i
+                    for p in range(skip, usable):
+                        if (p % self.batch_size) // self.rows \
+                                == self.row_index:
+                            yield epoch, idx[p]
                     skip = 0
                 epoch += 1
                 if single_epoch:
@@ -150,11 +162,11 @@ class DataLoader:
                                 stream, window - len(in_flight)):
                             in_flight.append(
                                 pool.submit(self._load_or_substitute, ep, i))
-                        if len(in_flight) < self.batch_size:
+                        if len(in_flight) < self.rows:
                             put_blocking(None)   # a single epoch's end
                             return
                         samples = [in_flight.popleft().result()
-                                   for _ in range(self.batch_size)]
+                                   for _ in range(self.rows)]
                         batch = {k: np.stack([smp[k] for smp in samples])
                                  for k in samples[0]
                                  if not isinstance(samples[0][k], str)}

@@ -12,7 +12,12 @@ diverge; ``compute_fid_from_pools`` then falls back to the exact scipy
 ``prepare_inception_metrics`` gives the loop its in-training FID
 (``eval_fid``): guided a→b translations of the FID loader's pairs
 (``trainer.sample_fid``), their pool-3 activations, and the Fréchet
-distance to the precomputed real moments (``cli/compute_moments``).
+distance to the precomputed real moments (``cli/compute_moments``). In a
+data-parallel group (``mesh=True``) every rank reads the whole FID list,
+translates and pools its contiguous slice of each batch (padded to a
+multiple of the ranks by repeating its last row), and the pools are
+gathered in rank order: the one-process FID (``munit_tpu/eval/fid.py:
+108-160``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from munit_tpu_torch.core.ops import exact_f32
+from munit_tpu_torch.dist import mesh as dist
 from munit_tpu_torch.eval.inception import pool_and_logits
 
 
@@ -121,30 +127,33 @@ def guided_a2b(gen, x_a: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def accumulate_activations(sample_fn: Callable, pool_fn: Callable,
-                           fid_batches: Iterable, device) -> np.ndarray:
+def accumulate_activations(split, pool_fn: Callable,
+                           fid_batches: Iterable) -> np.ndarray:
     """accumulate_inception_activations (inception_utils.py:246-254):
-    translate each paired batch on ``device``, pool each translation."""
-    pools = []
-    for batch in fid_batches:
-        fake = sample_fn(torch.from_numpy(batch["image_a"]).to(device),
-                         torch.from_numpy(batch["image_b"]).to(device))
-        pools.append(pool_fn(fake).cpu().numpy())
-    return np.concatenate(pools, axis=0)
+    ``pool_fn(i, x_a, x_b)``, device i's pools of the translations of its
+    part of a paired batch, over each batch as ``split`` parts it
+    (``dist.Replicas``: a part a device of this process, or
+    ``dist.GroupSlice``: this rank's part of the group's), concatenated."""
+    return np.concatenate(
+        [split(pool_fn, torch.from_numpy(b["image_a"]),
+               torch.from_numpy(b["image_b"])).cpu().numpy()
+         for b in fid_batches], axis=0)
 
 
 def prepare_inception_metrics(inception_moment_path: str, inception,
                               newton_schulz: bool = True,
-                              mesh=None) -> Callable:
+                              mesh: bool = False) -> Callable:
     """The reference protocol (inception_utils.py:258-308): returns
     ``get_inception_metrics(trainer, fid_loader)`` → FID, with
     ``inception`` an ``InceptionV3`` on the trainer's device.
     ``newton_schulz=False`` takes scipy's exact ``sqrtm`` (the JAX package's
-    ``use_jax=False``, cheaper than 400 iterations on a CPU host)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "in-training FID over a mesh (several cards) is not ported; "
-            "ROADMAP queue 1 item 16")
+    ``use_jax=False``, cheaper than 400 iterations on a CPU host).
+    ``mesh``: over the data-parallel group this process is in (every rank
+    calls it and gets the FID, which the lead computes from the gathered
+    pools)."""
+    if mesh and not dist.active():
+        raise ValueError("mesh=True needs a data-parallel group "
+                         "(dist.init_group)")
     with np.load(inception_moment_path) as moments:
         data_mu, data_sigma = moments["mu"], moments["sigma"]
 
@@ -153,9 +162,15 @@ def prepare_inception_metrics(inception_moment_path: str, inception,
 
     def get_inception_metrics(trainer, fid_loader,
                               newton_schulz=newton_schulz):
-        pool = accumulate_activations(trainer.sample_fid, pool_fn,
-                                      fid_loader.batches(), trainer.device)
-        return compute_fid_from_pools(pool, data_mu, data_sigma,
-                                      newton_schulz, device=trainer.device)
+        split = (dist.GroupSlice(trainer.device) if mesh
+                 else dist.Replicas([trainer.device]))
+        pool = accumulate_activations(
+            split, lambda i, x_a, x_b: pool_fn(trainer.sample_fid(x_a, x_b)),
+            fid_loader.batches())
+        if mesh and not dist.is_lead():
+            return dist.from_lead(0.0)
+        fid = compute_fid_from_pools(pool, data_mu, data_sigma,
+                                     newton_schulz, device=trainer.device)
+        return dist.from_lead(fid) if mesh else fid
 
     return get_inception_metrics

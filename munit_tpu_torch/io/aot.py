@@ -196,6 +196,14 @@ def save_artifact(path: str, module: nn.Module, image_size: int,
     return programs
 
 
+def on_device(program, device):
+    """``program`` with its weights and every device its graph names on
+    ``device``: moving the loaded module (``.to``) moves only its weights,
+    and a factory op would still create its tensor on the traced card."""
+    from torch.export.passes import move_to_device_pass
+    return move_to_device_pass(program, torch.device(device))
+
+
 class Translator:
     """A loaded artifact on one device: guided translation without the
     model code.
@@ -211,6 +219,10 @@ class Translator:
         self.meta = meta
         self.new_size = meta["new_size"]
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index not in (None, 0):
+            # the programs load on the card they were traced on
+            programs = {k: on_device(p, self.device)
+                        for k, p in programs.items()}
         self._encode_style = programs["encode_style"].module()
         self._translate = programs["translate"].module()
 

@@ -13,7 +13,9 @@ Its BatchNorm runs in train mode, as flax's ``nn.BatchNorm(momentum=0.9)``
 does and not as ``nn.BatchNorm2d``'s defaults: the output uses the batch's
 mean and biased variance, and the running statistics, when the caller asks
 for their update, move as running = 0.9 running + 0.1 batch with the
-*biased* batch variance. Parameter names follow the reference
+*biased* batch variance. Inside a data-parallel group (``dist/mesh.py``)
+the batch is the global one: the statistics are meaned over the group's
+equal parts, and so are their gradients. Parameter names follow the reference
 ``state_dict`` (``BasicBlock{1,2}.{conv1,conv2,bn1,bn2}``,
 ``.downsample.{0,1}``, ``fc``), the layout
 ``convert_domain_classifier_state_dict`` reads.
@@ -26,6 +28,7 @@ from torch import nn
 
 from munit_tpu_torch.core import init as winit
 from munit_tpu_torch.core import ops
+from munit_tpu_torch.dist import mesh
 
 MOMENTUM = 0.9   # flax's convention: the weight of the old running value
 BN_EPS = 1e-5
@@ -46,7 +49,14 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
         xf = ops.upcast_f32(x)
         mean = xf.mean(dim=(0, 1, 2))
-        var = (xf - mean).square().mean(dim=(0, 1, 2))
+        if mesh.active():
+            # inside a data-parallel group: the global batch's mean, then
+            # its biased variance about it, each the mean over the ranks'
+            # equal parts (at world 1 the one-process values, bit for bit)
+            mean = mesh.group_mean(mean)
+            var = mesh.group_mean((xf - mean).square().mean(dim=(0, 1, 2)))
+        else:
+            var = (xf - mean).square().mean(dim=(0, 1, 2))
         if update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)

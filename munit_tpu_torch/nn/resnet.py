@@ -216,9 +216,12 @@ class SegmentationHead(nn.Module):
 def _imagenet_stats(dtype: torch.dtype, device: torch.device):
     """The normalization's mean and std on ``device``, made once: a step
     captured as a CUDA graph (``train/graphs.py``) may copy nothing from
-    the host."""
-    return (torch.tensor(_IMAGENET_MEAN, dtype=dtype, device=device),
-            torch.tensor(_IMAGENET_STD, dtype=dtype, device=device))
+    the host. Made outside inference mode, so that a training step may
+    read them after an inference command (InceptionV3's preprocessing,
+    under ``torch.inference_mode``) made them first in the process."""
+    with torch.inference_mode(False):
+        return (torch.tensor(_IMAGENET_MEAN, dtype=dtype, device=device),
+                torch.tensor(_IMAGENET_STD, dtype=dtype, device=device))
 
 
 def imagenet_normalize(img01: torch.Tensor) -> torch.Tensor:

@@ -33,9 +33,14 @@ API:
   POST /translate           → JPEG bytes (body: image file bytes)
   POST /translate?style=ID  → use a named preloaded style
 
-Not ported, and refused: ``--mesh auto`` with more than one card visible
-(data-parallel serving; ROADMAP queue 1 item 16). One card serves as the
-JAX server does on one device.
+``--mesh auto`` (the default, as the JAX server's) serves from every
+visible card (``dist.Replicas``): the model on each card (an artifact's
+programs loaded once a card), its own stream and its own CUDA graph per
+bucket; ``--max-batch`` is rounded up to a multiple of the cards and the
+smallest bucket is one row a card, as the JAX server's rules; each
+dispatch pads the batch to a multiple of the cards by repeating its last
+row, splits it, launches every card's part, then gathers the rows. With
+one card, or on the CPU, it is the one-device service.
 """
 
 from __future__ import annotations
@@ -57,11 +62,8 @@ from PIL import Image
 
 from munit_tpu_torch.core import ops
 from munit_tpu_torch.data import transforms as T
+from munit_tpu_torch.dist.mesh import Replicas, mesh_devices
 from munit_tpu_torch.train import graphs
-
-MESH_REFUSED = ("--mesh auto with more than one card (data-parallel "
-                "serving) is not ported; ROADMAP queue 1 item 16: pass "
-                "--mesh off or make one card visible")
 
 
 class Overloaded(RuntimeError):
@@ -210,18 +212,22 @@ class MicroBatcher:
                     it["ev"].set()
 
 
-def check_ported(mesh: str, device) -> None:
-    """Stop, naming the ROADMAP item, on what this port does not serve."""
-    if (mesh != "off" and torch.device(device).type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise SystemExit(MESH_REFUSED)
+def mesh_batch(max_batch: int, n_dev: int) -> int:
+    """The JAX server's ``max_batch`` over n_dev cards: batched serving
+    (max_batch > 1) rounds it up to a multiple of the cards."""
+    if n_dev > 1 and max_batch > 1:
+        max_batch = max(max_batch, n_dev)
+        max_batch += (-max_batch) % n_dev
+    return max_batch
 
 
 class TranslationService:
     """The model (a loaded ``GenBundle``, on its device, or a deployment
     artifact's programs for ``device``), the encoded styles and the
     translate dispatch: a CUDA graph per bucket on the card, eager on the
-    CPU."""
+    CPU. The replicas' devices are ``--mesh``'s (every visible card for
+    ``auto`` on the card); the first is the model's own, and the styles
+    are encoded and calibrated there."""
 
     def __init__(self, conf: Optional[Dict] = None, gen=None,
                  new_size: Optional[int] = None,
@@ -248,7 +254,14 @@ class TranslationService:
         else:
             self.device = gen.device
             self.new_size = new_size or conf["new_size"]
-        check_ported(mesh, self.device)
+        self.devices = mesh_devices(mesh, self.device)
+        self.devices[0] = self.device   # the model's own
+        if self.artifact is not None:
+            self._models = [self.artifact] + [
+                aot.load_artifact(artifact, d) for d in self.devices[1:]]
+        else:
+            self._models = [gen] + [self._gen_copy(d)
+                                    for d in self.devices[1:]]
         self.quant = quant == "int8"
         self._scales = None  # per-site activation maxima (int8 calibration)
         # style codes (1, style_dim), on the host: a dispatch copies them to
@@ -258,38 +271,51 @@ class TranslationService:
         self._lock = threading.Lock()
         self._direct_limit = 64   # non-batched path admission bound
         self._direct_slots = threading.BoundedSemaphore(self._direct_limit)
-        self.n_dev = 1
-        cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
-        self.graphs = graphs.StepGraphs(self.device) if cuda else None
+        self.n_dev = len(self.devices)
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.devices]
+        self._graphs = [graphs.StepGraphs(d) if d.type == "cuda" else None
+                        for d in self.devices]
+        self.graphs = self._graphs[0]
+        self._replicas = Replicas(self.devices, context=self._on_device)
+        max_batch = mesh_batch(max_batch, self.n_dev)
         self.batcher: Optional[MicroBatcher] = None
         if max_batch > 1:
             self.batcher = MicroBatcher(self._run_padded, max_batch,
-                                        max_wait_ms, max_queue=max_queue)
+                                        max_wait_ms, min_batch=self.n_dev,
+                                        max_queue=max_queue)
+
+    def _gen_copy(self, device):
+        """The generator's copy on another replica's device."""
+        from munit_tpu_torch.nn.generator import GenBundle
+        copy = GenBundle(self.conf, device)
+        copy.load_state_dict(self.gen.state_dict())
+        return copy
 
     @contextlib.contextmanager
-    def _on_device(self):
-        """Inference mode, and on the card the service's device and stream:
+    def _on_device(self, i: int = 0):
+        """Inference mode, and on the card replica i's device and stream:
         the batcher's thread and the caller's run on one stream, and
         ``torch.inference_mode`` is per thread."""
         with torch.inference_mode():
-            if self._stream is None:
+            if self._streams[i] is None:
                 yield
             else:
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(self._stream):
+                with torch.cuda.device(self.devices[i]), \
+                        torch.cuda.stream(self._streams[i]):
                     yield
 
-    def _body(self, x_a, s_b):
+    def _body(self, x_a, s_b, i: int = 0):
+        model = self._models[i]
         if self.artifact is not None:
-            return self.artifact.translate(x_a, s_b)
-        return self.gen.decode(self.gen.encode_content(x_a, 1), s_b, 2)
+            return model.translate(x_a, s_b)
+        return model.decode(model.encode_content(x_a, 1), s_b, 2)
 
-    def _translate(self, x_a, s_b):
+    def _translate(self, x_a, s_b, i: int = 0):
         """The model: static int8 once calibrated with ``--quant int8``."""
         with ops.conv_quant(self.quant and self._scales is not None,
                             scales=self._scales):
-            return self._body(x_a, s_b)
+            return self._body(x_a, s_b, i)
 
     def graph_key(self, x, s) -> tuple:
         """The bucket's graph key: its inputs' shapes, types and device,
@@ -298,23 +324,26 @@ class TranslationService:
         return graphs.step_key("translate", False, (), (x, s),
                                ("int8" if scales else "none", scales))
 
-    def dispatch(self, x, s) -> torch.Tensor:
-        """One batch through the model, on the service's device: a copy of
+    def dispatch(self, x, s, i: int = 0) -> torch.Tensor:
+        """One batch through replica i's model, on its device: a copy of
         the bucket's graph's output on the card (eager at a key's first
         call, captured at its second), the eager output on the CPU. Call it
-        inside ``_on_device``."""
-        if self.graphs is None:
-            return self._translate(x, s)
-        return self.graphs.run(self.graph_key(x, s),
-                               lambda x, s: {"y": self._translate(x, s)},
-                               (x, s))["y"]
+        inside ``_on_device(i)``."""
+        if self._graphs[i] is None:
+            return self._translate(x, s, i)
+        return self._graphs[i].run(
+            self.graph_key(x, s),
+            lambda x, s: {"y": self._translate(x, s, i)}, (x, s))["y"]
 
     def _run_padded(self, x, s) -> np.ndarray:
-        """A batch of images and style codes, numpy → numpy output."""
-        with self._on_device():
-            xt, st = (torch.from_numpy(np.ascontiguousarray(a, np.float32))
-                      .to(self.device) for a in (x, s))
-            return self.dispatch(xt, st).cpu().numpy()
+        """A batch of images and style codes, numpy → numpy output: padded
+        to a multiple of the replicas, split over them, gathered."""
+        xt, st = (torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                  for a in (x, s))
+        return self._replicas(self._dispatch_part, xt, st, to="cpu").numpy()
+
+    def _dispatch_part(self, i, x, s):
+        return self.dispatch(x, s, i)
 
     def _prep(self, img: Image.Image) -> np.ndarray:
         """Resize the shorter side to ``new_size``, center crop, [-1, 1]:
@@ -364,16 +393,16 @@ class TranslationService:
         if self.quant and self._scales is None:
             self.calibrate()
         s1 = next(iter(self.styles.values()))
-        sizes = self.batcher.buckets if self.batcher else [1]
-        with self._on_device():
-            for b in sizes:
-                x = torch.zeros((b, self.new_size, self.new_size, 3),
-                                device=self.device)
-                s = torch.from_numpy(np.repeat(s1, b, axis=0)).to(self.device)
-                for _ in range(1 if self.graphs is None else 2):
-                    self.dispatch(x, s)
-            if self._stream is not None:
-                self._stream.synchronize()
+        # the direct path pads one request to one row a replica
+        sizes = self.batcher.buckets if self.batcher else [self.n_dev]
+        for b in sizes:
+            x = torch.zeros((b, self.new_size, self.new_size, 3))
+            s = torch.from_numpy(np.repeat(s1, b, axis=0))
+            for _ in range(1 if self.graphs is None else 2):
+                self._replicas(self._dispatch_part, x, s)
+        for stream in self._streams:
+            if stream is not None:
+                stream.synchronize()
 
     def translate(self, img: Image.Image,
                   style: str = "default") -> Image.Image:
@@ -502,8 +531,7 @@ def parse_args(argv=None):
                    help="folder of content images for int8 calibration "
                         "(default: the style exemplars)")
     p.add_argument("--mesh", choices=["auto", "off"], default="auto",
-                   help="auto with more than one card is not ported "
-                        "(ROADMAP item 16)")
+                   help="auto: serve from every visible card")
     p.add_argument("--max-queue", type=int, default=None,
                    help="admission-control bound on waiting requests; "
                         "overflow is shed with 503 + Retry-After "
@@ -520,7 +548,6 @@ def build_service(opts) -> TranslationService:
         raise SystemExit("--config and --checkpoint are required without "
                          "--artifact")
     device = resolve_device(opts.device)
-    check_ported(opts.mesh, device)
     ops.set_conv_compute(None)
     common = dict(max_batch=opts.max_batch, max_wait_ms=opts.max_wait_ms,
                   quant=opts.quant, mesh=opts.mesh, max_queue=opts.max_queue)

@@ -26,6 +26,15 @@ On a card the trainer's steps run as CUDA graphs (``train/graphs.py``):
 each step kind's first call runs eagerly, its second captures, later ones
 replay.
 
+In a data-parallel group (``dist/mesh.py``) every rank runs the loop on its
+part of each global batch; only the lead (rank 0) writes metrics, grids,
+``index.html`` and checkpoints (``munit_tpu/train/loop.py:97-98, 260-274``),
+and every rank takes part in the in-training FID. Each rank reaches a
+barrier after each snapshot and at the end, after the lead's checkpoints
+are on disk. The stop event is agreed at each iteration's end (set on any
+rank, all snapshot at that step). ``images_per_sec`` counts the global
+batch.
+
 A non-finite logged loss raises ``TrainingDiverged`` when its window is
 written, which happens before any checkpoint is committed, so the last
 checkpoint is never a poisoned one. The FID runs eagerly under no_grad
@@ -47,6 +56,7 @@ import torch
 
 from munit_tpu_torch.core.ops import conv_compute_dtype
 from munit_tpu_torch.data.loader import device_prefetch
+from munit_tpu_torch.dist import mesh
 from munit_tpu_torch.eval.sample import write_2images
 from munit_tpu_torch.io.checkpoint import CheckpointWriter
 from munit_tpu_torch.train.trainer import cadence_iteration
@@ -141,7 +151,8 @@ def train_loop(trainer, conf, loaders, output_directory: str,
     flush, which waits for the card, grids, checkpoints), and
     "iterations"."""
     device = torch.device(device if device is not None else trainer.device)
-    logger = logger or MetricLogger(output_directory)
+    lead = mesh.is_lead()
+    logger = logger or MetricLogger(output_directory, enabled=lead)
     ckpt_dir = os.path.join(output_directory, "checkpoints")
     img_dir = os.path.join(output_directory, "images")
     max_iter = max_iter or conf["max_iter"]
@@ -193,7 +204,7 @@ def train_loop(trainer, conf, loaders, output_directory: str,
                                         mask_a, mask_b, bs)
             t_rest = time.perf_counter()
 
-            tput_imgs += int(x_a.shape[0])
+            tput_imgs += int(x_a.shape[0]) * mesh.world()
             if (iterations + 1) % conf["log_iter"] == 0:
                 # device scalars, read in windows: no per-iteration sync
                 pending.append((iterations + 1, metrics))
@@ -208,7 +219,7 @@ def train_loop(trainer, conf, loaders, output_directory: str,
                     if stats:
                         logger.log_metrics(stats, iterations + 1)
 
-            if display_batches is not None:
+            if display_batches is not None and lead:
                 tr_a, tr_b, te_a, te_b = display_batches
                 if (iterations + 1) % conf["image_save_iter"] == 0:
                     write_2images(trainer.sample(te_a, te_b), display,
@@ -225,12 +236,14 @@ def train_loop(trainer, conf, loaders, output_directory: str,
             if (iterations + 1) % conf["snapshot_save_iter"] == 0:
                 # a NaN since the last flush must not reach a checkpoint
                 flush()
-                writer().save(trainer.state_dict(), iterations + 1)
+                if lead:
+                    writer().save(trainer.state_dict(), iterations + 1)
                 # in-training FID (train.py:119-130 prepared it, never ran
                 # it; the JAX loop's hook at snapshot time)
                 if conf.get("eval_fid", 0) > 0 and loaders.get("fid_metrics"):
                     fid = loaders["fid_metrics"](trainer, loaders["fid"])
                     logger.log_metrics({"FID": fid}, iterations + 1)
+                mesh.barrier()
 
             iterations += 1
             if host_seconds is not None:
@@ -239,10 +252,13 @@ def train_loop(trainer, conf, loaders, output_directory: str,
                              ("bookkeeping", time.perf_counter() - t_rest),
                              ("iterations", 1)):
                     host_seconds[k] = host_seconds.get(k, 0) + v
-            if stop is not None and stop.is_set():
+            if mesh.any_rank(stop is not None and stop.is_set()):
                 flush()
-                writer().save(trainer.state_dict(), iterations)
+                if lead:
+                    writer().save(trainer.state_dict(), iterations)
                 logger.log_metrics({"preempted": 1.0}, iterations)
+                if stop is not None:
+                    stop.set()
                 break
         last_step = pending[-1][0] if pending else None
         flush()   # the last window: logged and divergence-checked
@@ -261,4 +277,5 @@ def train_loop(trainer, conf, loaders, output_directory: str,
             prof.stop()
         if ckpt_writer is not None:
             ckpt_writer.close()
+    mesh.barrier()   # the lead's checkpoints are on disk
     return iterations

@@ -121,6 +121,17 @@ step's and, at K > 1, the exact fused step's phase A (trainer.py:700-705,
 fused steps stay in full precision, as JAX's. The switch is read once per
 trainer (``int8_dis_fakes``) and is part of each step's graph key.
 
+Data parallel (``dist/mesh.py``; the JAX trainer under ``--mesh`` or
+``--dist``): inside a process group each rank runs the steps on its part of
+the global batch. ``_update`` means the gradients over the group before the
+optimizer's half-step, and each step means its metrics, inside the step's
+body, so a captured step reduces on every replay (over NCCL; a gloo group
+on a card runs eagerly, ``_capture=False``); the train-mode batch norms
+take the global batch's statistics; ``draw_style`` draws the global batch
+of styles from the one seeded stream and keeps this rank's rows; the graph
+key holds the group's size. With ``grad_accum`` each rank takes K chunks
+of its own part. The result is the one-process step on the global batch.
+
 ``check_ported`` reads the JAX trainer's switches and refuses, naming its
 ROADMAP item, each that this port lacks.
 """
@@ -139,6 +150,7 @@ import torch
 
 from munit_tpu_torch.config import dis_pyramid_floor, pyramid_message
 from munit_tpu_torch.core import ops
+from munit_tpu_torch.dist import mesh
 from munit_tpu_torch.eval.fid import guided_a2b
 from munit_tpu_torch.eval.segmap import decode_segmap
 from munit_tpu_torch.losses import losses
@@ -230,6 +242,16 @@ def check_ported(conf: Dict) -> None:
 
 def _named(module: torch.nn.Module) -> Tensors:
     return dict(module.named_parameters())
+
+
+def _group_means(m: Tensors) -> Tensors:
+    """A step's metrics, inside a group their means over it (one
+    all-reduce)."""
+    if not mesh.active():
+        return m
+    flat = torch.stack([v.detach().float() for v in m.values()])
+    mesh.mean_over_group_([flat])
+    return {k: f.to(v.dtype) for (k, v), f in zip(m.items(), flat.unbind())}
 
 
 class MUNITTrainer:
@@ -343,6 +365,10 @@ class MUNITTrainer:
         self._scalars = torch.zeros(1 + len(self._slot), device=self.device)
         self._scalar_views = self._scalars.unbind()
         self._capture = _capture and self.device.type == "cuda"
+        if self._capture and mesh.active() and mesh.backend() != "nccl":
+            raise ValueError(
+                f"captured steps reduce over NCCL; this group is "
+                f"{mesh.backend()}: pass _capture=False")
         self._graphs = graphs.StepGraphs(self.device)
 
     # ---------------------------------------------------------- parameters
@@ -392,9 +418,14 @@ class MUNITTrainer:
 
     def draw_style(self, bsz: int, dtype: torch.dtype) -> torch.Tensor:
         """One random style batch: N(0, I) of shape (bsz, style_dim) in
-        ``dtype``, from ``style_gen`` on the trainer's device."""
-        return torch.randn((bsz, self.style_dim), generator=self.style_gen,
-                           device=self.device, dtype=dtype)
+        ``dtype``, from ``style_gen`` on the trainer's device. Inside a
+        group, the global batch's draw (bsz x world rows), of which this
+        rank keeps its own."""
+        world, r = mesh.world(), mesh.rank()
+        s = torch.randn((bsz * world, self.style_dim),
+                        generator=self.style_gen, device=self.device,
+                        dtype=dtype)
+        return s if world == 1 else s[r * bsz:(r + 1) * bsz]
 
     def load_segmenter(self, state_dict: Tensors) -> None:
         """The frozen segmenter's weights, reference ``resnet34_8s.*``
@@ -765,8 +796,10 @@ class MUNITTrainer:
 
     def _update(self, grads, name, params, extrapolate):
         """An optimizer's half-step on the device, with the lr and its bias
-        correction read from the device scalars."""
+        correction read from the device scalars; inside a group, on the
+        gradients' mean over it."""
         c = self.conf
+        mesh.mean_over_group_(list(grads.values()))
         extra_adam_apply(grads, self._opts()[name], params,
                          self._scalar_views[0],
                          self._scalar_views[self._slot[name]], extrapolate,
@@ -794,12 +827,12 @@ class MUNITTrainer:
         states = [self._opts()[k] for k in opts]
 
         def run(*ts):
-            return body(extrapolate, *static, *ts)
+            return _group_means(body(extrapolate, *static, *ts))
         if self._capture:
             key = graphs.step_key(kind, extrapolate,
                                   [o.has_copy for o in states], tensors,
-                                  static + (("int8_dis",
-                                             self.int8_dis_fakes),))
+                                  static + (("world", mesh.world()),
+                                            ("int8_dis", self.int8_dis_fakes)))
             m = self._graphs.run(key, run, tensors)
         else:
             m = {k: v.detach() for k, v in run(*tensors).items()}
@@ -979,8 +1012,8 @@ class MUNITTrainer:
     def dis_gen_grads(self, x_a, x_b, mask_a=None,
                       mask_b=None) -> Tuple[Tensors, Tensors]:
         """(dis grads, gen grads) of one fused step, both against the
-        current D, with no update (trainer.py:1025-1070); guided styles
-        only, as in the JAX package."""
+        current D, with no update (trainer.py:1025-1070), inside a group
+        their means over it; guided styles only, as in the JAX package."""
         if not self.guided:
             raise ValueError("dis_gen_grads takes guided styles only")
         mask_a, mask_b = self._masks(x_a, mask_a, mask_b)
@@ -990,7 +1023,9 @@ class MUNITTrainer:
                                     x_a, x_b)
         grads_d = self._grads(total_d, self.dis_params())
         total_g, _ = self._gen_loss(fw, x_a, x_b, mask_a, mask_b, targets)
-        return grads_d, self._grads(total_g, self.gen_params())
+        grads_g = self._grads(total_g, self.gen_params())
+        mesh.mean_over_group_([*grads_d.values(), *grads_g.values()])
+        return grads_d, grads_g
 
     @torch.no_grad()
     def _content_codes(self, x_a, x_b):

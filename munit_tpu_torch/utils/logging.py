@@ -11,12 +11,15 @@ from typing import Dict, Optional
 
 
 class MetricLogger:
-    """stdout and ``<output_dir>/metrics.jsonl`` (appended)."""
+    """stdout and ``<output_dir>/metrics.jsonl`` (appended). A logger that
+    is not ``enabled`` (a data-parallel group's other ranks) writes
+    nothing."""
 
-    def __init__(self, output_dir: Optional[str] = None, stdout: bool = True):
-        self.stdout = stdout
+    def __init__(self, output_dir: Optional[str] = None, stdout: bool = True,
+                 enabled: bool = True):
+        self.stdout = stdout and enabled
         self.jsonl = None
-        if output_dir:
+        if output_dir and enabled:
             os.makedirs(output_dir, exist_ok=True)
             self.jsonl = open(os.path.join(output_dir, "metrics.jsonl"), "a")
 

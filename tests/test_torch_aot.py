@@ -376,3 +376,40 @@ def test_row_pad_with_a_symbolic_batch(per_sample, pad):
         y = ep.module()(torch.ones(b, per_sample, 3))
         assert y.shape == (b * per_sample + pad, 3)
         assert y[b * per_sample:].abs().sum() == 0
+
+
+def _devices_named(program):
+    """The devices that the graph's nodes name, in their arguments and in
+    the tensors they record."""
+    found = set()
+
+    def walk(v):
+        if isinstance(v, torch.device):
+            found.add(v.type)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, torch.Tensor):
+            found.add(v.device.type)
+
+    for node in program.graph.nodes:
+        walk(node.args)
+        walk(node.kwargs)
+        walk(node.meta.get("val"))
+    return found
+
+
+def test_retargeted_program_names_no_traced_device(f32):
+    """A program loaded for another card than the one it was traced on
+    (``aot.on_device``; the CPU and ``meta`` stand in for two cards) names
+    that card alone: its factory ops' devices as well as its weights."""
+    for name, program in f32[1].items():
+        assert _devices_named(program) == {"cpu"}, name
+        moved = aot.on_device(program, "meta")
+        assert _devices_named(moved) == {"meta"}, name
+        module = moved.module()
+        assert {t.device.type for t in (*module.parameters(),
+                                        *module.buffers())} == {"meta"}

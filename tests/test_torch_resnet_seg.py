@@ -142,3 +142,16 @@ def test_dilated_conv_matches_jax():
                      torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
                      dilation=4, padding=4).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_preprocess_constants_serve_autograd_after_inference_mode():
+    """The cached ImageNet constants, made first by an inference command
+    (InceptionV3's preprocessing under ``torch.inference_mode``), still
+    serve a training step's autograd in the same process."""
+    from munit_tpu_torch.nn import resnet
+    resnet._imagenet_stats.cache_clear()
+    with torch.inference_mode():
+        seg_preprocess(torch.zeros(1, 4, 4, 3))
+    x = torch.zeros(1, 4, 4, 3, requires_grad=True)
+    seg_preprocess(x * 2).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()

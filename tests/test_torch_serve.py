@@ -14,8 +14,8 @@
 - HTTP: ``/healthz``, ``/stats``, ``/translate`` and an unknown style's 400,
   through the service that ``serve``'s ``main`` builds (``build_service``)
   with ``--device cpu``.
-- The refusals: ``--artifact`` with ``--quant int8``, ``--mesh auto`` with two cards
-  (item 16), the card by default without one.
+- The refusals: ``--artifact`` with ``--quant int8``, the card by default
+  without one; ``--mesh auto`` with two cards takes both (item 16).
 - The inference CLIs (``translate``, ``translate_batch``, ``evaluate fid``
   and ``sweep``, ``serve``) set the JAX CLIs' conv numerics, float32 with
   TF32 off, before they build the generator.
@@ -369,13 +369,15 @@ def test_artifact_refused(files):
 
 
 def test_multi_card_mesh_refused(files, monkeypatch):
+    """--mesh auto with two cards (ROADMAP item 16, refused until it was
+    ported) serves from both: every visible card for auto, one for off,
+    max_batch rounded up to a multiple of the cards when batching."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="item 16"):
-        server.main(_args(files))
-    with pytest.raises(SystemExit, match="item 16"):
-        server.check_ported("auto", "cuda")
-    server.check_ported("off", "cuda")   # --mesh off serves on one
+    assert server.mesh_devices("auto", "cuda") == [torch.device("cuda", 0),
+                                                   torch.device("cuda", 1)]
+    assert server.mesh_devices("off", "cuda") == [torch.device("cuda")]
+    assert [server.mesh_batch(b, 2) for b in (1, 2, 3, 8)] == [1, 2, 4, 8]
 
 
 def test_serve_needs_a_card_by_default(files, monkeypatch):

@@ -309,7 +309,7 @@ def test_translate_batch_matches_jax(lockstep, tmp_path, capsys):
     port's translate_batch writes input<i>.jpg and num_style folders, and
     each image's decodes equal JAX GenBundle's with the same styles (the
     port's seeded draws) within atol 1e-4; --synchronized takes the same
-    styles for every image; the refused options name their ROADMAP item;
+    styles for every image; --mesh auto on the CPU is the plain run;
     --compute_IS/--compute_CIS print the scores of the same translations'
     Inception predictions."""
     jtr, params = lockstep["jtr"], lockstep["init"]["gen"]
@@ -353,9 +353,12 @@ def test_translate_batch_matches_jax(lockstep, tmp_path, capsys):
         want = jtr.gen.decode(jparams, jnp.repeat(c, 3, axis=0),
                               jnp.asarray(fixed.numpy()), 2)
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
-    with pytest.raises(SystemExit, match="item 16"):
-        translate_batch.main(args + ["--output_folder", out, "--mesh",
-                                     "auto"])
+    # --mesh auto (ROADMAP item 16, refused until it was ported) on the CPU
+    # is the one-device run, bit for bit
+    meshed = translate_batch.main(args + ["--output_folder", out, "--mesh",
+                                          "auto"])
+    for got, want in zip(meshed, outs):
+        np.testing.assert_array_equal(got, want)
     # --compute_IS and --compute_CIS (ROADMAP item 14, refused until it was
     # ported) score the same translations with the given Inception
     incep = save_torch(inception_ref_weights(0), tmp_path / "incep.pth")
